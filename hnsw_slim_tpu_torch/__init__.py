@@ -2,11 +2,12 @@
 Hopper card.
 
 Module paths mirror the JAX package (``hnsw_slim_tpu``), which stays the
-reference. Plain tensor code is PyTorch; the four device programs with an
-arithmetic body on the serving and build path are hand-written CUDA kernels
-under ``csrc/`` (see ``ops/cuda.py``). Every kernel wrapper runs its plain
-PyTorch version when handed CPU tensors, and the kernel when handed CUDA
-tensors.
+reference. Plain tensor code is PyTorch; the device programs with an
+arithmetic body on the serving and build paths are hand-written CUDA
+kernels under ``csrc/`` (see ``ops/cuda.py``). Every kernel wrapper runs its
+plain PyTorch version when handed CPU tensors, and the kernel when handed
+CUDA tensors. Entry points default to the CUDA card and raise without one;
+pass ``device="cpu"`` to run on the CPU.
 
     from hnsw_slim_tpu_torch.index.hnsw import HnswIndex
     from hnsw_slim_tpu_torch.index.slim import HnswSlimIndex

@@ -1,4 +1,4 @@
-// Device helpers shared by the port's kernels (Kα–Kδ).
+// Device helpers shared by the port's kernels (Kα–Kζ).
 //
 // Every routine that takes a shared-memory array is called by ALL threads of
 // the block (blockDim.x a multiple of 32) and ends with __syncthreads(); the
@@ -34,13 +34,13 @@ __device__ __forceinline__ bool pair_less(float da, int ia, float db, int ib) {
   return da < db || (da == db && ia < ib);
 }
 
-// dot(a, b) over d floats by one warp (every lane gets the sum); b may be a
-// global row, a is in shared memory. vec4 needs d % 4 == 0 and 16-byte
-// aligned rows.
-__device__ __forceinline__ float warp_dot(const float* a, const float* b,
-                                          int d, bool vec4, float* nrm) {
+// This lane's share of dot(a, b) and of |b|^2 over d floats (lanes of one
+// warp split the row; warp_sum completes both). b may be a global row, a is
+// in shared memory. vec4 needs d % 4 == 0 and 16-byte aligned rows.
+__device__ __forceinline__ void partial_dot(const float* a, const float* b,
+                                            int d, bool vec4, float& s,
+                                            float& n) {
   const int lane = threadIdx.x & 31;
-  float s = 0.f, n = 0.f;
   if (vec4) {
     for (int e = lane * 4; e < d; e += 128) {
       const float4 x = __ldg(reinterpret_cast<const float4*>(b + e));
@@ -57,6 +57,14 @@ __device__ __forceinline__ float warp_dot(const float* a, const float* b,
       n = fmaf(x, x, n);
     }
   }
+}
+
+// dot(a, b) over d floats by one warp (every lane gets the sum), and |b|^2
+// into *nrm when nrm is given; operands as for partial_dot.
+__device__ __forceinline__ float warp_dot(const float* a, const float* b,
+                                          int d, bool vec4, float* nrm) {
+  float s = 0.f, n = 0.f;
+  partial_dot(a, b, d, vec4, s, n);
   if (nrm) *nrm = warp_sum(n);
   return warp_sum(s);
 }
@@ -155,13 +163,27 @@ __device__ __forceinline__ int count_at_or_below(const float* a, int n,
   return lo;
 }
 
-// binary search for v in ascending a[0, n)
-__device__ __forceinline__ bool member(const int* a, int n, int v) {
+// first index of ascending a[0, n) whose value is >= v / > v
+__device__ __forceinline__ int lower_bound(const int* a, int n, int v) {
   int lo = 0, hi = n;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
     if (a[mid] < v) lo = mid + 1; else hi = mid;
   }
+  return lo;
+}
+__device__ __forceinline__ int upper_bound(const int* a, int n, int v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] <= v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// binary search for v in ascending a[0, n)
+__device__ __forceinline__ bool member(const int* a, int n, int v) {
+  const int lo = lower_bound(a, n, v);
   return lo < n && a[lo] == v;
 }
 

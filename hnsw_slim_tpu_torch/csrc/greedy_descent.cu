@@ -1,0 +1,124 @@
+// Kε greedy_descent: one level of greedy descent over dense level rows, one
+// warp per query.
+//
+// Replaces (JAX): hnsw_slim_tpu/graph/search.py greedy_level_scored /
+// greedy_level with make_dense_fetch and make_exact_scorer — the
+// lax.while_loop that a whole batch runs in lockstep, once per upper level,
+// in level_search (the vanilla query path) and in the insert-time candidate
+// search (graph/build.py _build_search, _build_search0).
+//
+// What bounds it: the row gathers. A step reads one neighbor row (4*W bytes)
+// and one D*4-byte vector per valid neighbor (512 B at d=128), with 4*D
+// flops on each: far below the arithmetic rate, and the steps of one query
+// form a dependent chain, so latency rules unless many queries are in
+// flight.
+//
+// Design: one warp per query, eight queries per block, the query in shared
+// memory; each query loops on its own until no neighbor improves (no
+// lockstep, no batch-wide "changed" reduction). A neighbor vector is one
+// coalesced warp-wide load (16 bytes a lane at d=128); the loads of four
+// neighbors are issued before their reductions so their latencies overlap.
+// The distance and tie rules are the JAX scorer's: |q|^2 + |x|^2 - 2 q.x with
+// |x|^2 from the gathered row (or 1 - q.x), the argmin takes the smallest id
+// among equal minima, and the query moves only on a strict improvement.
+// Queries whose active flag is 0 keep their (cur, curdist) and count 0.
+#include "common.cuh"
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int NW = THREADS / 32;
+constexpr int GROUP = 4;
+
+__global__ void __launch_bounds__(THREADS)
+greedy_kernel(const float* __restrict__ vec, int D,
+              const int* __restrict__ rows, int W,
+              const float* __restrict__ q, const float* __restrict__ qn,
+              const unsigned char* __restrict__ active, int B, int metric,
+              int Dp, int* __restrict__ cur, float* __restrict__ curdist,
+              int* __restrict__ hops_out, int* __restrict__ dcomp_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * NW + warp;
+  if (b >= B) return;  // whole warp; the kernel has no block barrier
+  float* qs = reinterpret_cast<float*>(smem) + (size_t)warp * Dp;
+  for (int i = lane; i < D; i += 32) qs[i] = q[(size_t)b * D + i];
+  __syncwarp();
+
+  const bool vec4 = (D & 3) == 0;
+  const float qnv = qn[b];
+  int c = cur[b];
+  float cd = curdist[b];
+  int hops = 0, dcomp = 0;
+  bool go = active == nullptr || active[b] != 0;
+  while (go) {
+    ++hops;
+    const int* row = rows + (size_t)c * W;
+    float best_d = HS_INF;
+    int best_id = hs::BIG;
+    for (int j0 = 0; j0 < W; j0 += 32) {
+      const int cnt = min(32, W - j0);
+      const int mine = lane < cnt ? __ldg(row + j0 + lane) : -1;
+      for (int u0 = 0; u0 < cnt; u0 += GROUP) {
+        int id[GROUP];
+        float s[GROUP], n[GROUP];
+#pragma unroll
+        for (int g = 0; g < GROUP; ++g) {
+          id[g] = __shfl_sync(HS_FULL, mine, (u0 + g) & 31);
+          s[g] = 0.f;
+          n[g] = 0.f;
+        }
+#pragma unroll
+        for (int g = 0; g < GROUP; ++g)
+          if (id[g] >= 0)  // warp-uniform: every lane holds the same id
+            hs::partial_dot(qs, vec + (size_t)id[g] * D, D, vec4, s[g], n[g]);
+#pragma unroll
+        for (int g = 0; g < GROUP; ++g) {
+          if (id[g] < 0) continue;
+          ++dcomp;
+          // the butterfly sum leaves the same value in every lane, so the
+          // comparisons below agree across the warp
+          const float dot = hs::warp_sum(s[g]);
+          const float nrm = hs::warp_sum(n[g]);
+          const float d = metric ? 1.f - dot : (qnv + nrm) - 2.f * dot;
+          if (hs::pair_less(d, id[g], best_d, best_id)) {
+            best_d = d;
+            best_id = id[g];
+          }
+        }
+      }
+    }
+    if (best_d < cd) {
+      c = best_id;
+      cd = best_d;
+    } else {
+      go = false;
+    }
+  }
+  if (lane == 0) {
+    cur[b] = c;
+    curdist[b] = cd;
+    hops_out[b] = hops;
+    dcomp_out[b] = dcomp;
+  }
+}
+
+}  // namespace
+
+extern "C" int hs_greedy_descent(const float* vec, int D, const int* rows,
+                                 int W, const float* q, const float* qn,
+                                 const unsigned char* active, int B,
+                                 int metric, int* cur, float* curdist,
+                                 int* hops, int* dcomp, void* stream) {
+  const int Dp = (D + 3) / 4 * 4;
+  const size_t smem = sizeof(float) * Dp * NW;
+  cudaError_t err = cudaFuncSetAttribute(
+      greedy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (B + NW - 1) / NW;
+  greedy_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      vec, D, rows, W, q, qn, active, B, metric, Dp, cur, curdist, hops,
+      dcomp);
+  return static_cast<int>(cudaGetLastError());
+}

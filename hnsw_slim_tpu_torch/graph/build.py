@@ -1,10 +1,17 @@
-"""HNSW construction by NN-descent (port of the NND part of
-hnsw_slim_tpu/graph/build.py).
+"""HNSW construction (port of hnsw_slim_tpu/graph/build.py): the insertion
+build and the NN-descent build.
 
-NN-descent kNN lists -> heuristic prune (Kγ) + mutual union at level 0;
+Insertion (``HnswBuilder``, hnswalg.h addPoint in bulk-synchronous rounds):
+a batch of points searches the frozen pre-batch graph — greedy descent above
+each point's level (kernel Kε), an ef_construction beam at and below it
+(kernel Kβ) — then each level applies all of the batch's forward and reverse
+connections at once (``revconn.apply_insert``: Kγ + Kζ). Adjacency and
+degrees stay on the device for the whole build; the host mirror is pulled
+once at the end.
+
+NN-descent: kNN lists -> heuristic prune (Kγ) + mutual union at level 0;
 exact kNN (Kα, self masked) + the same prune and union at the small upper
-levels; a host-side connectivity repair (scipy) after each. The insertion
-build (HnswBuilder) is not ported yet.
+levels; a host-side connectivity repair (scipy) after each.
 
 Where the JAX code draws with numpy (level sampling, the hop2 and random
 long-range candidates) the port draws the same way with the same seeds.
@@ -12,13 +19,17 @@ long-range candidates) the port draws the same way with the same seeds.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from ..config import HnswConfig
 
 from ..index.bruteforce import topk_dist
-from ..ops.distance import gathered_dist
+from ..ops.distance import gathered_dist, sq_norms
+from . import revconn
+from . import search as gs
 from .heuristic import prune_all, prune_batch
 from .nnd import sorted_run_rank
 from .types import LevelGraph
@@ -306,3 +317,246 @@ def _append_or_replace(rows: np.ndarray, i: int, gid: int) -> None:
         return
     empty = np.nonzero(rows[i] < 0)[0]
     rows[i, empty[0] if len(empty) else -1] = gid
+
+
+def _to_dev(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array on ``dev``: from pinned memory without blocking on the
+    card (a pageable copy would wait for the queued kernels)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" \
+        else t
+
+
+def _build_search(adjs, entry: int, vectors, vn, q, lp_eff: np.ndarray, *,
+                  max_level: int, efc: int, max_iters: int, metric: str):
+    """Candidate search of upper-level inserts: greedy descent (Kε) above
+    each point's level lp_eff (host int32[B]), a fresh single-seed buffer at
+    it, and the ef_construction beam (Kβ, pop 1) at and below it, the buffer
+    carried from level to level. Returns per-level buffers (d f32[L+1, B,
+    efc], ids i32[L+1, B, efc]), L = max_level; level l's rows matter where
+    lp_eff >= l."""
+    dev = q.device
+    qn = sq_norms(q)
+    cur, curdist = gs.entry_dist(vectors, vn, q, qn, entry, metric)
+    buf_d, buf_id = gs.beam_init(cur, curdist, efc)
+    lp = _to_dev(lp_eff, dev)
+    out_d, out_i = [None] * (max_level + 1), [None] * (max_level + 1)
+    for l in range(max_level, -1, -1):
+        # skip what no query does at this level (the host knows lp_eff)
+        if (lp_eff < l).any():
+            cur, curdist, _, _ = gs.greedy_descent(
+                vectors, q, qn, adjs[l], cur, curdist, lp < l, metric)
+        if (lp_eff == l).any():
+            buf_d, buf_id = gs.beam_reseed(buf_d, buf_id, cur, curdist,
+                                           lp == l)
+        if (lp_eff >= l).any():
+            buf_d, buf_id, _, _ = gs.beam_level(
+                vectors, q, qn, adjs[l], buf_d, buf_id, lp >= l,
+                max_iters=max_iters, metric=metric)
+        out_d[l], out_i[l] = buf_d, buf_id
+    return torch.stack(out_d), torch.stack(out_i)
+
+
+# pops per iteration of the level-0 insert search (the JAX default)
+INSERT_POP_WIDTH = 8
+
+
+def _build_search0(adjs, entry: int, vectors, vn, q, active, *,
+                   max_level: int, efc: int, max_iters: int, metric: str):
+    """Candidate search of level-0-only inserts (``active`` bool[B]):
+    greedy descent through every upper level (Kε), then one multi-pop
+    ef_construction beam at level 0 from that seed (Kβ, one launch, pop
+    INSERT_POP_WIDTH, no scan cap: the JAX straggler stages leave per-query
+    results unchanged and share one global iteration budget). Inactive rows
+    come back empty (id -1). Returns (d f32[B, efc], ids i32[B, efc])."""
+    qn = sq_norms(q)
+    cur, curdist = gs.entry_dist(vectors, vn, q, qn, entry, metric)
+    for l in range(max_level, 0, -1):
+        cur, curdist, _, _ = gs.greedy_descent(
+            vectors, q, qn, adjs[l], cur, curdist, active, metric)
+    d, ids, _, _ = gs.beam_search(
+        vectors, q, qn, adjs[0],
+        torch.where(active, curdist, INF)[:, None].contiguous(),
+        torch.where(active, cur, -1)[:, None].contiguous(), P=efc,
+        ef_eff=efc, pop_width=INSERT_POP_WIDTH,
+        cw=gs.cand_width(efc, INSERT_POP_WIDTH, adjs[0].shape[1], 0),
+        max_iters=max_iters, k=efc, metric=metric)
+    return d, ids
+
+
+class _Spans:
+    """Summed time of named build phases: CUDA events on the card (read
+    once, after the build), the host clock on the CPU."""
+
+    def __init__(self, dev: torch.device):
+        self.cuda = dev.type == "cuda"
+        self.spans: list = []
+
+    def stamp(self):
+        if not self.cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def add(self, name: str, start, end) -> None:
+        self.spans.append((name, start, end))
+
+    def totals(self) -> dict:
+        out: dict = {}
+        for name, a, b in self.spans:
+            dt = a.elapsed_time(b) / 1e3 if self.cuda else b - a
+            out[name] = out.get(name, 0.0) + dt
+        return out
+
+
+class HnswBuilder:
+    """Builds a LevelGraph over a vector set in batched insertion rounds.
+
+    A batch never exceeds the points already inserted (early rounds stay
+    high-quality, later ones reach ``max_batch``). Each batch searches the
+    frozen pre-batch graph, then applies its connections level by level
+    from the top; the entry point moves, on the host, to each insert whose
+    level exceeds the running maximum, in id order. No step reads the
+    device back during the build; ``phase_s`` splits the build's seconds
+    into the device spans of the batches' searches (level-0-only inserts
+    "search0", upper-level inserts "search_up") and applies ("apply") and
+    the rest ("host"), and ``overflow`` sums the reverse-connect overflow
+    counters, read once at the end. The adjacency stays on the device; a
+    host copy is the caller's to pull (``HnswIndex.host_adj``).
+    """
+
+    def __init__(self, cfg: HnswConfig, max_batch: int = 4096):
+        self.cfg = cfg
+        self.max_batch = max_batch
+        self.phase_s: dict = {}
+        self.overflow: dict = {}
+        # (level, of_edges, of_targets, of_t, new_w) per apply, read lazily
+        self._of_monitor: list = []
+
+    def build(self, vectors: torch.Tensor, vn: torch.Tensor,
+              verbose: bool = False):
+        """Insert every row of ``vectors`` (on the build's device; vn their
+        squared norms). Returns (LevelGraph, levels np.int32[N])."""
+        t_wall = time.perf_counter()
+        cfg = self.cfg
+        n = vectors.shape[0]
+        dev = vectors.device
+        levels = sample_levels(n, cfg.mult, cfg.seed)
+        lmax = int(levels.max(initial=0))
+        caps = [cfg.maxM0] + [cfg.maxM] * lmax
+        adj_dev = [torch.full((n, caps[l]), -1, dtype=torch.int32, device=dev)
+                   for l in range(lmax + 1)]
+        deg_dev = [torch.zeros((n,), dtype=torch.int32, device=dev)
+                   for _ in range(lmax + 1)]
+        self._of_monitor = []
+        spans = _Spans(dev)
+        # point 0 is inserted trivially (no peers to link)
+        entry, _ = self._insert_range(
+            1, n, levels, 0, int(levels[0]) if n else 0, vectors, vn,
+            adj_dev, deg_dev, spans, verbose)
+        self._check_overflow_monitor(verbose)
+        wall = time.perf_counter() - t_wall
+        self.phase_s = spans.totals()
+        self.phase_s["host"] = wall - sum(self.phase_s.values())
+        self.phase_s["wall"] = wall
+        graph = LevelGraph(
+            adjs=tuple(adj_dev),
+            level=torch.as_tensor(levels, device=dev),
+            entry=entry, max_level=lmax)
+        return graph, levels
+
+    def _insert_range(self, start, n, levels, entry, cur_maxlevel, vecs,
+                      vn, adj_dev, deg_dev, spans, verbose):
+        """Insert ids [start, n) batch by batch; returns the final (entry,
+        cur_maxlevel)."""
+        done = start
+        while done < n:
+            bsz = min(self._batch_size(done), n - done)
+            ids = np.arange(done, done + bsz)
+            self._insert_batch_bulk(ids, levels, entry, cur_maxlevel, vecs,
+                                    vn, adj_dev, deg_dev, spans)
+            # entry-point update (hnswalg.h:1369-1374), in insertion order
+            for j in np.nonzero(levels[ids] > cur_maxlevel)[0]:
+                if levels[ids[j]] > cur_maxlevel:
+                    cur_maxlevel = int(levels[ids[j]])
+                    entry = int(ids[j])
+            done += bsz
+            if verbose and done % 65536 < bsz:
+                print(f"  built {done}/{n}", flush=True)
+        return entry, cur_maxlevel
+
+    def _batch_size(self, cur: int) -> int:
+        return max(1, min(cur, self.max_batch))
+
+    def _insert_batch_bulk(self, ids, levels, entry, cur_maxlevel, vecs, vn,
+                           adj_dev, deg_dev, spans):
+        """Search the batch ids (consecutive) against the pre-batch graph,
+        then apply its connections per level. Levels above cur_maxlevel
+        hold no edge yet, so the searches start there (the JAX program's
+        extra levels are no-ops)."""
+        cfg = self.cfg
+        dev = vecs.device
+        efc = cfg.ef_construction
+        max_iters = 2 * efc + 64
+        lp_eff = np.minimum(levels[ids], cur_maxlevel).astype(np.int32)
+        a_all = torch.arange(int(ids[0]), int(ids[-1]) + 1,
+                             dtype=torch.int32, device=dev)
+        q = vecs[int(ids[0]):int(ids[-1]) + 1]
+        t0 = spans.stamp()
+        _, i0 = _build_search0(
+            adj_dev, entry, vecs, vn, q, _to_dev(lp_eff == 0, dev),
+            max_level=cur_maxlevel, efc=efc, max_iters=max_iters,
+            metric=cfg.metric)
+        t1 = spans.stamp()
+        spans.add("search0", t0, t1)
+        up = np.nonzero(lp_eff >= 1)[0]
+        cand_up = None
+        if len(up):
+            up_dev = _to_dev(up.astype(np.int64), dev)
+            _, cand_up = _build_search(
+                adj_dev, entry, vecs, vn, q[up_dev], lp_eff[up],
+                max_level=cur_maxlevel, efc=efc, max_iters=max_iters,
+                metric=cfg.metric)
+            # upper-level inserts take their level-0 candidates from their
+            # own per-level search
+            i0[up_dev] = cand_up[0]
+        t2 = spans.stamp()
+        spans.add("search_up", t1, t2)
+        for l in range(int(lp_eff.max(initial=0)), -1, -1):
+            cap_l = cfg.maxM0 if l == 0 else cfg.maxM
+            of_t, new_w = (4096, 64) if l == 0 else (1024, 32)
+            if l == 0:
+                a_ids, cand = a_all, i0
+            else:
+                aidx = np.nonzero(lp_eff >= l)[0]
+                # rows of cand_up follow `up` (both ascending)
+                pos = np.searchsorted(up, aidx)
+                cand = cand_up[l][_to_dev(pos.astype(np.int64), dev)]
+                a_ids = _to_dev(ids[aidx].astype(np.int32), dev)
+            of_e, of_tc = revconn.apply_insert(
+                adj_dev[l], deg_dev[l], vecs, vn, a_ids, cand, M=cfg.M,
+                cap=cap_l, metric=cfg.metric, of_t=of_t, new_w=new_w)
+            self._of_monitor.append((l, of_e, of_tc, of_t, new_w))
+        spans.add("apply", t2, spans.stamp())
+
+    def _check_overflow_monitor(self, verbose: bool) -> None:
+        """Read the per-apply overflow counters (one transfer) into
+        ``overflow`` and report truncation: applies whose unique overflow
+        targets exceeded the re-prune width, whose excess reverse edges were
+        dropped."""
+        mon = self._of_monitor
+        if not mon:
+            self.overflow = {"edges": 0, "max_targets": 0,
+                             "truncated_applies": 0, "applies": 0}
+            return
+        vals = torch.stack([torch.stack([e, t]) for _, e, t, _, _ in mon])
+        vals = vals.cpu().numpy()
+        trunc = int(sum(1 for (_, _, _, cap_t, _), (_, t) in zip(mon, vals)
+                        if t > cap_t))
+        self.overflow = {"edges": int(vals[:, 0].sum()),
+                         "max_targets": int(vals[:, 1].max()),
+                         "truncated_applies": trunc, "applies": len(mon)}
+        if verbose or trunc:
+            print(f"  reverse-connect overflow: {self.overflow}", flush=True)
+        self._of_monitor = []

@@ -96,11 +96,13 @@ def rng_prune_plain(vectors, vn, base_ids, cand_ids, m_per_row, *,
 
 def rng_prune(vectors, vn, base_ids, cand_ids, m_per_row, *,
               keep_all_under_m: bool, keep_pruned: bool, out_width: int,
-              metric: str = "l2"):
+              metric: str = "l2", m_max: int | None = None):
     """Kγ: RNG prune of cand_ids i32[B, C] (-1 = no candidate) around
     base_ids i32[B] with budgets m_per_row i32[B]. Returns (sel
     i32[B, out_width] in ascending distance, -1 padded; cnt i32[B]).
-    CUDA tensors run csrc/rng_prune.cu, CPU tensors the plain version."""
+    CUDA tensors run csrc/rng_prune.cu, CPU tensors the plain version.
+    ``m_max``, a bound on m_per_row known to the caller, sizes the kernel's
+    shared memory without reading m_per_row back from the card."""
     if not cand_ids.is_cuda:
         return rng_prune_plain(
             vectors, vn, base_ids, cand_ids, m_per_row,
@@ -119,7 +121,7 @@ def rng_prune(vectors, vn, base_ids, cand_ids, m_per_row, *,
         return sel, cnt
     if c == 0:
         return sel.fill_(-1), cnt.zero_()
-    m_slots = int(min(int(m_per_row.max()), c))
+    m_slots = int(min(int(m_per_row.max()) if m_max is None else m_max, c))
     dp = -(-d // 4) * 4
     smem = 4 * dp * (1 + m_slots) + 8 * (1 << (c - 1).bit_length()) \
         + 8 * m_slots + (1 << (c - 1).bit_length())

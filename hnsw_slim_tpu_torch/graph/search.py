@@ -1,9 +1,12 @@
-"""Slim query path (port of hnsw_slim_tpu/graph/search.py, serving slice).
+"""Graph search (port of hnsw_slim_tpu/graph/search.py): the Slim query
+path, the vanilla HNSW query path and the pieces the insertion build uses.
 
-The slice's configuration: threshold level 0, exact seeding from the table of
-all level>=1 vectors (kernel Kα), then the base-layer beam over dense level-0
-rows (kernel Kβ, ``beam_search``). The per-query semantics are those of
-``beam_level_scored``:
+Slim serving (``chal_search``) runs in the slice's configuration: threshold
+level 0, exact seeding from the table of all level>=1 vectors (kernel Kα),
+then the base-layer beam over dense level-0 rows (kernel Kβ,
+``beam_search``). The vanilla path (``level_search``) descends the upper
+levels greedily (kernel Kε, ``greedy_descent``) and runs the same Kβ beam at
+level 0. The per-query semantics of Kβ are those of ``beam_level_scored``:
 
 * a sorted buffer of P (distance, id, checked) entries; the first ``ef_eff``
   slots are the working window (P > ef_eff only for ef >= 256 that is not a
@@ -17,9 +20,16 @@ rows (kernel Kβ, ``beam_search``). The per-query semantics are those of
 * score with ‖x‖² recomputed from the gathered row; merge keeping the P
   smallest (buffer entries first on equal distance, candidates by id).
 
+Kβ takes a whole sorted, -1/inf-padded buffer as its seeds (S = P), so the
+build's per-level beam over a carried buffer is the same kernel. Its checked
+bits live inside one Kβ call: every call starts with all entries unchecked,
+which is what the JAX build does between levels. A row that should not beam
+enters with an empty buffer (id -1), leaves at once, and gets its carried
+buffer back.
+
 Straggler compaction (``beam_staged_scored``) exists in the JAX package only
 for lockstep batching and leaves per-query results unchanged, so the port
-has none: the kernel runs one block per query.
+has none: the kernels run each query on its own.
 """
 
 from __future__ import annotations
@@ -165,6 +175,137 @@ def beam_search(vectors, q, qn, rows, seed_d, seed_id, *, P: int,
     return out_d, out_i, hops, dcomp
 
 
+def greedy_descent_plain(vectors, q, qn, rows, cur, curdist, active=None,
+                         metric: str = "l2"):
+    """Plain PyTorch Kε: JAX ``greedy_level`` step for step (the batch moves
+    in lockstep while any query still improves). Returns (cur i32[B],
+    curdist f32[B], hops i32[B] rows fetched, dcomp i32[B] distances)."""
+    b = q.shape[0]
+    dev = q.device
+    cur = cur.to(torch.int32).clone()
+    curdist = curdist.clone()
+    changed = (torch.ones(b, dtype=torch.bool, device=dev) if active is None
+               else active.clone())
+    hops = torch.zeros(b, dtype=torch.int32, device=dev)
+    dcomp = torch.zeros(b, dtype=torch.int32, device=dev)
+    while bool(changed.any()):
+        ids = rows[cur.long()]
+        valid = (ids >= 0) & changed[:, None]
+        safe = ids.clamp(min=0)
+        d = torch.where(valid, gathered_dist(q, vectors[safe.long()], metric,
+                                             qn=qn), INF)
+        dmin = d.min(dim=1).values
+        # smallest id among the lanes at the minimum distance
+        best = torch.where(d == dmin[:, None], safe, BIG).min(dim=1).values
+        better = dmin < curdist
+        hops += changed.to(torch.int32)
+        dcomp += valid.sum(dim=1, dtype=torch.int32)
+        cur = torch.where(better, best, cur)
+        curdist = torch.where(better, dmin, curdist)
+        changed = changed & better
+    return cur, curdist, hops, dcomp
+
+
+def greedy_descent(vectors, q, qn, rows, cur, curdist, active=None,
+                   metric: str = "l2"):
+    """Kε: one level of greedy descent over dense rows i32[N, W], one warp
+    per query (csrc/greedy_descent.cu). ``active`` bool[B] (None = all):
+    inactive queries keep (cur, curdist). CPU tensors run
+    ``greedy_descent_plain``. Same arguments and results."""
+    if not q.is_cuda:
+        return greedy_descent_plain(vectors, q, qn, rows, cur, curdist,
+                                    active, metric)
+    b, d = q.shape
+    W = rows.shape[1]
+    cuda.require(vectors, torch.float32, "vectors", (-1, d))
+    cuda.require(q, torch.float32, "q", (b, d))
+    cuda.require(qn, torch.float32, "qn", (b,))
+    cuda.require(rows, torch.int32, "rows", (-1, W))
+    if active is not None:
+        cuda.require(active, torch.bool, "active", (b,))
+    cur = cur.to(torch.int32).contiguous().clone()
+    curdist = curdist.to(torch.float32).contiguous().clone()
+    cuda.require(cur, torch.int32, "cur", (b,))
+    cuda.require(curdist, torch.float32, "curdist", (b,))
+    hops = torch.zeros((b,), dtype=torch.int32, device=q.device)
+    dcomp = torch.zeros((b,), dtype=torch.int32, device=q.device)
+    if b:
+        cuda.launch(
+            "greedy_descent", vectors.data_ptr(), d, rows.data_ptr(), W,
+            q.data_ptr(), qn.data_ptr(),
+            None if active is None else active.data_ptr(), b,
+            int(metric == "ip"), cur.data_ptr(), curdist.data_ptr(),
+            hops.data_ptr(), dcomp.data_ptr(),
+        )
+    return cur, curdist, hops, dcomp
+
+
+def entry_dist(vectors, vn, q, qn, entry: int, metric: str = "l2"):
+    """(cur i32[B], curdist f32[B]): every query at the entry point, with
+    the distance in the JAX form (the entry's stored norm)."""
+    b = q.shape[0]
+    cur = torch.full((b,), entry, dtype=torch.int32, device=q.device)
+    e = cur.long()
+    curdist = gathered_dist(q, vectors[e][:, None, :], metric, qn=qn,
+                            vn=vn[e][:, None])[:, 0]
+    return cur, curdist
+
+
+def beam_init(seed_id, seed_d, ef: int):
+    """Buffer (d f32[B, ef], id i32[B, ef]) seeded with one entry per query,
+    inf / -1 padded."""
+    b = seed_id.shape[0]
+    buf_d = torch.full((b, ef), INF, device=seed_d.device)
+    buf_id = torch.full((b, ef), -1, dtype=torch.int32, device=seed_id.device)
+    buf_d[:, 0] = seed_d
+    buf_id[:, 0] = seed_id
+    return buf_d, buf_id
+
+
+def beam_reseed(buf_d, buf_id, seed_id, seed_d, active):
+    """Replace the buffers of ``active`` queries with a fresh single seed
+    (a build query moving from greedy descent to the beam)."""
+    new_d, new_id = beam_init(seed_id, seed_d, buf_d.shape[1])
+    return (torch.where(active[:, None], new_d, buf_d),
+            torch.where(active[:, None], new_id, buf_id))
+
+
+def beam_level(vectors, q, qn, rows, buf_d, buf_id, active, *,
+               max_iters: int, metric: str = "l2"):
+    """One level's beam (JAX ``beam_level`` with pop_width 1, exact scorer,
+    no filter) from the carried sorted buffer (P = its width, ef_eff = P) on
+    Kβ. Rows where ``active`` is false keep their buffer. Returns (buf_d,
+    buf_id, hops, dcomp)."""
+    P = buf_d.shape[1]
+    seed_d = torch.where(active[:, None], buf_d, INF).contiguous()
+    seed_id = torch.where(active[:, None], buf_id, -1).contiguous()
+    d, ids, hops, dcomp = beam_search(
+        vectors, q, qn, rows, seed_d, seed_id, P=P, ef_eff=P, pop_width=1,
+        cw=cand_width(P, 1, rows.shape[1], 0), max_iters=max_iters, k=P,
+        metric=metric)
+    return (torch.where(active[:, None], d, buf_d),
+            torch.where(active[:, None], ids, buf_id), hops, dcomp)
+
+
+def level_search(adjs, entry: int, vectors, vn, q, *, max_level: int,
+                 ef: int, k: int, max_iters: int, metric: str = "l2",
+                 pop_width: int = 1):
+    """Vanilla HNSW query path (hnswalg.h searchKnn): greedy descent
+    max_level..1 (Kε), then the ef-beam at level 0 from that one seed (Kβ).
+    Returns (dists f32[B, k], ids i32[B, k], hops i32[B], dcomp i32[B]);
+    hops and dcomp count the level-0 beam, as in the JAX package."""
+    qn = sq_norms(q)
+    cur, curdist = entry_dist(vectors, vn, q, qn, entry, metric)
+    for l in range(max_level, 0, -1):
+        cur, curdist, _, _ = greedy_descent(vectors, q, qn, adjs[l], cur,
+                                            curdist, None, metric)
+    return beam_search(
+        vectors, q, qn, adjs[0], curdist[:, None].contiguous(),
+        cur[:, None].contiguous(), P=ef, ef_eff=ef, pop_width=pop_width,
+        cw=cand_width(ef, pop_width, adjs[0].shape[1], 0),
+        max_iters=max_iters, k=k, metric=metric)
+
+
 def chal_search(vectors, q, dense0, *, max_level: int,
                 threshold_level: int, ef: int, k: int, max_iters: int,
                 metric: str = "l2", pop_width: int = 1, scan_width: int = 0,
@@ -187,7 +328,8 @@ def chal_search(vectors, q, dense0, *, max_level: int,
     seed_width = min(seed_width, P)
     if max_level < 1 or seed_width <= 1 or up_vecs is None:
         raise NotImplementedError(
-            "entry-point, greedy-descent or level-1-beam seeding: ROADMAP K5")
+            "entry-point, greedy-descent (K5) or level-1-beam seeding of the "
+            "Slim path: ROADMAP queue 1 item 5")
     qn = sq_norms(q)
     sd, spos = topk_dist(q, up_vecs, up_vn, seed_width, metric,
                          row_ids=up_ids)

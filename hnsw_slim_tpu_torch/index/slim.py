@@ -20,7 +20,7 @@ from ..graph.types import ChalGraph
 from ..ops import cuda
 from ..ops.distance import sq_norms
 from ..persist.patch import _level_rows, to_np
-from .hnsw import HnswIndex
+from .hnsw import HnswIndex, _check
 
 
 class HnswSlimIndex:
@@ -159,8 +159,3 @@ class HnswSlimIndex:
                 _check((levels[ids] == l).all(), f"membership rule @{l}")
             total_edges += int(sizes.sum())
         return {"edges": total_edges, "bytes": g.chal_bytes()}
-
-
-def _check(ok, msg: str) -> None:
-    if not ok:
-        raise AssertionError(msg)

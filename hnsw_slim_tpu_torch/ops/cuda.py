@@ -1,8 +1,9 @@
 """Build, load and launch-count the hand-written CUDA kernels (``csrc/``).
 
-All kernel sources compile with one ``nvcc`` call into one shared library
-with a plain C interface, loaded through ctypes (pointers as ``c_void_p``,
-the launch stream is PyTorch's current stream). The library is built at first
+Each kernel source compiles to an object with its own ``nvcc``, all started
+together, and one more ``nvcc`` links them into one shared library with a
+plain C interface, loaded through ctypes (pointers as ``c_void_p``, the
+launch stream is PyTorch's current stream). The library is built at first
 use from the checkout's sources alone, into ``_build/`` beside this package
 (listed in ``.gitignore``); its file name carries a hash of the sources, so an
 edited kernel is rebuilt rather than reloaded stale.
@@ -28,15 +29,16 @@ import torch
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("topk_dist.cu", "beam_search.cu", "rng_prune.cu", "cand_merge.cu")
+SOURCES = ("topk_dist.cu", "beam_search.cu", "rng_prune.cu", "cand_merge.cu",
+           "greedy_descent.cu", "rev_connect.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
 launches = {"topk_dist": 0, "beam_search": 0, "rng_prune": 0,
-            "cand_merge": 0}
+            "cand_merge": 0, "greedy_descent": 0, "rev_connect": 0}
 
 P, I32 = ctypes.c_void_p, ctypes.c_int
 
@@ -58,6 +60,15 @@ _SIGNATURES = {
     # out_ids, out_d, out_nf, inserted, stream
     "hs_cand_merge": [P, P, I32, I32, P, P, P, P, I32, I32, I32, I32, P, P,
                       P, P, P],
+    # vectors, D, rows, W, q, qn, active, B, metric, cur, curdist, hops,
+    # dcomp, stream
+    "hs_greedy_descent": [P, I32, P, I32, P, P, P, I32, I32, P, P, P, P, P],
+    # us, ps, E, adj, deg, cap, ovf, stream
+    "hs_rev_append": [P, P, I32, P, P, I32, P, P],
+    # adj, cap, of_u, of_p, E, ut, T, new_w, base, ocand, stream
+    "hs_rev_overflow_rows": [P, I32, P, P, I32, P, I32, I32, P, P, P],
+    # adj, deg, cap, ut, T, osel, ocnt, stream
+    "hs_rev_write_rows": [P, P, I32, P, I32, P, P, P],
 }
 
 _LIB = None
@@ -82,22 +93,46 @@ def _lib_path() -> Path:
 
 
 def build() -> tuple[float, str]:
-    """Compile the kernels if the library for these sources is missing.
-    Returns (seconds spent compiling, ptxas's per-kernel register and
-    shared-memory report); (0.0, "") when already built."""
+    """Compile the kernels if the library for these sources is missing: one
+    nvcc per source, all at once, then a link. Returns (seconds spent,
+    ptxas's per-kernel register and shared-memory report); (0.0, "") when
+    already built."""
     out = _lib_path()
     if out.exists():
         return 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-           *[str(CSRC / s) for s in SOURCES]]
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr[-8000:]}")
-    os.replace(tmp, out)
-    usage = [line.split("ptxas info    : ")[-1] for line in r.stderr.splitlines()
+    jobs = [subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(o),
+         str(CSRC / s)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for s, o in zip(SOURCES, objs)]
+    logs = []
+    try:
+        for s, job in zip(SOURCES, jobs):
+            _, err = job.communicate(timeout=900)
+            if job.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {s} ({job.returncode}):\n{err[-8000:]}")
+            logs.append(err)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        r = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+             *map(str, objs)], capture_output=True, text=True, timeout=300)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{r.stderr[-8000:]}")
+        os.replace(tmp, out)
+    finally:
+        for job in jobs:
+            if job.poll() is None:
+                job.kill()
+                job.wait()
+        for o in objs:
+            o.unlink(missing_ok=True)
+    usage = [line.split("ptxas info    : ")[-1]
+             for err in logs for line in err.splitlines()
              if "Compiling entry function" in line or "Used " in line]
     return time.perf_counter() - t0, "\n".join(usage)
 
@@ -124,22 +159,25 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
-def launch(name: str, *args) -> None:
-    """Call C entry point ``hs_<name>`` on the current stream, raise on a
-    launch error, and count the launch."""
-    err = getattr(lib(), f"hs_{name}")(
+def launch(name: str, *args, entry: str | None = None) -> None:
+    """Call C entry point ``hs_<entry or name>`` on the current stream, raise
+    on a launch error, and count one launch of kernel ``name``."""
+    err = getattr(lib(), f"hs_{entry or name}")(
         *args, torch.cuda.current_stream().cuda_stream
     )
-    check(err, name)
+    check(err, entry or name)
     launches[name] += 1
 
 
 def resolve_device(device=None) -> torch.device:
-    """The given device, else the first CUDA card if there is one, else the
-    CPU."""
+    """The given device, else the first CUDA card. Without a card it raises:
+    the CPU is used only when the caller asks for it (``device="cpu"``)."""
     if device is not None:
         return torch.device(device)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
 
 
 def reset_launches() -> None:

@@ -140,9 +140,34 @@ def test_slice_recall_matches_jax(tmp_path_factory):
 
 
 def test_build_strategy_resolution():
-    """'auto' resolves as in the JAX package; the insertion build raises."""
+    """'auto' resolves as in the JAX package (NN-descent below 200k points,
+    insertion at scale); strategy="insert" builds by insertion rounds, and
+    an unknown strategy raises."""
     assert resolve_build_strategy("auto", 1000) == "nnd"
-    assert resolve_build_strategy("auto", 1_000_000) == "insert"
-    h = HnswIndex(HnswConfig(M=4), strategy="insert", device="cpu")
-    with pytest.raises(NotImplementedError, match="insertion build"):
-        h.build(np.zeros((10, 4), np.float32))
+    assert resolve_build_strategy("auto", 199_999) == "nnd"
+    assert resolve_build_strategy("auto", 200_000) == "insert"
+    assert resolve_build_strategy("insert", 100) == "insert"
+    base, _ = clustered(300, 8, seed=4)
+    h = HnswIndex(HnswConfig(M=4, ef_construction=16), strategy="insert",
+                  max_batch=64, device="cpu")
+    h.build(base)
+    assert set(h.build_stats) == {"phase_s", "overflow"}
+    assert h.check_integrity()["connections"] > 0
+    with pytest.raises(ValueError, match="strategy"):
+        HnswIndex(HnswConfig(M=4), strategy="bogus", device="cpu").build(base)
+
+
+def test_resolve_device_raises_without_cuda(monkeypatch):
+    """Without a CUDA card the port's entry points raise unless the caller
+    asks for the CPU: resolve_device() and every index's default device."""
+    from hnsw_slim_tpu_torch.index.bruteforce import BruteForceIndex as PortBF
+    from hnsw_slim_tpu_torch.ops import cuda
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cuda.resolve_device()
+    assert cuda.resolve_device("cpu") == torch.device("cpu")
+    for make in (lambda: HnswIndex(HnswConfig()), lambda: HnswSlimIndex(),
+                 lambda: PortBF(np.zeros((4, 2), np.float32))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (Kα–Kδ) against their plain PyTorch versions on
+"""The port's CUDA kernels (Kα–Kζ) against their plain PyTorch versions on
 the card. Marked ``cuda``; each test skips when no CUDA device is present.
 The machine with the card has no JAX, so run these without the suite's
 conftest (which imports JAX):
@@ -6,7 +6,8 @@ conftest (which imports JAX):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: ids equal on >= 99% of rows/slots (near-ties in fp32 summation
-order may reorder), distances within 1e-4 * (1 + |d|).
+order may reorder), distances within 1e-4 * (1 + |d|); Kζ moves integers
+only and must be exactly equal.
 """
 
 import numpy as np
@@ -120,3 +121,106 @@ def test_cand_merge_kernel_matches_plain(data):
     assert _close(kd[fin], pd[fin])
     assert abs(int(kn) - int(pn)) <= 0.01 * int(pn)
     assert np.isclose(float(rows.float().mean()), 1.0, atol=0.01)
+
+
+@pytest.fixture(scope="module")
+def insert_index(data):
+    """An insertion-built HnswIndex of the 20k vectors on the card, with the
+    kernel launches its build made."""
+    from hnsw_slim_tpu_torch.config import HnswConfig
+    from hnsw_slim_tpu_torch.index.hnsw import HnswIndex
+    from hnsw_slim_tpu_torch.ops import cuda
+
+    x, _, _ = data
+    cuda.reset_launches()
+    h = HnswIndex(HnswConfig(M=16, ef_construction=64), strategy="insert",
+                  device="cuda")
+    h.build(x.cpu().numpy())
+    torch.cuda.synchronize()
+    return h, dict(cuda.launches)
+
+
+def test_insert_build_on_card(data, insert_index):
+    """The insertion build goes through Kε, Kβ, Kγ and Kζ, keeps the graph
+    invariants, and serves recall@10 >= 0.95 at ef=64 (vanilla path)."""
+    from hnsw_slim_tpu_torch.index import bruteforce as bf
+
+    x, xn, q = data
+    h, launched = insert_index
+    for name in ("greedy_descent", "beam_search", "rng_prune", "rev_connect"):
+        assert launched[name] > 0, name
+    assert h.check_integrity()["connections"] > 0
+    assert h.build_stats["overflow"]["truncated_applies"] == 0
+    _, gt = bf.topk_dist_plain(q, x, xn, 10)
+    h.set_ef(64)
+    _, ids = h.search(q.cpu().numpy(), 10)
+    gt = gt.cpu().numpy()
+    hits = sum(len(set(a) & set(b)) for a, b in zip(ids, gt))
+    assert hits / gt.size >= 0.95
+
+
+def test_greedy_descent_kernel_matches_plain(data, insert_index):
+    """Kε vs its plain version level by level (both from the plain
+    version's state), all queries active and then half: cur equal on
+    >= 99% of queries, distances close, hops equal where cur is."""
+    from hnsw_slim_tpu_torch.graph import search as gs
+
+    x, xn, q = data
+    h, _ = insert_index
+    g = h.graph
+    qn = (q * q).sum(1)
+    half = torch.arange(len(q), device="cuda") % 2 == 0
+    for active in (None, half):
+        pc, pd = gs.entry_dist(x, xn, q, qn, g.entry)
+        for l in range(g.max_level, 0, -1):
+            kc, kd, kh, _ = gs.greedy_descent(x, q, qn, g.adjs[l], pc, pd,
+                                              active)
+            pc, pd, ph, _ = gs.greedy_descent_plain(x, q, qn, g.adjs[l], pc,
+                                                    pd, active)
+            same = kc == pc
+            assert same.float().mean() >= 0.99, l
+            assert _close(kd[same], pd[same])
+            assert (kh[same] == ph[same]).all()
+            if active is not None:
+                assert (kh[~active] == 0).all()
+
+
+def test_rev_connect_kernel_matches_plain():
+    """Kζ append, overflow-row assembly and write-back against their plain
+    versions on one synthetic batch whose edges crowd a few hundred
+    targets: adjacency, degrees, flags and rows exactly equal."""
+    from hnsw_slim_tpu_torch.graph import revconn
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    n, cap, b, m = 5000, 16, 512, 8
+    old = n - b
+    deg = torch.randint(0, cap + 1, (n,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    deg[old:] = 0
+    adj = torch.randint(0, old, (n, cap), generator=g, device="cuda",
+                        dtype=torch.int32)
+    adj[torch.arange(cap, device="cuda")[None, :] >= deg[:, None].long()] = -1
+    a_ids = torch.arange(old, n, dtype=torch.int32, device="cuda")
+    hot = torch.rand((b, 300), generator=g, device="cuda").argsort(1)
+    sel = hot[:, :m].to(torch.int32)
+    cnt = torch.randint(0, m + 1, (b, 1), generator=g, device="cuda")
+    sel[torch.arange(m, device="cuda")[None, :] >= cnt] = -1
+    us, ps = revconn.reverse_edges(a_ids, sel)
+    ak, dk, ap, dp = adj.clone(), deg.clone(), adj.clone(), deg.clone()
+    ok = revconn.rev_append(ak, dk, us, ps)
+    op = revconn.rev_append_plain(ap, dp, us, ps)
+    assert torch.equal(ok, op) and torch.equal(ak, ap) and torch.equal(dk, dp)
+    assert int(ok.sum()) > 0
+    of_u, of_p, ut, _, n_t = revconn.overflow_targets(us, ps, ok, 4096)
+    bk, ck = revconn.overflow_rows(ak, of_u, of_p, ut, 64)
+    bp, cp = revconn.overflow_rows_plain(ap, of_u, of_p, ut, 64)
+    assert torch.equal(bk, bp) and torch.equal(ck, cp) and int(n_t) > 0
+    osel = torch.randint(-1, old, (ut.shape[0], cap), generator=g,
+                         device="cuda", dtype=torch.int32)
+    ocnt = torch.randint(0, cap, (ut.shape[0],), generator=g, device="cuda",
+                         dtype=torch.int32)
+    revconn.write_rows(ak, dk, ut, osel, ocnt)
+    revconn.write_rows_plain(ap, dp, ut, osel, ocnt)
+    assert torch.equal(ak, ap) and torch.equal(dk, dp)

@@ -3,7 +3,8 @@
 ``jax_graph_dir`` builds one small HNSW + Slim index with the JAX package
 and saves both (save_hnsw, save_slim) once per test session: under xdist the
 workers share pytest's base temp directory and take a file lock, so the
-JAX build and its compiles run once.
+JAX build and its compiles run once. ``jax_insert_dir`` does the same for a
+JAX insertion build and records one of its batches.
 """
 
 import dataclasses
@@ -11,6 +12,7 @@ import fcntl
 import os
 
 import numpy as np
+import pytest
 
 from hnsw_slim_tpu.config import HnswConfig, SlimConfig
 from hnsw_slim_tpu.utils.data import clustered
@@ -87,3 +89,113 @@ def check_search_parity(engines, ef, pop, scan):
         assert abs(a - b) <= 0.01 * b, (key, a, b)
     same = pi == ji
     assert np.all(np.abs(pd[same] - jd[same]) <= 1e-4 * (1 + np.abs(jd[same])))
+
+
+# ---- the insertion build (test_torch_insert.py, test_torch_hnsw_search.py)
+
+INS_CFG = HnswConfig(M=8, ef_construction=48)
+INS_BATCH = 256
+INS_EF = 32  # search ef of the recorded JAX results
+CAPTURE_ID0 = 2560  # first id of the recorded batch (ids 2560..2815)
+
+
+def insert_dataset():
+    """(base f32[3000, 16], queries f32[128, 16]): tests/test_build.py's
+    insertion-build data (clustered, seed 3) with queries drawn after it."""
+    return clustered(3000, 16, n_queries=128, seed=3)
+
+
+def _np(a):
+    return np.array(a)  # a host copy (JAX may donate the device buffer)
+
+
+def jax_insert_dir(tmp_path_factory):
+    """Directory holding the JAX insertion build of insert_dataset() with
+    INS_CFG and max_batch INS_BATCH (hnsw_insert.npz, save_hnsw) and
+    capture.npz: for the batch starting at CAPTURE_ID0, the pre-batch
+    adjacency and degrees of every level, the inputs and outputs of that
+    batch's _build_search0, _build_search and apply_insert calls, and the
+    JAX search of the built graph (ef INS_EF, k 10). Built once per session
+    under a file lock, as jax_graph_dir."""
+    from hnsw_slim_tpu.graph import build as jb
+    from hnsw_slim_tpu.graph import revconn as jr
+    from hnsw_slim_tpu.index.hnsw import HnswIndex
+    from hnsw_slim_tpu.persist.checkpoint import save_hnsw
+
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    d = root / "torch_parity_insert"
+    d.mkdir(exist_ok=True)
+    with open(d / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if (d / "capture.npz").exists():
+            return d
+        rec: dict = {}
+        applies: list = []  # the recorded batch's applies, top level first
+        on = [False]
+        batch, s0, s1, ap = (jb.HnswBuilder._insert_batch_bulk,
+                             jb._build_search0, jb._build_search,
+                             jr.apply_insert)
+
+        def batch_w(self, ids, levels, entry, cur_maxlevel, vecs, vn,
+                    adj_dev, deg_dev, lmax, collect=None):
+            on[0] = int(ids[0]) == CAPTURE_ID0
+            if on[0]:
+                rec.update(ids=_np(ids), entry=entry, lmax=lmax,
+                           cur_maxlevel=cur_maxlevel, vn=_np(vn))
+                for l, (a, g) in enumerate(zip(adj_dev, deg_dev)):
+                    rec[f"adj{l}"], rec[f"deg{l}"] = _np(a), _np(g)
+            try:
+                return batch(self, ids, levels, entry, cur_maxlevel, vecs, vn,
+                             adj_dev, deg_dev, lmax, collect)
+            finally:
+                on[0] = False
+                for i, got in enumerate(applies):  # levels top .. 0
+                    l = len(applies) - 1 - i
+                    rec.update({f"ap{l}_{k}": v for k, v in got.items()})
+                applies.clear()
+
+        def s0_w(adjs, entry, vectors, vn, q, active, **kw):
+            out = s0(adjs, entry, vectors, vn, q, active, **kw)
+            if on[0]:
+                rec.update(s0_q=_np(q), s0_active=_np(active),
+                           s0_d=_np(out[0]), s0_i=_np(out[1]))
+            return out
+
+        def s1_w(adjs, entry, vectors, vn, q, lp_eff, **kw):
+            out = s1(adjs, entry, vectors, vn, q, lp_eff, **kw)
+            if on[0]:
+                rec.update(s1_q=_np(q), s1_lp=_np(lp_eff), s1_d=_np(out[0]),
+                           s1_i=_np(out[1]))
+            return out
+
+        def ap_w(adj, deg, vecs, vn, a_pad, cand, n_valid, **kw):
+            got = {}
+            if on[0]:
+                got.update(adj=_np(adj), deg=_np(deg), a=_np(a_pad),
+                           cand=_np(cand), nv=int(n_valid), of_t=kw["of_t"],
+                           new_w=kw["new_w"])
+            out = ap(adj, deg, vecs, vn, a_pad, cand, n_valid, **kw)
+            if on[0]:
+                got.update(out_adj=_np(out[0]), out_deg=_np(out[1]),
+                           of_e=int(out[2]), of_tc=int(out[3]))
+                applies.append(got)
+            return out
+
+        base, queries = insert_dataset()
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jb.HnswBuilder, "_insert_batch_bulk", batch_w)
+            mp.setattr(jb, "_build_search0", s0_w)
+            mp.setattr(jb, "_build_search", s1_w)
+            mp.setattr(jr, "apply_insert", ap_w)
+            h = HnswIndex(INS_CFG, max_batch=INS_BATCH, strategy="insert")
+            h.build(base)
+        h.set_ef(INS_EF)
+        rec["search_d"], rec["search_i"] = h.search(queries, 10)
+        rec["search_hops"] = h.last_stats["hops"]
+        rec["search_dcomp"] = h.last_stats["distance_computations"]
+        save_hnsw(d / "hnsw_insert.npz", h)
+        np.savez(d / "capture.tmp.npz", **rec)
+        os.replace(d / "capture.tmp.npz", d / "capture.npz")
+    return d
