@@ -16,16 +16,31 @@ Phases (one line each on stdout, the kernel table second to last):
      build seconds split into the device spans of the batches' searches
      (level-0-only and upper-level inserts) and applies and the rest
      (host), and the reverse-connect overflow counters;
-  3. the NN-descent path (strategy "nnd") -> conversion -> seeded sweep,
+  3. the query surface on that graph, with its own launch counts: the
+     seeded Slim search over three serving layouts (CHAL only, dense level
+     0, dense level 0 + dense upper; identical ids), seed_width=0 (greedy
+     descent through rank and CHAL rows), a threshold_level=1 conversion
+     served with seed_width=0, seed_strata=4, filter_mask at 50% and 10%
+     allowed on both index classes (recall over the allowed subset, every
+     id allowed, every row full), search_async against search, one
+     autotune_index(ef=128);
+  4. SlimZero, with its own launch counts: HnswSlimZeroIndex.from_hnsw on
+     the same HNSW, integrity, the in-degree floor at level 0, a seeded
+     sweep;
+  5. the NN-descent path (strategy "nnd") -> conversion -> seeded sweep,
      with its own launch counts;
-  4. each kernel against its plain PyTorch version on the card: Kε, Kβ in
-     build mode, Kγ and Kζ on one 4096-insert batch recorded during the
-     insertion build (its pre-batch graph and inputs), Kα and Kβ on the
-     serving paths, Kγ on the NND build's and conversion's prunes, Kδ on an
-     NND chunk; both times, agreement, and the least time the card could
+  6. each kernel and each kernel mode against its plain PyTorch version on
+     the card: Kε, Kβ in build mode, Kγ and Kζ on one 4096-insert batch
+     recorded during the insertion build (its pre-batch graph and inputs),
+     Kα and Kβ on the serving paths, Kγ on the NND build's and conversion's
+     prunes, Kδ on an NND chunk, and on inputs of phases 3 and 4 Kβ over
+     CHAL and rank rows, Kβ filtered, Kε over CHAL and rank rows, Kα in
+     strata mode, Kγ guarded (one recorded 8192-row chunk with its live
+     guard); both times, agreement, and the least time the card could
      take (bytes over 3.35 TB/s or fp32 flops over 67 TFLOP/s, the larger);
-  5. output checks (finite, in range, true distances, recall sanity, the
-     insertion-built Slim index above the NND-built one at ef=320).
+  7. output checks (finite, in range, true distances, recall sanity, the
+     insertion-built Slim index above the NND-built one at ef=320, SlimZero
+     within 0.02 of the Slim index there).
 Any failed check exits non-zero before the last line, which is
 {"ok": true, "device": {...}}. Without a CUDA card it exits 2 at once.
 """
@@ -53,9 +68,26 @@ ROUTES = {  # kernel: (source, the JAX program it replaces)
     "rev_connect": ("hnsw_slim_tpu_torch/csrc/rev_connect.cu",
                     "hnsw_slim_tpu/graph/revconn.py:47"),
 }
+MODE_ROUTES = {  # kernel mode: (kernel, the JAX code that mode replaces)
+    "topk_dist.strata": ("topk_dist", "hnsw_slim_tpu/graph/search.py:800"),
+    "beam_search.chal": ("beam_search", "hnsw_slim_tpu/graph/search.py:42"),
+    "beam_search.rank": ("beam_search", "hnsw_slim_tpu/graph/search.py:67"),
+    "beam_search.filtered": ("beam_search",
+                             "hnsw_slim_tpu/graph/search.py:279"),
+    "greedy_descent.chal": ("greedy_descent",
+                            "hnsw_slim_tpu/graph/search.py:42"),
+    "greedy_descent.rank": ("greedy_descent",
+                            "hnsw_slim_tpu/graph/search.py:67"),
+    "rng_prune.guarded": ("rng_prune", "hnsw_slim_tpu/graph/heuristic.py:61"),
+}
 INSERT_PATH = ("topk_dist", "beam_search", "rng_prune", "greedy_descent",
                "rev_connect")
 NND_PATH = ("topk_dist", "beam_search", "rng_prune", "cand_merge")
+QUERY_PATH = ("topk_dist", "beam_search", "greedy_descent", "rng_prune",
+              "topk_dist.strata", "beam_search.chal", "beam_search.rank",
+              "beam_search.filtered", "greedy_descent.chal",
+              "greedy_descent.rank")
+SLIMZERO_PATH = ("rng_prune", "rng_prune.guarded", "topk_dist", "beam_search")
 EFS = (32, 64, 128, 256, 320)
 NQ = 4096
 HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s
@@ -175,33 +207,73 @@ class BatchRecorder:
             tb._build_search0, revconn.apply_insert = s0, ap
 
 
-def serve_sweep(idx, queries, gt, base, make_cfg, label: str) -> list:
-    """search() at each ef of EFS: recall@10, QPS (best of 3 after a warm
-    call, host clock, device synchronised), hops, distance computations;
-    checks shapes, ranges and true distances."""
+def serve_line(idx, queries, gt, label: str, allowed=None,
+               need_full: bool = True, **kw) -> dict:
+    """One search() configuration as serve_sweep prints it: recall@10
+    against ``gt``, QPS (best of 3 after a warm call), hops, dcomp, and the
+    split of a call into the card's time (CUDA events around the enqueued
+    work) and the rest (host glue: conversions, read-back). With
+    ``allowed`` (bool[N]) it also checks that every id is allowed and
+    (``need_full``) every row full, and reports the share of full rows.
+    Returns the row with the results under "d" and "ids"."""
     import numpy as np
     import torch
+
+    if allowed is not None:
+        kw["filter_mask"] = allowed
+    d, ids = idx.search(queries, k=10, **kw)
+    stats = dict(idx.last_stats)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx.search(queries, k=10, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    search_ms = 1e3 * min(times)
+    if hasattr(idx, "search_async"):
+        card_ms = cuda_ms(lambda: idx.search_async(queries, 10, **kw))
+    else:
+        card_ms = None
+    row = {"ef": idx.scfg.ef, "recall@10": round(recall(ids, gt), 4),
+           "qps": round(len(queries) / min(times), 1),
+           "hops": stats["hops"], "dcomp": stats["distance_computations"],
+           "search_ms": round(search_ms, 3),
+           "card_ms": None if card_ms is None else round(card_ms, 3),
+           "glue_ms": None if card_ms is None
+           else round(search_ms - card_ms, 3)}
+    full = ids >= 0
+    if allowed is not None:
+        row["full_rows"] = round(float(full.all(axis=1).mean()), 6)
+    say(f"{label} {json.dumps(row)}")
+    check(d.shape == (len(queries), 10) and ids.shape == d.shape,
+          f"{label}: misshapen result")
+    if allowed is not None:
+        check(full.all() or not need_full,
+              f"{label}: a filtered row is not full")
+        check(bool(allowed[ids[full]].all()), f"{label}: a returned id is "
+                                              "not allowed")
+    check(np.isfinite(d[full]).all() and
+          (np.diff(np.where(full, d, np.float32(3e38)), axis=1) >= 0).all(),
+          f"{label}: distances not finite and ascending")
+    row.update(d=d, ids=ids)
+    return row
+
+
+def serve_sweep(idx, queries, gt, base, make_cfg, label: str) -> list:
+    """serve_line at each ef of EFS, plus: ids in range, returned distances
+    the true ones, a plausible recall sweep. Returns the rows without their
+    ids."""
+    import numpy as np
 
     n = len(base)
     rows = []
     for ef in EFS:
         idx.scfg = make_cfg(ef)
-        d, ids = idx.search(queries, k=10)
-        times = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            idx.search(queries, k=10)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        row = {"ef": ef, "recall@10": round(recall(ids, gt), 4),
-               "qps": round(len(queries) / min(times), 1),
-               "hops": idx.last_stats["hops"],
-               "dcomp": idx.last_stats["distance_computations"]}
+        row = serve_line(idx, queries, gt, label)
+        d, ids = row.pop("d"), row.pop("ids")
         rows.append(row)
-        say(f"{label} {json.dumps(row)}")
-        check(d.shape == (len(queries), 10) and np.isfinite(d).all(),
-              f"{label} ef={ef}: non-finite or misshapen distances")
+        check(np.isfinite(d).all(), f"{label} ef={ef}: non-finite distances")
         check(((ids >= 0) & (ids < n)).all(), f"{label} ef={ef}: id range")
         true_d = ((queries[:, None, :] - base[ids]) ** 2).sum(-1)
         check(np.allclose(d, true_d, rtol=1e-3, atol=1e-3),
@@ -230,8 +302,10 @@ def main() -> int:
     from hnsw_slim_tpu_torch.index import bruteforce as bf
     from hnsw_slim_tpu_torch.index.hnsw import (HnswIndex,
                                                 resolve_build_strategy)
-    from hnsw_slim_tpu_torch.index.slim import HnswSlimIndex
+    from hnsw_slim_tpu_torch.index.slim import HnswSlimIndex, autotune_index
+    from hnsw_slim_tpu_torch.index.slimzero import HnswSlimZeroIndex
     from hnsw_slim_tpu_torch.ops import cuda
+    from hnsw_slim_tpu_torch.persist.patch import _level_rows
     from hnsw_slim_tpu_torch.utils.data import clustered
 
     t_start = time.perf_counter()
@@ -252,7 +326,7 @@ def main() -> int:
         if line.startswith("Compiling"):
             fn = line.split("'")[1] if "'" in line else line
             kernel = next((k for k in ("topk_scan", "topk_merge",
-                                       "beam_kernel", "prune_kernel",
+                                       "strata_sort", "beam_kernel", "prune_kernel",
                                        "merge_kernel", "greedy_kernel",
                                        "append_kernel", "degree_kernel",
                                        "rows_kernel", "write_kernel")
@@ -317,7 +391,169 @@ def main() -> int:
                and recorder.rec.get("q") is not None),
           "no 4096-insert batch was recorded")
 
-    # ---- 3. the NN-descent path -------------------------------------------
+    # ---- 3. the query surface on the insertion graph ----------------------
+    cuda.reset_launches()
+    qs_rows = {}
+
+    def view(src, layout, scfg):
+        """A second index object over src's graph and vectors in serving
+        layout "chal" (flat CHAL arrays only), "dense0" or "dense" (dense
+        level 0 + dense upper rows)."""
+        v = HnswSlimIndex(metric=src.metric, search_cfg=scfg, device=dev)
+        v.graph, v.vectors, v.vn = src.graph, src.vectors, src.vn
+        if layout != "chal":
+            v.dense0 = src.dense0
+        if layout == "dense":
+            v.dense_up, v.rank_up = src.dense_up, src.rank_up
+        return v
+
+    def layouts(src, scfg, label):
+        """One configuration served over the three layouts; checks that ids,
+        hops and dcomp are identical. Returns the dense-level-0 row."""
+        rows = [serve_line(view(src, lay, scfg), queries, gt,
+                           f"{label} [{lay}]")
+                for lay in ("chal", "dense0", "dense")]
+        for r in rows[1:]:
+            check((r["ids"] == rows[0]["ids"]).all()
+                  and r["hops"] == rows[0]["hops"]
+                  and r["dcomp"] == rows[0]["dcomp"],
+                  f"{label}: the serving layouts disagree")
+        return rows[1]
+
+    up_bytes = idx.densify_upper()
+    say(f"dense upper layout: {up_bytes} B")
+    for ef in (64, 128):
+        qs_rows[f"seeded ef={ef}"] = layouts(idx, scfg_slim(ef),
+                                             f"slim seeded ef={ef}")
+    for ef in (32, 64, 128):
+        qs_rows[f"greedy ef={ef}"] = layouts(
+            idx, SearchConfig(ef=ef, pop_width=8, seed_width=0),
+            f"slim seed_width=0 ef={ef}")
+    t0 = time.perf_counter()
+    idx_t1 = HnswSlimIndex.from_hnsw(
+        h, SlimConfig.from_ratios(threshold_level=1))
+    idx_t1.densify_level0()
+    idx_t1.densify_upper()
+    torch.cuda.synchronize()
+    say(f"threshold_level=1 conversion+densify: "
+        f"{time.perf_counter() - t0:.2f} s, index_size "
+        f"{idx_t1.index_size()} B, integrity {idx_t1.check_integrity()}")
+    for ef in (64, 128):
+        qs_rows[f"threshold1 ef={ef}"] = layouts(
+            idx_t1, SearchConfig(ef=ef, pop_width=8, seed_width=0),
+            f"slim threshold_level=1 seed_width=0 ef={ef}")
+    idx.scfg = SearchConfig(ef=64, pop_width=8, seed_width=32, seed_strata=4)
+    qs_rows["strata4 ef=64"] = serve_line(idx, queries, gt,
+                                          "slim seed_strata=4 ef=64")
+    masks = {}
+    for share in (0.5, 0.1):
+        allowed = np.random.default_rng(17).random(n) < share
+        sub = np.nonzero(allowed)[0]
+        t0 = time.perf_counter()
+        _, sub_gt = bf.BruteForceIndex(base[allowed], device=dev).search(
+            queries, k=10)
+        masks[share] = (allowed, sub[sub_gt])
+        say(f"filter {share}: {len(sub)} allowed, ground truth over them "
+            f"{time.perf_counter() - t0:.3f} s")
+        for ef in (64, 128):
+            idx.scfg = scfg_slim(ef)
+            qs_rows[f"slim allowed={share} ef={ef}"] = serve_line(
+                idx, queries, masks[share][1],
+                f"slim filtered allowed={share} ef={ef}", allowed=allowed,
+                need_full=n == 1_000_000)
+            h.scfg = SearchConfig(ef=ef, pop_width=4)
+            qs_rows[f"vanilla allowed={share} ef={ef}"] = serve_line(
+                h, queries, masks[share][1],
+                f"vanilla filtered allowed={share} ef={ef}", allowed=allowed,
+                need_full=n == 1_000_000)
+    idx.scfg = scfg_slim(64)
+    s_d, s_i = idx.search(queries, k=10)
+    a_d, a_i, a_h, a_c = idx.search_async(queries, 10)
+    torch.cuda.synchronize()
+    check((a_i.cpu().numpy() == s_i).all()
+          and (a_d.cpu().numpy() == s_d).all()
+          and int(a_h.sum()) == idx.last_stats["hops"]
+          and int(a_c.sum()) == idx.last_stats["distance_computations"],
+          "search_async differs from search")
+    say("search_async: equal to search (ids, distances, hops, dcomp)")
+    t0 = time.perf_counter()
+    tune = autotune_index(idx, 128)
+    say(f"autotune_index(ef=128): {json.dumps(tune)} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    grid = {(g_["pop_width"], g_["scan_width"]): g_["recall"]
+            for g_ in tune["grid"]}
+    check((8, 0) in grid and grid[(tune["knobs"]["pop_width"],
+                                   tune["knobs"]["scan_width"])]
+          >= grid[(8, 0)] - 0.002 - 1e-4,
+          f"autotune landed below the lossless configuration: {tune}")
+    launch_qs = dict(cuda.launches)
+    say(f"query-surface launches: {launch_qs}")
+    for name in QUERY_PATH:
+        check(launch_qs[name] > 0, f"{name} never launched on the query "
+                                   "surface")
+    for key, row in qs_rows.items():
+        check(row["recall@10"] >= 0.5, f"{key}: recall implausible: "
+                                       f"{row['recall@10']}")
+
+    # ---- 4. SlimZero -------------------------------------------------------
+    class GuardRecorder:
+        """Clones the inputs of one guarded prune call of the conversion
+        (the `which`-th 8192-row chunk); the call runs unchanged."""
+
+        def __init__(self, which):
+            self.which, self.calls, self.rec = which, 0, None
+
+        def __call__(self, vectors, vn, base_ids, cand, valid, guard, **kw):
+            self.calls += 1
+            if self.calls == self.which and len(base_ids) == \
+                    prune.GUARD_CHUNK:
+                self.rec = (base_ids.clone(), cand.clone(), guard.clone(),
+                            kw["m_per_row"].clone(), kw["out_width"])
+            return guarded(vectors, vn, base_ids, cand, valid, guard, **kw)
+
+    cuda.reset_launches()
+    zcfg = SlimConfig.from_ratios()
+    guarded = prune.prune_batch_guarded
+    g_rec = GuardRecorder(max(1, n // prune.GUARD_CHUNK // 2))
+    prune.prune_batch_guarded = g_rec
+    try:
+        t0 = time.perf_counter()
+        z = HnswSlimZeroIndex.from_hnsw(h, zcfg)
+        torch.cuda.synchronize()
+        t_zconv = time.perf_counter() - t0
+    finally:
+        prune.prune_batch_guarded = guarded
+    z_dense = z.densify_level0()
+    integ_z = z.check_integrity()
+    zc = z._host_chal()
+    z_rows0 = _level_rows(zc, 0, n, z.graph.cap0)
+    z_indeg = np.bincount(z_rows0[z_rows0 >= 0], minlength=n)
+    donor = prune.level_indegrees(h.host_adj(), h.levels)[0]
+    floor = np.minimum(donor, zcfg.min_indegree0)
+    floor_share = float((z_indeg >= floor).mean())
+    say(f"slimzero: conversion {t_zconv:.2f} s ({g_rec.calls} guarded prune "
+        f"calls), index_size {z.index_size()} B (size_estimate "
+        f"{HnswSlimZeroIndex.size_estimate(n, hcfg.branching_factor, zcfg):.0f}"
+        f" B), dense0 {z_dense} B, integrity {integ_z}, level-0 in-degree "
+        f"min {int(z_indeg.min())} mean {z_indeg.mean():.2f} against "
+        f"min_indegree0 {zcfg.min_indegree0}: {floor_share:.6f} of nodes at "
+        f"or above min(floor, donor in-degree); donor in-degree min "
+        f"{int(donor.min())}")
+    check(floor_share >= 0.999, "SlimZero's in-degree floor is broken: "
+                                f"{floor_share}")
+    slim_zero = serve_sweep(z, queries, gt, base, scfg_slim, "slimzero")
+    launch_sz = dict(cuda.launches)
+    say(f"slimzero-path launches: {launch_sz}")
+    for name in SLIMZERO_PATH:
+        check(launch_sz[name] > 0, f"{name} never launched on the SlimZero "
+                                   "path")
+    check(g_rec.rec is not None, "no guarded prune chunk was recorded")
+    check(slim_zero[-1]["recall@10"] >= slim_ins[-1]["recall@10"] - 0.02,
+          f"SlimZero recall@10 at ef={EFS[-1]} more than 0.02 under the "
+          f"Slim index's: {slim_zero[-1]['recall@10']} vs "
+          f"{slim_ins[-1]['recall@10']}")
+
+    # ---- 5. the NN-descent path -------------------------------------------
     cuda.reset_launches()
     t0 = time.perf_counter()
     h2 = HnswIndex(hcfg, strategy="nnd", device=dev)
@@ -346,7 +582,7 @@ def main() -> int:
               "the insertion-built Slim index does not beat the NND-built "
               f"one at ef={EFS[-1]}")
 
-    # ---- 4. each kernel against its plain version -------------------------
+    # ---- 6. each kernel against its plain version -------------------------
     report = {}
     x, xn = h.vectors, h.vn
     d = x.shape[1]
@@ -608,7 +844,7 @@ def main() -> int:
         beam_ms = cuda_ms(lambda: gs.beam_search(
             x, qall, qn_all, idx.dense0, *s_all, **beam_kw(row["ef"])))
         say(f"time split slim(insert) ef={row['ef']}: seeds {seed_ms:.3f} ms,"
-            f" beam {beam_ms:.3f} ms, search() {1e3 * NQ / row['qps']:.3f} ms"
+            f" beam {beam_ms:.3f} ms, search() {row['search_ms']:.3f} ms"
             f" for {NQ} queries")
     # where a vanilla search() call's time goes: the greedy descent (Kε,
     # levels max..1) and the level-0 beam (Kβ, pop 4) on the card
@@ -630,7 +866,7 @@ def main() -> int:
             pop_width=4, cw=gs.cand_width(ef, 4, g.adjs[0].shape[1], 0),
             max_iters=SearchConfig(ef=ef, pop_width=4).iters(), k=10))
         say(f"time split vanilla ef={ef}: greedy {greedy_ms:.3f} ms, beam "
-            f"{beam_ms:.3f} ms, search() {1e3 * NQ / row['qps']:.3f} ms for "
+            f"{beam_ms:.3f} ms, search() {row['search_ms']:.3f} ms for "
             f"{NQ} queries")
     kw_s = beam_kw(64)
     args_s = (x, q512, qn_all[:512], idx.dense0, *seeds(q512))
@@ -745,27 +981,219 @@ def main() -> int:
     check(report["cand_merge"]["agree"] >= 0.99 and ins_diff <= 0.01,
           f"cand_merge disagrees with its plain version: "
           f"{report['cand_merge']}")
+    # ---- the modes of phases 3 and 4, each against its plain version ------
+    def beam_pair(what, fetch, seeds_, kw_b, nq, filt=None):
+        """Kβ and its plain version on one call's inputs: agreement of the
+        returned ids (the track's when filtered), both times, the bound
+        from this call's own hops and distance computations."""
+        args_b = (x, qall[:nq].contiguous(), qn_all[:nq].contiguous(), fetch,
+                  seeds_[0][:nq].contiguous(), seeds_[1][:nq].contiguous())
+        extra = {}
+        if filt is not None:
+            t_d, t_i = gs.filter_track_init(filt, args_b[5][:, 0],
+                                            args_b[4][:, 0], kw_b["P"])
+            extra = dict(allowed=filt, track_d=t_d, track_id=t_i)
+        k_o = gs.beam_search(*args_b, **kw_b, **extra)
+        p_o = gs.beam_search_plain(*args_b, **kw_b, **extra)
+        col = 5 if filt is not None else 1
+        same = k_o[col] == p_o[col]
+        fin = same & torch.isfinite(p_o[col - 1])
+        hops_, dc_ = int(k_o[2].sum()), int(k_o[3].sum())
+        n_bytes = (hops_ * fetch.width * 4 + dc_ * d * 4 + nq * d * 4
+                   + nq * (kw_b["k"] * 8 + 8) + args_b[4].numel() * 8)
+        if filt is not None:  # one allowed byte per scored node; the track
+            n_bytes += dc_ + 2 * nq * kw_b["P"] * 8
+        rep = dict(
+            agree=float(same.float().mean()),
+            max_abs_err=float((k_o[col - 1] - p_o[col - 1])[fin].abs().max()),
+            ms=cuda_ms(lambda: gs.beam_search(*args_b, **kw_b, **extra)),
+            plain_ms=cuda_ms(
+                lambda: gs.beam_search_plain(*args_b, **kw_b, **extra), 1),
+            bound=bound(n_bytes, dc_ * 4 * d),
+            shapes=f"{what}: {nq} queries, P {kw_b['P']}, E "
+                   f"{kw_b['pop_width']}, W {fetch.width}, hops {hops_} vs "
+                   f"{int(p_o[2].sum())}, dcomp {dc_} vs {int(p_o[3].sum())}")
+        check(rep["agree"] >= 0.99, f"beam_search ({what}) disagrees with "
+                                    f"its plain version: {rep}")
+        return rep, k_o
+
+    gq = idx.graph
+    chal0 = gs.chal_fetch(gq.nbr, gq.lvl_off, 0, gq.cap0)
+    s_512 = seeds(q512)
+    rep_d, out_d = beam_pair("dense rows, level 0, seeded ef=64",
+                             gs.dense_fetch(idx.dense0), s_512, kw_s, 512)
+    report["beam_search.chal"], out_c = beam_pair(
+        "CHAL slices, level 0, seeded ef=64", chal0, s_512, kw_s, 512)
+    check(all(torch.equal(a, b_) for a, b_ in zip(out_d, out_c)),
+          "Kβ over CHAL slices differs from Kβ over dense rows")
+    report["beam_search.chal"]["shapes"] += (
+        f"; identical to the dense form ({rep_d['ms']:.3f} ms)")
+    # level 1 of the threshold_level=1 graph: descend to level 2 (Kε over
+    # rank rows), then the ef=64 beam over rank rows and over CHAL slices
+    g1 = idx_t1.graph
+    c1, d1 = gs.entry_dist(x, xn, q512, qn_all[:512], g1.entry)
+    for l in range(g1.max_level, min(1, g1.max_level), -1):
+        c1, d1, _, _ = gs.greedy_descent(
+            x, q512, qn_all[:512],
+            gs.rank_fetch(idx_t1.rank_up, idx_t1.dense_up[l - 1]), c1, d1)
+    s_l1 = (d1[:, None].contiguous(), c1[:, None].contiguous())
+    kw_l1 = dict(P=64, ef_eff=64, pop_width=8,
+                 cw=gs.cand_width(64, 8, g1.cap, 0),
+                 max_iters=SearchConfig(ef=64, pop_width=8).iters(), k=64)
+    lv1 = min(1, g1.max_level)
+    rank1 = gs.rank_fetch(idx_t1.rank_up, idx_t1.dense_up[lv1 - 1]) \
+        if lv1 else gs.dense_fetch(idx_t1.dense0)
+    report["beam_search.rank"], out_r = beam_pair(
+        f"rank rows, level {lv1} of the threshold_level=1 graph, ef=64",
+        rank1, s_l1, kw_l1, 512)
+    _, out_rc = beam_pair(
+        f"CHAL slices, level {lv1} of the threshold_level=1 graph",
+        gs.chal_fetch(g1.nbr, g1.lvl_off, lv1, g1.cap if lv1 else g1.cap0),
+        s_l1, kw_l1, 512)
+    check(all(torch.equal(a, b_) for a, b_ in zip(out_r, out_rc)),
+          "Kβ over rank rows differs from Kβ over CHAL slices")
+    f_parts = []
+    for share in (0.5, 0.1):
+        allowed_t = torch.as_tensor(masks[share][0], device=dev)
+        kw_f = dict(kw_s, cw=gs.cand_width(kw_s["P"], 8, gq.cap0, 0),
+                    max_iters=int(kw_s["max_iters"] / max(share, 0.05)) + 8)
+        rep_f, out_f = beam_pair(f"filtered, {share} allowed, dense rows, "
+                                 "seeded ef=64", gs.dense_fetch(idx.dense0),
+                                 s_512, kw_f, 512, filt=allowed_t)
+        check(bool(allowed_t[out_f[5][out_f[5] >= 0].long()].all()),
+              "Kβ filtered returned a disallowed id")
+        say(f"kernel beam_search.filtered part: {json.dumps(rep_f)}")
+        f_parts.append(rep_f)
+    report["beam_search.filtered"] = dict(
+        f_parts[0], agree=min(p_["agree"] for p_ in f_parts),
+        max_abs_err=max(p_["max_abs_err"] for p_ in f_parts),
+        shapes=f_parts[0]["shapes"] + "; at 0.1 allowed: "
+        + f_parts[1]["shapes"] + f", {f_parts[1]['ms']:.3f} ms vs plain "
+        f"{f_parts[1]['plain_ms']:.3f} ms")
+
+    # Kε over rank rows and over CHAL slices: the seed_width=0 descent of
+    # the Slim index, all 4096 queries, each level from the plain state
+    def greedy_pair(form):
+        pc_, pd_ = gs.entry_dist(x, xn, qall, qn_all, gq.entry)
+        eq_, tot_, err_, kms, pms, byt, flo = 0, 0, 0.0, 0.0, 0.0, 0, 0
+        curs = []
+        for l in range(gq.max_level, 0, -1):
+            fch = gs.rank_fetch(idx.rank_up, idx.dense_up[l - 1]) \
+                if form == "rank" else gs.chal_fetch(gq.nbr, gq.lvl_off, l,
+                                                     gq.cap)
+            st_ = (x, qall, qn_all, fch, pc_, pd_)
+            kc_, kd_, kh_, kdc_ = gs.greedy_descent(*st_)
+            kms += cuda_ms(lambda: gs.greedy_descent(*st_))
+            pms += cuda_ms(lambda: gs.greedy_descent_plain(*st_), 1)
+            npc, npd, _, _ = gs.greedy_descent_plain(*st_)
+            same_ = kc_ == npc
+            eq_, tot_ = eq_ + int(same_.sum()), tot_ + len(same_)
+            if same_.any():
+                err_ = max(err_, float((kd_ - npd)[same_].abs().max()))
+            byt += (int(kh_.sum()) * (fch.width * 4 + 8)
+                    + int(kdc_.sum()) * d * 4 + qall.numel() * 4 + NQ * 16)
+            flo += int(kdc_.sum()) * 4 * d
+            curs.append(kc_)
+            pc_, pd_ = npc, npd
+        rep = dict(agree=eq_ / max(1, tot_), max_abs_err=err_, ms=kms,
+                   plain_ms=pms, bound=bound(byt, flo),
+                   shapes=f"{NQ} queries, levels {gq.max_level}..1 of the "
+                          f"Slim graph through {form} rows")
+        check(rep["agree"] >= 0.99, f"greedy_descent ({form}) disagrees "
+                                    f"with its plain version: {rep}")
+        return rep, curs
+
+    report["greedy_descent.rank"], cur_r = greedy_pair("rank")
+    report["greedy_descent.chal"], cur_c = greedy_pair("chal")
+    check(all(torch.equal(a, b_) for a, b_ in zip(cur_r, cur_c)),
+          "Kε over rank rows differs from Kε over CHAL slices")
+
+    # Kα in strata mode: the seed block of seed_strata=4, all 4096 queries
+    st_args = (qall, up_vecs, up_vn, up_ids, 32, 4)
+    ksd, ksi = bf.topk_dist_strata(*st_args)
+    psd_, psi_ = bf.topk_dist_strata_plain(*st_args)
+    fin = torch.isfinite(psd_)
+    n_upv = int((up_ids >= 0).sum())
+    report["topk_dist.strata"] = dict(
+        agree=float((ksi == psi_).float().mean()),
+        max_abs_err=float((ksd - psd_)[fin].abs().max()),
+        ms=cuda_ms(lambda: bf.topk_dist_strata(*st_args)),
+        plain_ms=cuda_ms(lambda: bf.topk_dist_strata_plain(*st_args), 1),
+        bound=bound(up_vecs.numel() * 4 + up_vecs.shape[0] * 8
+                    + qall.numel() * 4 + NQ * 32 * 8,
+                    2 * NQ * up_vecs.shape[0] * d),
+        shapes=f"{NQ} x {up_vecs.shape[0]} rows ({n_upv} valid), 4 segments "
+               "x 8 seeds")
+    check(report["topk_dist.strata"]["agree"] >= 0.99
+          and bool(torch.equal(torch.isfinite(ksd), fin)),
+          f"topk_dist (strata) disagrees with its plain version: "
+          f"{report['topk_dist.strata']}")
+
+    # Kγ guarded: one chunk of the SlimZero conversion with its live guard
+    gb, gc, gg, gm, gw = g_rec.rec
+    kw_gd = dict(keep_all_under_m=False, keep_pruned=False, out_width=gw)
+    kgs, kgc = heuristic.rng_prune(x, xn, gb, gc, gm, guard=gg, **kw_gd)
+    pgs, pgc = heuristic.rng_prune_plain(x, xn, gb, gc, gm, guard=gg,
+                                         **kw_gd)
+    g_valid = int((gc >= 0).sum())
+    report["rng_prune.guarded"] = dict(
+        rows_agree=float((kgs == pgs).all(dim=1).float().mean()),
+        counts_agree=float((kgc == pgc).float().mean()),
+        max_abs_err=float((kgc - pgc).abs().max()),
+        ms=cuda_ms(lambda: heuristic.rng_prune(x, xn, gb, gc, gm, guard=gg,
+                                               **kw_gd)),
+        plain_ms=cuda_ms(lambda: heuristic.rng_prune_plain(
+            x, xn, gb, gc, gm, guard=gg, **kw_gd), 1),
+        bound=bound(gc.numel() * 5 + g_valid * (d + 1) * 4
+                    + len(gb) * (d + 2 + gw) * 4, g_valid * 2 * d),
+        shapes=f"one recorded chunk: {len(gb)} rows, C {gc.shape[1]}, "
+               f"{int(gg.sum())} guarded of {g_valid} candidates, "
+               f"{int((kgc > gm).sum())} rows kept past their budget; "
+               "max_abs_err is the largest kept-count difference")
+    check(report["rng_prune.guarded"]["rows_agree"] >= 0.99
+          and report["rng_prune.guarded"]["counts_agree"] >= 0.99,
+          f"rng_prune (guarded) disagrees with its plain version: "
+          f"{report['rng_prune.guarded']}")
+
     for name, rep in report.items():
         say(f"kernel {name}: {json.dumps(rep)}")
 
-    # ---- 5. summary --------------------------------------------------------
+    # ---- 7. summary --------------------------------------------------------
+    paths = (launch_ins, launch_qs, launch_sz, launch_nnd)
     kernels = [{
-        "name": name, "route": "cuda", "source": ROUTES[name][0],
-        "replaces": ROUTES[name][1],
-        "launches": launch_ins[name] + launch_nnd[name],
+        "name": name,
+        "route": "cuda",
+        "source": ROUTES[MODE_ROUTES[name][0] if name in MODE_ROUTES
+                         else name][0],
+        "replaces": MODE_ROUTES[name][1] if name in MODE_ROUTES
+        else ROUTES[name][1],
+        "launches": sum(p_[name] for p_ in paths),
         "max_abs_err": report[name]["max_abs_err"],
         "ms": round(report[name]["ms"], 4),
         "plain_ms": round(report[name]["plain_ms"], 4),
         "bound_ms": round(report[name]["bound"][0], 4),
         "bound_by": report[name]["bound"][1],
         "library_ms": None,  # no single PyTorch call computes these
-    } for name in ROUTES]
+    } for name in list(ROUTES) + list(MODE_ROUTES)]
+    for kern in kernels:
+        check(kern["launches"] > 0, f"{kern['name']} was never launched on "
+                                    "a main path")
+
+    def lines(rows: dict) -> dict:
+        return {k_: {a: b_ for a, b_ in r_.items() if a not in ("d", "ids")}
+                for k_, r_ in rows.items()}
     say(json.dumps({
         "insert": {"n": n, "build_s": round(t_build, 2),
                    "build_split_s": {k: round(v, 3) for k, v in ph.items()},
                    "overflow": ov, "convert_s": round(t_conv, 2),
                    "index_size": idx.index_size(), "vanilla": vanilla,
                    "slim": slim_ins, "launches": launch_ins},
+        "query_surface": {"lines": lines(qs_rows), "autotune": tune,
+                          "launches": launch_qs},
+        "slimzero": {"convert_s": round(t_zconv, 2),
+                     "index_size": z.index_size(),
+                     "floor_share": floor_share, "slim": slim_zero,
+                     "launches": launch_sz},
         "nnd": {"n": n, "build_s": round(t_build2, 2),
                 "convert_s": round(t_conv2, 2),
                 "index_size": idx2.index_size(), "slim": slim_nnd,

@@ -11,6 +11,7 @@ pass ``device="cpu"`` to run on the CPU.
 
     from hnsw_slim_tpu_torch.index.hnsw import HnswIndex
     from hnsw_slim_tpu_torch.index.slim import HnswSlimIndex
+    from hnsw_slim_tpu_torch.index.slimzero import HnswSlimZeroIndex
     from hnsw_slim_tpu_torch.index.bruteforce import BruteForceIndex
 
 ``config.py``, ``utils/data.py`` and ``utils/native.py`` are byte-equal

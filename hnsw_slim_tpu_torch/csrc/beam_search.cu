@@ -1,8 +1,9 @@
 // Kβ beam_search: the Slim base-layer beam, one block per query.
 //
 // Replaces (JAX): hnsw_slim_tpu/graph/search.py beam_level_scored with
-// make_dense_fetch, make_exact_scorer and merge_sorted (the lax.while_loop
-// lockstep beam of chal_search's base layer).
+// make_dense_fetch / make_rank_fetch / make_chal_fetch, make_exact_scorer,
+// merge_sorted and the FilterTrack branches (the lax.while_loop lockstep beam
+// of every beamed level of chal_search and level_search).
 //
 // What bounds it: the row gathers — every candidate costs one random
 // D*4-byte vector read (512 B at d=128) plus a 4*W-byte neighbor row per pop;
@@ -26,6 +27,19 @@
 //      by rank (each entry finds its output slot by binary search in the
 //      other list), keeping the P smallest; buffer entries precede
 //      candidates on equal distance, as JAX's stable sort merge does.
+// The neighbor rows come through one of three fetch forms (common.cuh
+// Fetch): dense rows, rows behind a rank indirection, or CHAL slices.
+//
+// Filtered mode (allowed != nullptr, JAX FilterTrack): the block keeps a
+// second sorted list of P (distance, id), the result track, which holds
+// allowed nodes only. After scoring, candidates that are allowed and not yet
+// in the track (binary search over a sorted copy of its ids) are merged into
+// it by rank, track entries first on equal distance. The pop bound and the
+// stop rule read the track's ef_eff-th distance instead of the buffer's, so
+// a query keeps expanding until ef_eff allowed results are held (or nothing
+// is left unchecked). The track comes in and goes out whole, so a caller can
+// carry it across levels beside the buffer. At P = 512, E = 8, W = 60 the
+// block needs 21 KB of shared memory unfiltered and 37 KB filtered.
 #include <climits>
 
 #include "common.cuh"
@@ -37,13 +51,17 @@ constexpr int NW = THREADS / 32;
 constexpr int MAX_POP = 64;
 
 __global__ void __launch_bounds__(THREADS)
-beam_kernel(const float* __restrict__ vec, int D, const int* __restrict__ rows,
-            int W, const float* __restrict__ q, const float* __restrict__ qn,
+beam_kernel(const float* __restrict__ vec, int D, const hs::Fetch f,
+            const float* __restrict__ q, const float* __restrict__ qn,
             const float* __restrict__ seed_d, const int* __restrict__ seed_id,
             int S, int P, int ef_eff, int E, int cw, int max_iters, int k,
             int metric, int Dp, int EWp, int Pp, int CWp,
-            float* __restrict__ out_d, int* __restrict__ out_id,
-            int* __restrict__ hops_out, int* __restrict__ dcomp_out) {
+            const unsigned char* __restrict__ allowed,
+            const float* __restrict__ trk_d_in,
+            const int* __restrict__ trk_id_in, float* __restrict__ out_d,
+            int* __restrict__ out_id, int* __restrict__ hops_out,
+            int* __restrict__ dcomp_out, float* __restrict__ trk_d_out,
+            int* __restrict__ trk_id_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
   float* bd = qs + Dp;
@@ -56,7 +74,19 @@ beam_kernel(const float* __restrict__ vec, int D, const int* __restrict__ rows,
   int* sb = raw + EWp;
   float* cd = reinterpret_cast<float*>(sb + Pp);
   int* ci = reinterpret_cast<int*>(cd + CWp);
+  // filtered mode only: the track and its double buffer, a sorted copy of
+  // its ids, and the allowed new candidates (index, distance, id)
+  float* td = reinterpret_cast<float*>(ci + CWp);
+  int* ti = reinterpret_cast<int*>(td + P);
+  float* ntd = reinterpret_cast<float*>(ti + P);
+  int* nti = reinterpret_cast<int*>(ntd + P);
+  int* st = nti + P;
+  int* fx = st + Pp;
+  float* fd = reinterpret_cast<float*>(fx + CWp);
+  int* fi = reinterpret_cast<int*>(fd + CWp);
   __shared__ int s_pos[MAX_POP], s_popid[MAX_POP], s_npop, s_scr[32];
+  __shared__ const int* s_row[MAX_POP];
+  __shared__ int s_rowcnt[MAX_POP];
 
   const int b = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -67,7 +97,12 @@ beam_kernel(const float* __restrict__ vec, int D, const int* __restrict__ rows,
     bd[j] = j < S ? seed_d[(size_t)b * S + j] : HS_INF;
     bi[j] = j < S ? seed_id[(size_t)b * S + j] : -1;
     bc[j] = 0;
+    if (allowed) {
+      td[j] = trk_d_in[(size_t)b * P + j];
+      ti[j] = trk_id_in[(size_t)b * P + j];
+    }
   }
+  const int W = f.W;
   const int ew = E * W;
   const bool prewindow = E > 1 && 2 * cw < ew;
   int hops = 0, dcomp = 0;
@@ -76,7 +111,7 @@ beam_kernel(const float* __restrict__ vec, int D, const int* __restrict__ rows,
   for (int it = 0; it < max_iters; ++it) {
     // 1. pops: first E unchecked entries of the window within the bound
     if (warp == 0) {
-      const float bound = bd[ef_eff - 1];
+      const float bound = allowed ? td[ef_eff - 1] : bd[ef_eff - 1];
       int cnt = 0;
       bool stop = false;
       for (int base = 0; base < ef_eff && !stop; base += 32) {
@@ -100,6 +135,9 @@ beam_kernel(const float* __restrict__ vec, int D, const int* __restrict__ rows,
       const int j = s_pos[tid];
       bc[j] = 1;
       s_popid[tid] = bi[j];
+      int rc;
+      s_row[tid] = hs::fetch_row(f, bi[j], rc);
+      s_rowcnt[tid] = rc;
     }
     hops += npop;
     __syncthreads();
@@ -108,8 +146,8 @@ beam_kernel(const float* __restrict__ vec, int D, const int* __restrict__ rows,
     for (int t = tid; t < EWp; t += THREADS) {
       int v = hs::BIG;
       if (t < npop * W) {
-        const int p = t / W;
-        const int id = rows[(size_t)s_popid[p] * W + (t - p * W)];
+        const int p = t / W, lane_t = t - p * W;
+        const int id = lane_t < s_rowcnt[p] ? __ldg(s_row[p] + lane_t) : -1;
         if (id >= 0) v = id;
       }
       raw[t] = v;
@@ -160,6 +198,38 @@ beam_kernel(const float* __restrict__ vec, int D, const int* __restrict__ rows,
     __syncthreads();
     hs::sort_pairs(cd, ci, mp);
 
+    // 3b. filtered mode: allowed candidates not yet in the track merge into
+    // it by rank (track entries first on equal distance), P smallest kept
+    if (allowed) {
+      for (int j = tid; j < Pp; j += THREADS)
+        st[j] = (j < P && ti[j] >= 0) ? ti[j] : hs::BIG;
+      __syncthreads();
+      hs::sort_int(st, Pp);
+      const int fm = hs::compact(
+          m,
+          [&](int c, int& v) {
+            v = c;
+            return allowed[ci[c]] != 0 && !hs::member(st, P, ci[c]);
+          },
+          fx, s_scr, cw);
+      for (int c = tid; c < fm; c += THREADS) {
+        fd[c] = cd[fx[c]];
+        fi[c] = ci[fx[c]];
+      }
+      __syncthreads();
+      for (int j = tid; j < P; j += THREADS) {
+        const int pos = j + hs::count_below(fd, fm, td[j]);
+        if (pos < P) { ntd[pos] = td[j]; nti[pos] = ti[j]; }
+      }
+      for (int c = tid; c < fm; c += THREADS) {
+        const int pos = c + hs::count_at_or_below(td, P, fd[c]);
+        if (pos < P) { ntd[pos] = fd[c]; nti[pos] = fi[c]; }
+      }
+      __syncthreads();
+      float* xd = td; td = ntd; ntd = xd;
+      int* xi = ti; ti = nti; nti = xi;
+    }
+
     // 4. merge by rank into the other buffer, keep the P smallest
     for (int j = tid; j < P; j += THREADS) {
       const int pos = j + hs::count_below(cd, m, bd[j]);
@@ -171,14 +241,20 @@ beam_kernel(const float* __restrict__ vec, int D, const int* __restrict__ rows,
     }
     dcomp += m;
     __syncthreads();
-    float* td = bd; bd = nd; nd = td;
-    int* ti = bi; bi = ni; ni = ti;
-    int* tc = bc; bc = nc; nc = tc;
+    float* sw_d = bd; bd = nd; nd = sw_d;
+    int* sw_i = bi; bi = ni; ni = sw_i;
+    int* sw_c = bc; bc = nc; nc = sw_c;
   }
 
   for (int t = tid; t < k; t += THREADS) {
     out_d[(size_t)b * k + t] = bd[t];
     out_id[(size_t)b * k + t] = bi[t];
+  }
+  if (allowed) {
+    for (int j = tid; j < P; j += THREADS) {
+      trk_d_out[(size_t)b * P + j] = td[j];
+      trk_id_out[(size_t)b * P + j] = ti[j];
+    }
   }
   if (tid == 0) {
     hops_out[b] = hops;
@@ -188,26 +264,34 @@ beam_kernel(const float* __restrict__ vec, int D, const int* __restrict__ rows,
 
 }  // namespace
 
-extern "C" int hs_beam_search(const float* vec, int D, const int* rows, int W,
-                              const float* q, const float* qn,
+extern "C" int hs_beam_search(const float* vec, int D, const int* rows,
+                              const int* aux, int mode, int W, int level,
+                              int stride, const float* q, const float* qn,
                               const float* seed_d, const int* seed_id, int B,
                               int S, int P, int ef_eff, int E, int cw,
-                              int max_iters, int k, int metric, float* out_d,
-                              int* out_id, int* hops, int* dcomp,
+                              int max_iters, int k, int metric,
+                              const unsigned char* allowed,
+                              const float* trk_d_in, const int* trk_id_in,
+                              float* out_d, int* out_id, int* hops,
+                              int* dcomp, float* trk_d_out, int* trk_id_out,
                               void* stream) {
   if (E > MAX_POP) return static_cast<int>(cudaErrorInvalidValue);
+  const hs::Fetch f{rows, aux, mode, W, level, stride};
   const int Dp = (D + 3) / 4 * 4;
   const int EWp = hs::next_pow2(E * W);
   const int Pp = hs::next_pow2(P);
   const int CWp = hs::next_pow2(cw);
-  const size_t smem = sizeof(float) * Dp + 6 * sizeof(int) * P +
-                      sizeof(int) * (EWp + Pp) + 2 * sizeof(int) * CWp;
+  size_t smem = sizeof(float) * Dp + 6 * sizeof(int) * P +
+                sizeof(int) * (EWp + Pp) + 2 * sizeof(int) * CWp;
+  if (allowed)
+    smem += 4 * sizeof(int) * P + sizeof(int) * Pp + 3 * sizeof(int) * CWp;
   cudaError_t err = cudaFuncSetAttribute(
       beam_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   beam_kernel<<<B, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      vec, D, rows, W, q, qn, seed_d, seed_id, S, P, ef_eff, E, cw,
-      max_iters, k, metric, Dp, EWp, Pp, CWp, out_d, out_id, hops, dcomp);
+      vec, D, f, q, qn, seed_d, seed_id, S, P, ef_eff, E, cw, max_iters, k,
+      metric, Dp, EWp, Pp, CWp, allowed, trk_d_in, trk_id_in, out_d, out_id,
+      hops, dcomp, trk_d_out, trk_id_out);
   return static_cast<int>(cudaGetLastError());
 }

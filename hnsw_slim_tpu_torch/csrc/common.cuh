@@ -187,4 +187,37 @@ __device__ __forceinline__ bool member(const int* a, int n, int v) {
   return lo < n && a[lo] == v;
 }
 
+// Neighbor-row fetch forms (graph/search.py Fetch), the three ways the JAX
+// package reads node v's level row (make_dense_fetch, make_rank_fetch,
+// make_chal_fetch):
+//   dense: rows i32[N, W];
+//   rank:  aux = rank i32[N] (-1 = no row at this level), rows = i32[R, W];
+//   CHAL:  rows = nbr i32[E], aux = lvl_off i32[N, stride]; the row is the
+//          slice nbr[lvl_off[v, level] : lvl_off[v, level + 1]], cut at W.
+enum { FETCH_DENSE = 0, FETCH_RANK = 1, FETCH_CHAL = 2 };
+struct Fetch {
+  const int* rows;
+  const int* aux;
+  int mode, W, level, stride;
+};
+
+// Node v's row: pointer to its first lane and, in cnt, how many lanes
+// (<= W) it has; lanes at or past cnt read as -1. A lane may itself hold -1.
+__device__ __forceinline__ const int* fetch_row(const Fetch& f, int v,
+                                                int& cnt) {
+  if (f.mode == FETCH_DENSE) {
+    cnt = f.W;
+    return f.rows + (size_t)v * f.W;
+  }
+  if (f.mode == FETCH_RANK) {
+    const int r = __ldg(f.aux + v);
+    cnt = r >= 0 ? f.W : 0;
+    return f.rows + (size_t)(r >= 0 ? r : 0) * f.W;
+  }
+  const int* off = f.aux + (size_t)v * f.stride + f.level;
+  const int start = __ldg(off), end = __ldg(off + 1);
+  cnt = min(max(end - start, 0), f.W);
+  return f.rows + start;
+}
+
 }  // namespace hs

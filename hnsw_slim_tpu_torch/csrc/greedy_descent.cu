@@ -1,10 +1,12 @@
-// Kε greedy_descent: one level of greedy descent over dense level rows, one
-// warp per query.
+// Kε greedy_descent: one level of greedy descent over a level's neighbor
+// rows (dense, behind a rank indirection, or CHAL slices: common.cuh Fetch),
+// one warp per query.
 //
 // Replaces (JAX): hnsw_slim_tpu/graph/search.py greedy_level_scored /
-// greedy_level with make_dense_fetch and make_exact_scorer — the
-// lax.while_loop that a whole batch runs in lockstep, once per upper level,
-// in level_search (the vanilla query path) and in the insert-time candidate
+// greedy_level with make_dense_fetch / make_rank_fetch / make_chal_fetch and
+// make_exact_scorer — the lax.while_loop that a whole batch runs in
+// lockstep, once per upper level, in level_search (the vanilla query path),
+// in chal_search above the threshold level and in the insert-time candidate
 // search (graph/build.py _build_search, _build_search0).
 //
 // What bounds it: the row gathers. A step reads one neighbor row (4*W bytes)
@@ -31,8 +33,7 @@ constexpr int NW = THREADS / 32;
 constexpr int GROUP = 4;
 
 __global__ void __launch_bounds__(THREADS)
-greedy_kernel(const float* __restrict__ vec, int D,
-              const int* __restrict__ rows, int W,
+greedy_kernel(const float* __restrict__ vec, int D, const hs::Fetch f,
               const float* __restrict__ q, const float* __restrict__ qn,
               const unsigned char* __restrict__ active, int B, int metric,
               int Dp, int* __restrict__ cur, float* __restrict__ curdist,
@@ -53,7 +54,8 @@ greedy_kernel(const float* __restrict__ vec, int D,
   bool go = active == nullptr || active[b] != 0;
   while (go) {
     ++hops;
-    const int* row = rows + (size_t)c * W;
+    int W;  // lanes of this node's row (warp-uniform)
+    const int* row = hs::fetch_row(f, c, W);
     float best_d = HS_INF;
     int best_id = hs::BIG;
     for (int j0 = 0; j0 < W; j0 += 32) {
@@ -106,10 +108,12 @@ greedy_kernel(const float* __restrict__ vec, int D,
 }  // namespace
 
 extern "C" int hs_greedy_descent(const float* vec, int D, const int* rows,
-                                 int W, const float* q, const float* qn,
+                                 const int* aux, int mode, int W, int level,
+                                 int stride, const float* q, const float* qn,
                                  const unsigned char* active, int B,
                                  int metric, int* cur, float* curdist,
                                  int* hops, int* dcomp, void* stream) {
+  const hs::Fetch f{rows, aux, mode, W, level, stride};
   const int Dp = (D + 3) / 4 * 4;
   const size_t smem = sizeof(float) * Dp * NW;
   cudaError_t err = cudaFuncSetAttribute(
@@ -118,7 +122,6 @@ extern "C" int hs_greedy_descent(const float* vec, int D, const int* rows,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (B + NW - 1) / NW;
   greedy_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      vec, D, rows, W, q, qn, active, B, metric, Dp, cur, curdist, hops,
-      dcomp);
+      vec, D, f, q, qn, active, B, metric, Dp, cur, curdist, hops, dcomp);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,7 +3,9 @@
 //
 // Replaces (JAX): hnsw_slim_tpu/graph/heuristic.py _prune_batch_impl with
 // _sorted_prune_inputs, _prune_one and _pack_kept (prune_batch / prune_all),
-// which the NND build and the Slim conversion run over every node.
+// which the NND build and the Slim conversion run over every node, and
+// _prune_batch_guarded_impl with _prune_one_guarded (prune_batch_guarded),
+// which the SlimZero conversion runs.
 //
 // What bounds it: the JAX program materializes all C x C candidate pair
 // distances ([chunk, C, C] in HBM; conversion hub rows reach C >= 1024, a
@@ -22,6 +24,14 @@
 // keep_all_under_m, the keep_pruned backfill (nearest first, skipping ids
 // already kept or seen earlier in the walk) and the packing to out_width
 // follow the JAX code.
+//
+// Guarded mode (guard != nullptr, the SlimZero prune): every valid candidate
+// whose guard byte is set is kept whatever the budget, so the kept rows may
+// number up to C and the stage is sized by C. They are staged first, in
+// walk order, because the RNG test of an unguarded candidate runs against
+// ALL kept rows, guarded ones farther away included. The walk then visits
+// the unguarded candidates in ascending distance while fewer than m rows
+// are kept. No early-out and no backfill in this mode.
 #include <climits>
 
 #include "common.cuh"
@@ -36,7 +46,8 @@ prune_kernel(const float* __restrict__ vec, const float* __restrict__ vn,
              int D, const int* __restrict__ base_ids,
              const int* __restrict__ cand, const int* __restrict__ m_per_row,
              int C, int Cp, int Dp, int m_slots, int keep_all_under_m,
-             int keep_pruned, int w, int metric, int* __restrict__ out,
+             int keep_pruned, int w, int metric,
+             const unsigned char* __restrict__ guard, int* __restrict__ out,
              int* __restrict__ cnt_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* bvec = reinterpret_cast<float*>(smem);
@@ -84,7 +95,45 @@ prune_kernel(const float* __restrict__ vec, const float* __restrict__ vn,
   const int nvalid = s_nvalid;  // valid lanes are sorted positions [0, nvalid)
 
   int cnt = 0;
-  if (keep_all_under_m && nvalid < m) {
+  if (guard) {
+    // pass 1: stage every guarded valid candidate, in walk order
+    const unsigned char* grow = guard + (size_t)b * C;
+    cnt = hs::compact(
+        nvalid,
+        [&](int i, int& v) {
+          v = i;
+          return grow[sp[i]] != 0;
+        },
+        kid, s_scr, m_slots);
+    for (int j = warp; j < cnt; j += NW) {
+      const int i = kid[j];
+      const int id = crow[sp[i]];
+      for (int e = lane; e < D; e += 32)
+        kvec[(size_t)j * Dp + e] = vec[(size_t)id * D + e];
+      if (lane == 0) { kn[j] = vn[id]; kflag[i] = 1; }
+    }
+    __syncthreads();
+    // pass 2: unguarded candidates under the RNG rule against all kept rows
+    for (int i = 0; i < nvalid && cnt < m; ++i) {
+      if (kflag[i]) continue;  // block-uniform: kflag is in shared memory
+      const int id = crow[sp[i]];
+      const float di = sd[i];
+      float* cv = kvec + (size_t)cnt * Dp;
+      for (int e = tid; e < D; e += THREADS) cv[e] = vec[(size_t)id * D + e];
+      const float cn = vn[id];
+      __syncthreads();
+      bool conflict = false;
+      for (int j = warp; j < cnt; j += NW) {
+        const float dot = hs::warp_dot_smem(cv, kvec + (size_t)j * Dp, D);
+        const float pd = metric ? 1.f - dot : (cn + kn[j]) - 2.f * dot;
+        conflict |= pd < di;
+      }
+      if (!__syncthreads_or(conflict)) {
+        if (tid == 0) { kn[cnt] = cn; kflag[i] = 1; }
+        ++cnt;
+      }
+    }
+  } else if (keep_all_under_m && nvalid < m) {
     for (int i = tid; i < nvalid; i += THREADS) kflag[i] = 1;
     cnt = nvalid;
   } else {
@@ -152,7 +201,8 @@ extern "C" int hs_rng_prune(const float* vec, const float* vn, int D,
                             const int* base_ids, const int* cand,
                             const int* m_per_row, int B, int C, int m_max,
                             int keep_all_under_m, int keep_pruned,
-                            int out_width, int metric, int* out, int* cnt,
+                            int out_width, int metric,
+                            const unsigned char* guard, int* out, int* cnt,
                             void* stream) {
   const int Dp = (D + 3) / 4 * 4;
   const int Cp = hs::next_pow2(C < 1 ? 1 : C);
@@ -165,6 +215,6 @@ extern "C" int hs_rng_prune(const float* vec, const float* vn, int D,
   if (err != cudaSuccess) return static_cast<int>(err);
   prune_kernel<<<B, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       vec, vn, D, base_ids, cand, m_per_row, C, Cp, Dp, m_slots,
-      keep_all_under_m, keep_pruned, out_width, metric, out, cnt);
+      keep_all_under_m, keep_pruned, out_width, metric, guard, out, cnt);
   return static_cast<int>(cudaGetLastError());
 }

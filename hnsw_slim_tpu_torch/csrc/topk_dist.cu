@@ -19,6 +19,12 @@
 // k-1, which after the first tiles is rare, so the insert (ballot for the
 // position, shuffle-up to shift) costs little. With splits > 1 a second
 // kernel merges the per-split lists, one warp per query.
+//
+// Strata mode (chal_search's stratified seeds, seed_strata > 1): the table is
+// cut into `strata` equal segments; the scan runs with one split per segment
+// and k = seeds per segment, and a second kernel sorts each query's
+// strata * k picks by (distance, segment-major position) — JAX's stable sort
+// of the per-segment argmin picks — and maps rows to ids (inf gives -1).
 #include "common.cuh"
 
 namespace {
@@ -198,6 +204,41 @@ topk_merge(const float* __restrict__ part_d, const int* __restrict__ part_i,
   }
 }
 
+// one block per query: stable sort of the per-segment picks by distance
+// (ties in segment-major order), rows mapped to ids through row_ids
+constexpr int MAX_SEEDS = 1024;
+
+__global__ void __launch_bounds__(256)
+strata_sort(const float* __restrict__ part_d, const int* __restrict__ part_i,
+            const int* __restrict__ row_ids, int strata, int B, int sps,
+            float* __restrict__ out_d, int* __restrict__ out_id) {
+  __shared__ float sd[MAX_SEEDS];
+  __shared__ int sj[MAX_SEEDS], spos[MAX_SEEDS];
+  const int gq = blockIdx.x, S = strata * sps;
+  const int Sp = hs::next_pow2(S);
+  for (int j = threadIdx.x; j < Sp; j += blockDim.x) {
+    float d = HS_INF;
+    int pos = -1;
+    if (j < S) {
+      const int seg = j / sps, r = j - seg * sps;
+      const size_t at = ((size_t)seg * B + gq) * sps + r;
+      d = part_d[at];
+      pos = part_i[at];
+    }
+    sd[j] = d;
+    sj[j] = j;
+    spos[j] = pos;
+  }
+  __syncthreads();
+  hs::sort_pairs(sd, sj, Sp);
+  for (int t = threadIdx.x; t < S; t += blockDim.x) {
+    const float d = sd[t];
+    const int pos = spos[sj[t]];
+    out_d[(size_t)gq * S + t] = d;
+    out_id[(size_t)gq * S + t] = (isinf(d) || pos < 0) ? -1 : row_ids[pos];
+  }
+}
+
 }  // namespace
 
 extern "C" int hs_topk_dist(const float* q, const float* qn, const float* x,
@@ -221,6 +262,23 @@ extern "C" int hs_topk_dist(const float* q, const float* qn, const float* x,
     topk_merge<<<(B + 7) / 8, 256, 0, st>>>(part_d, part_i, splits, B, k,
                                             out_d, out_i);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int hs_topk_strata(const float* q, const float* qn, const float* x,
+                              const float* xn, const int* row_ids, int B,
+                              int N, int D, int sps, int strata, int metric,
+                              float* part_d, int* part_i, float* out_d,
+                              int* out_id, void* stream) {
+  if (strata < 1 || N % strata || sps < 1 || sps > 64 ||
+      strata * sps > MAX_SEEDS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((B + BQ - 1) / BQ, strata);
+  topk_scan<<<grid, THREADS, 0, st>>>(q, qn, x, xn, row_ids, B, N, D, N, -1,
+                                      sps, metric, N / strata, part_d, part_i);
+  strata_sort<<<B, 256, 0, st>>>(part_d, part_i, row_ids, strata, B, sps,
+                                 out_d, out_id);
   return static_cast<int>(cudaGetLastError());
 }
 

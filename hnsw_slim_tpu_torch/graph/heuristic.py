@@ -1,8 +1,11 @@
 """Relative-neighborhood (RNG) heuristic pruning (port of
-hnsw_slim_tpu/graph/heuristic.py: prune_batch, prune_all) on kernel Kγ.
+hnsw_slim_tpu/graph/heuristic.py: prune_batch, prune_all,
+prune_batch_guarded) on kernel Kγ.
 
 Walk a base node's candidates in ascending distance; keep a candidate iff no
-already-kept one is closer to it than the base is, until m are kept.
+already-kept one is closer to it than the base is, until m are kept. The
+guarded form (SlimZero) first keeps every candidate whose guard is set,
+whatever the budget, and tests the others against all of those too.
 """
 
 from __future__ import annotations
@@ -16,9 +19,10 @@ INF = float("inf")
 
 
 def _prune_rows_plain(vectors, vn, base_ids, cand_ids, m, keep_all_under_m,
-                      keep_pruned, w, metric):
+                      keep_pruned, w, metric, guard=None):
     """One chunk of rows, step for step as the JAX code (C x C pairwise
-    distances, a scan over sorted positions, backfill, pack)."""
+    distances, a scan over sorted positions, backfill, pack). With ``guard``
+    (bool[b, C]) the scan is JAX's ``_prune_one_guarded``."""
     b, c = cand_ids.shape
     dev = cand_ids.device
     safe = cand_ids.clamp(min=0).long()
@@ -37,12 +41,18 @@ def _prune_rows_plain(vectors, vn, base_ids, cand_ids, m, keep_all_under_m,
     dots = torch.bmm(cvecs_s, cvecs_s.transpose(1, 2))
     pd = 1.0 - dots if metric == "ip" else (
         cn_s[:, :, None] + cn_s[:, None, :] - 2.0 * dots)
-    kept = torch.zeros((b, c), dtype=torch.bool, device=dev)
-    cnt = torch.zeros(b, dtype=torch.int32, device=dev)
+    if guard is None:
+        kept = torch.zeros((b, c), dtype=torch.bool, device=dev)
+        free = v_s
+    else:
+        # pass 1: every valid guarded candidate is kept, whatever the budget
+        kept = torch.gather(guard, 1, perm) & v_s
+        free = v_s & ~kept
+    cnt = kept.sum(dim=1, dtype=torch.int32)
     for i in range(c):
         conflict = (kept & (pd[:, i, :] < d_s[:, i:i + 1])).any(dim=1)
-        good = v_s[:, i] & (cnt < m) & ~conflict
-        kept[:, i] = good
+        good = free[:, i] & (cnt < m) & ~conflict
+        kept[:, i] |= good
         cnt += good.int()
     if keep_all_under_m:
         nvalid = v_s.sum(dim=1, dtype=torch.int32)
@@ -74,7 +84,7 @@ def _prune_rows_plain(vectors, vn, base_ids, cand_ids, m, keep_all_under_m,
 
 def rng_prune_plain(vectors, vn, base_ids, cand_ids, m_per_row, *,
                     keep_all_under_m: bool, keep_pruned: bool,
-                    out_width: int, metric: str = "l2"):
+                    out_width: int, metric: str = "l2", guard=None):
     """Plain PyTorch Kγ: (sel i32[B, out_width], cnt i32[B]). Rows are
     processed in chunks that bound the [chunk, C, C] pairwise tensor."""
     b, c = cand_ids.shape
@@ -84,7 +94,8 @@ def rng_prune_plain(vectors, vn, base_ids, cand_ids, m_per_row, *,
         e = min(s + chunk, b)
         sel, cnt = _prune_rows_plain(
             vectors, vn, base_ids[s:e], cand_ids[s:e], m_per_row[s:e],
-            keep_all_under_m, keep_pruned, out_width, metric)
+            keep_all_under_m, keep_pruned, out_width, metric,
+            None if guard is None else guard[s:e])
         sels.append(sel)
         cnts.append(cnt)
     if not sels:
@@ -96,18 +107,24 @@ def rng_prune_plain(vectors, vn, base_ids, cand_ids, m_per_row, *,
 
 def rng_prune(vectors, vn, base_ids, cand_ids, m_per_row, *,
               keep_all_under_m: bool, keep_pruned: bool, out_width: int,
-              metric: str = "l2", m_max: int | None = None):
+              metric: str = "l2", m_max: int | None = None, guard=None):
     """Kγ: RNG prune of cand_ids i32[B, C] (-1 = no candidate) around
     base_ids i32[B] with budgets m_per_row i32[B]. Returns (sel
     i32[B, out_width] in ascending distance, -1 padded; cnt i32[B]).
     CUDA tensors run csrc/rng_prune.cu, CPU tensors the plain version.
     ``m_max``, a bound on m_per_row known to the caller, sizes the kernel's
-    shared memory without reading m_per_row back from the card."""
+    shared memory without reading m_per_row back from the card. ``guard``
+    (bool[B, C]) selects the guarded mode: guarded candidates are kept
+    first and past the budget, so the kept rows are staged for up to C and
+    cnt may exceed m_per_row; it excludes the early-out and the backfill."""
+    if guard is not None and (keep_all_under_m or keep_pruned):
+        raise ValueError("rng_prune: the guarded mode has no early-out and "
+                         "no backfill")
     if not cand_ids.is_cuda:
         return rng_prune_plain(
             vectors, vn, base_ids, cand_ids, m_per_row,
             keep_all_under_m=keep_all_under_m, keep_pruned=keep_pruned,
-            out_width=out_width, metric=metric)
+            out_width=out_width, metric=metric, guard=guard)
     b, c = cand_ids.shape
     d = vectors.shape[1]
     cuda.require(vectors, torch.float32, "vectors", (-1, d))
@@ -121,7 +138,12 @@ def rng_prune(vectors, vn, base_ids, cand_ids, m_per_row, *,
         return sel, cnt
     if c == 0:
         return sel.fill_(-1), cnt.zero_()
-    m_slots = int(min(int(m_per_row.max()) if m_max is None else m_max, c))
+    if guard is not None:
+        cuda.require(guard, torch.bool, "guard", (b, c))
+        m_slots = c
+    else:
+        m_slots = int(min(int(m_per_row.max()) if m_max is None else m_max,
+                          c))
     dp = -(-d // 4) * 4
     smem = 4 * dp * (1 + m_slots) + 8 * (1 << (c - 1).bit_length()) \
         + 8 * m_slots + (1 << (c - 1).bit_length())
@@ -132,7 +154,9 @@ def rng_prune(vectors, vn, base_ids, cand_ids, m_per_row, *,
         "rng_prune", vectors.data_ptr(), vn.data_ptr(), d, base_ids.data_ptr(),
         cand_ids.data_ptr(), m_per_row.data_ptr(), b, c, m_slots,
         int(keep_all_under_m), int(keep_pruned), out_width,
-        int(metric == "ip"), sel.data_ptr(), cnt.data_ptr(),
+        int(metric == "ip"), None if guard is None else guard.data_ptr(),
+        sel.data_ptr(), cnt.data_ptr(),
+        modes=() if guard is None else ("guarded",),
     )
     return sel, cnt
 
@@ -151,6 +175,24 @@ def prune_batch(vectors, vn, base_ids, cand_ids, valid, *, M: int,
         m_per_row.to(torch.int32).contiguous(),
         keep_all_under_m=keep_all_under_m, keep_pruned=keep_pruned,
         out_width=out_width or M, metric=metric)
+
+
+def prune_batch_guarded(vectors, vn, base_ids, cand_ids, valid, guard, *,
+                        M: int, metric: str = "l2", out_width: int = 0,
+                        m_per_row=None):
+    """SlimZero's guarded prune: candidates whose ``guard`` (bool[B, C]: the
+    candidate's in-degree is at the floor) is set are always kept; the RNG
+    rule fills the rest up to the budget. Returns (sel i32[B, out_width or
+    M], cnt i32[B])."""
+    cand = torch.where(valid, cand_ids, -1).to(torch.int32).contiguous()
+    if m_per_row is None:
+        m_per_row = torch.full((cand.shape[0],), M, dtype=torch.int32,
+                               device=cand.device)
+    return rng_prune(
+        vectors, vn, base_ids.to(torch.int32).contiguous(), cand,
+        m_per_row.to(torch.int32).contiguous(), keep_all_under_m=False,
+        keep_pruned=False, out_width=out_width or M, metric=metric,
+        guard=guard.contiguous())
 
 
 def prune_all(vectors, vn, base_ids, cand_ids, m_per_row, *, M: int,

@@ -1,5 +1,6 @@
 """Two-stage Slim pruning: HNSW LevelGraph -> compact CHAL graph (port of
-hnsw_slim_tpu/graph/prune.py: convert_to_slim, pack_chal_arrays).
+hnsw_slim_tpu/graph/prune.py: convert_to_slim, convert_to_slimzero,
+level_indegrees, pack_chal_arrays).
 
 Host numpy passes around the RNG prune (kernel Kγ):
   1. degree histogram + per-level top-alpha% threshold walk
@@ -12,6 +13,12 @@ Host numpy passes around the RNG prune (kernel Kγ):
 
 The reference quirk is kept: level_cnts[0] is never incremented, so every
 level-0 node takes the low budget unless count_level0_hubs=True.
+
+The SlimZero conversion keeps steps 1, 5 and 6 and replaces 2-4: no
+reverse-edge union; a guarded prune (Kγ's guarded mode) keeps every neighbor
+whose live in-degree is at the floor, in sequential chunks that lower the
+live count by what they discard, and a host pass restores the floor where
+it was still broken.
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ import torch
 from ..config import SlimConfig
 from ..utils import native
 
-from .heuristic import prune_all, prune_batch
+from .heuristic import prune_all, prune_batch, prune_batch_guarded
 from .types import ChalGraph, LevelGraph
 
 
@@ -166,6 +173,197 @@ def convert_to_slim(lg: LevelGraph, vectors: torch.Tensor, vn: torch.Tensor,
             print(f"  slim level {l}: thr={thr[l]} "
                   f"edges={(final_rows[l] >= 0).sum()}")
 
+    return pack_chal_arrays(
+        final_rows, levels, entry=int(lg.entry), max_level=lmax,
+        threshold_level=cfg.threshold_level, cap0=maxM0, cap=maxM,
+        device=dev,
+    )
+
+
+def level_indegrees(adj_np: list[np.ndarray],
+                    levels: np.ndarray) -> list[np.ndarray]:
+    """Per-(node, level) in-degree of the donor graph."""
+    n = len(levels)
+    out = []
+    for l, a in enumerate(adj_np):
+        vals = a[levels >= l].reshape(-1)
+        out.append(np.bincount(vals[vals >= 0], minlength=n).astype(np.int64))
+    return out
+
+
+GUARD_CHUNK = 8192  # rows per guarded-prune call; the result depends on it
+
+
+def _guarded_rows(vectors, vn, act, a, budget, indeg, m_rev, metric):
+    """SlimZero's adaptive guarded prune of one level: rows ``a`` of nodes
+    ``act`` in sequential chunks of GUARD_CHUNK. A neighbor is guarded while
+    its live in-degree is <= m_rev; each chunk's discards lower the live
+    count before the next chunk runs (the reference decrements a shared
+    counter as it prunes; a snapshot guard collapses at scale). The count
+    lives on the device of ``vectors``, so no chunk waits for the host."""
+    dev = vectors.device
+    n = len(indeg)
+    w = int(a.shape[1])
+    live = torch.as_tensor(indeg, device=dev)
+    a_t = torch.as_tensor(a, device=dev)
+    act_t = torch.as_tensor(act.astype(np.int32), device=dev)
+    m_t = torch.as_tensor(budget.astype(np.int32), device=dev)
+    rows = []
+    for s in range(0, len(act), GUARD_CHUNK):
+        ack = a_t[s:s + GUARD_CHUNK]
+        valid = ack >= 0
+        guard = live[ack.clamp(min=0).long()] <= m_rev
+        sel, _ = prune_batch_guarded(
+            vectors, vn, act_t[s:s + GUARD_CHUNK], ack, valid, guard, M=w,
+            metric=metric, out_width=w, m_per_row=m_t[s:s + GUARD_CHUNK])
+        rows.append(sel)
+        live -= (torch.bincount(ack[valid].long(), minlength=n)
+                 - torch.bincount(sel[sel >= 0].long(), minlength=n))
+    if not rows:
+        return np.full((0, w), -1, np.int32)
+    return torch.cat(rows).cpu().numpy()
+
+
+def _restore_indegree_floor(rows: np.ndarray, donor: np.ndarray, n: int,
+                            starved: np.ndarray, post: np.ndarray,
+                            m_rev: int) -> None:
+    """Re-add donor in-edges (from the unpruned rows ``donor`` that held the
+    node, lowest row first) to every ``starved`` node until its in-degree
+    reaches m_rev or the donors run out; writes into free slots of ``rows``
+    in place. ``post`` is the in-degree after the prune."""
+    m2 = donor >= 0
+    tgts = donor[m2]
+    src_rows = np.repeat(np.arange(len(donor)), m2.sum(axis=1)).astype(np.int64)
+    order = np.argsort(tgts, kind="stable")  # stable: lowest row first
+    ts, rs = tgts[order].astype(np.int64), src_rows[order]
+    lo = np.searchsorted(ts, starved)
+    hi = np.searchsorted(ts, starved, side="right")
+    need = np.minimum((m_rev - post[starved]).clip(min=0),
+                      hi - lo).astype(np.int64)
+    # oversample donors by the per-node kept count, then drop the donors
+    # that already kept the edge (they count in post)
+    over_need = np.minimum(need + post[starved], hi - lo).astype(np.int64)
+    total = int(over_need.sum())
+    if not total:
+        return
+    off = np.concatenate([[0], np.cumsum(over_need)[:-1]])
+    flat = (np.arange(total) - np.repeat(off, over_need)
+            + np.repeat(lo, over_need))
+    r_list = rs[flat]
+    u_list = np.repeat(starved.astype(np.int64), over_need)
+    mk = rows >= 0
+    kept_keys = np.sort(np.repeat(np.arange(len(rows)), mk.sum(axis=1))
+                        * np.int64(n) + rows[mk])
+    cand_keys = r_list * np.int64(n) + u_list
+    pos2 = np.searchsorted(kept_keys, cand_keys)
+    dup = np.zeros(len(cand_keys), bool)
+    inb = pos2 < len(kept_keys)
+    dup[inb] = kept_keys[pos2[inb]] == cand_keys[inb]
+    r_list, u_list = r_list[~dup], u_list[~dup]
+    # cap restores per node at its need
+    need_of = np.zeros(n, np.int64)
+    need_of[starved] = need
+    order_u = np.argsort(u_list, kind="stable")
+    uu, rr = u_list[order_u], r_list[order_u]
+    keep2 = np.arange(len(uu)) - np.searchsorted(uu, uu) < need_of[uu]
+    uu, rr = uu[keep2], rr[keep2]
+    # scatter into free slots, grouped per donor row
+    order_r = np.argsort(rr, kind="stable")
+    rr, uu = rr[order_r], uu[order_r]
+    slot = (rows >= 0).sum(axis=1)[rr] + np.arange(len(rr)) \
+        - np.searchsorted(rr, rr)
+    okslot = slot < rows.shape[1]
+    rows[rr[okslot], slot[okslot]] = uu[okslot]
+
+
+def convert_to_slimzero(lg: LevelGraph, vectors: torch.Tensor,
+                        vn: torch.Tensor, cfg: SlimConfig, metric: str = "l2",
+                        count_level0_hubs: bool = False,
+                        verbose: bool = False,
+                        state: dict | None = None) -> ChalGraph:
+    """SlimZero conversion: the Slim hub/low budgets but no reverse-edge
+    union; connectivity is kept by an in-degree guard (any neighbor whose
+    live in-degree is <= min_indegree stays), then one repair pass restores
+    the floor from donor edges, rows over the level cap are re-pruned, and
+    the hierarchical filter and connectivity repair run as in Slim.
+
+    ``state``, if given, captures what an incremental conversion needs:
+    final rows, budgets, thresholds, caps, levels, entry, lmax."""
+    from .build import repair_connectivity
+
+    dev = vectors.device
+    levels = lg.level.cpu().numpy()
+    n = len(levels)
+    lmax = lg.max_level
+    adj_np = [a.cpu().numpy() for a in lg.adjs]
+    maxM0 = adj_np[0].shape[1]
+    maxM = adj_np[1].shape[1] if lmax >= 1 else maxM0 // 2
+    thr = degree_thresholds(adj_np, levels, maxM0, cfg, count_level0_hubs)
+    indeg = level_indegrees(adj_np, levels)
+
+    final_rows: list[np.ndarray] = []
+    for l in range(lmax + 1):
+        act = np.nonzero(levels >= l)[0]
+        a = adj_np[l][act]
+        deg = (a >= 0).sum(axis=1)
+        if l == 0:
+            budget = np.where(deg > thr[l], cfg.top_M0, cfg.low_m0)
+            cap_l, m_rev = maxM0, cfg.min_indegree0
+        else:
+            budget = np.where(deg > thr[l], cfg.top_M, cfg.low_m)
+            cap_l, m_rev = maxM, cfg.min_indegree
+        rows = _guarded_rows(vectors, vn, act, a, budget, indeg[l], m_rev,
+                             metric)
+
+        # in-degree floor repair
+        post = np.bincount(rows[rows >= 0], minlength=n)
+        starved = np.nonzero((post < m_rev) & (levels >= l))[0]
+        if len(starved) and (a >= 0).any():
+            _restore_indegree_floor(rows, a, n, starved, post, m_rev)
+
+        # cap re-prune where over (plain RNG prune)
+        counts = (rows >= 0).sum(axis=1)
+        over = np.nonzero(counts > cap_l)[0]
+        out_rows = np.full((len(act), cap_l), -1, np.int32)
+        under = counts <= cap_l
+        w = min(cap_l, rows.shape[1])
+        out_rows[under, :w] = _sort_row_ids(rows[under])[:, :w]
+        if len(over):
+            cand = torch.as_tensor(rows[over], device=dev)
+            sel, _ = prune_batch(
+                vectors, vn,
+                torch.as_tensor(act[over].astype(np.int32), device=dev),
+                cand, cand >= 0, M=cap_l, keep_all_under_m=False,
+                metric=metric, out_width=cap_l)
+            out_rows[over] = _sort_row_ids(sel.cpu().numpy())
+        rows = out_rows
+
+        # hierarchical filter (same as Slim)
+        if l != cfg.threshold_level:
+            keep = (rows >= 0) & (levels[np.maximum(rows, 0)] == l)
+            rows = _sort_row_ids(np.where(keep, rows, -1))
+
+        full = np.full((n, rows.shape[1]), -1, np.int32)
+        full[act] = rows
+        if l == cfg.threshold_level:
+            full[act] = repair_connectivity(full[act], act.astype(np.int32),
+                                            vectors, metric)
+        final_rows.append(full)
+        if state is not None:
+            b_full = np.zeros(n, np.int32)
+            b_full[act] = budget
+            state.setdefault("budgets", []).append(b_full)
+        if verbose:
+            print(f"  slimzero level {l}: thr={thr[l]} "
+                  f"edges={(full >= 0).sum()}")
+
+    if state is not None:
+        state["final"] = final_rows
+        state["thr"] = thr
+        state["caps"] = [maxM0] + [maxM] * lmax
+        state["levels"] = levels.copy()
+        state["entry"] = int(lg.entry)
+        state["lmax"] = lmax
     return pack_chal_arrays(
         final_rows, levels, entry=int(lg.entry), max_level=lmax,
         threshold_level=cfg.threshold_level, cap0=maxM0, cap=maxM,

@@ -1,12 +1,24 @@
 """Graph search (port of hnsw_slim_tpu/graph/search.py): the Slim query
-path, the vanilla HNSW query path and the pieces the insertion build uses.
+path in full, the vanilla HNSW query path and the pieces the insertion build
+uses.
 
-Slim serving (``chal_search``) runs in the slice's configuration: threshold
-level 0, exact seeding from the table of all level>=1 vectors (kernel Kα),
-then the base-layer beam over dense level-0 rows (kernel Kβ,
-``beam_search``). The vanilla path (``level_search``) descends the upper
-levels greedily (kernel Kε, ``greedy_descent``) and runs the same Kβ beam at
-level 0. The per-query semantics of Kβ are those of ``beam_level_scored``:
+``chal_search`` is the JAX function of that name: greedy descent (kernel Kε,
+``greedy_descent``) over levels max_level..threshold_level+1, then beams
+(kernel Kβ, ``beam_search``) over levels threshold_level..0 on one carried
+buffer. With threshold level 0 and ``seed_width`` > 1 the descent is
+replaced by seeds: the exact top-S of all level>=1 vectors (kernel Kα,
+stratified per table segment when ``seed_strata`` > 1), or a level-1 beam
+when there is no seed table. ``allowed`` filters in the kernel. The vanilla
+path (``level_search``) descends every upper level greedily and beams at
+level 0.
+
+A level's neighbor rows reach the kernels through a ``Fetch``: dense rows,
+rows behind a rank indirection (the dense upper layout), or slices of the
+flat CHAL arrays. The three hold the same ids, and both kernels are blind to
+lane order (Kβ sorts its candidates, Kε's argmin takes the smallest id among
+equal minima), so results do not depend on the form.
+
+The per-query semantics of Kβ are those of ``beam_level_scored``:
 
 * a sorted buffer of P (distance, id, checked) entries; the first ``ef_eff``
   slots are the working window (P > ef_eff only for ef >= 256 that is not a
@@ -18,30 +30,113 @@ level 0. The per-query semantics of Kβ are those of ``beam_level_scored``:
   and keep ``cw`` candidate lanes (the ``2·cw`` pre-window rule when
   ``2·cw < E·W``); no visited table;
 * score with ‖x‖² recomputed from the gathered row; merge keeping the P
-  smallest (buffer entries first on equal distance, candidates by id).
+  smallest (buffer entries first on equal distance, candidates by id);
+* filtered (``allowed``): a second sorted list of P, the result track, takes
+  the scored candidates that are allowed and not yet in it; the bound above
+  becomes the track's ``ef_eff``-th distance, and results come from the
+  track. Disallowed nodes are traversed, never returned.
 
-Kβ takes a whole sorted, -1/inf-padded buffer as its seeds (S = P), so the
-build's per-level beam over a carried buffer is the same kernel. Its checked
-bits live inside one Kβ call: every call starts with all entries unchecked,
-which is what the JAX build does between levels. A row that should not beam
-enters with an empty buffer (id -1), leaves at once, and gets its carried
-buffer back.
+Kβ takes a whole sorted, -1/inf-padded buffer as its seeds (S <= P), so a
+beam over a carried buffer (the build's per-level beam, the levels below the
+threshold level) is the same kernel. Its checked bits live inside one Kβ
+call: every call starts with all entries unchecked, which is what JAX does
+between levels. A row that should not beam enters with an empty buffer (id
+-1), leaves at once, and gets its carried buffer back.
 
-Straggler compaction (``beam_staged_scored``) exists in the JAX package only
-for lockstep batching and leaves per-query results unchanged, so the port
-has none: the kernels run each query on its own.
+Not ported: straggler compaction (``beam_staged_scored``, ``stages``) exists
+in the JAX package only for lockstep batching and leaves per-query results
+unchanged, and the kernels run each query on its own; ``dynamic_ef`` /
+``ef_max`` (one compiled program for every ef) has no counterpart without a
+compiler; ``pop_hook`` belongs to SlimQ.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from ..index.bruteforce import topk_dist
+from ..index.bruteforce import topk_dist, topk_dist_strata
 from ..ops import cuda
 from ..ops.distance import gathered_dist, sq_norms
 
 INF = float("inf")
 BIG = 2**30
+
+
+class Fetch(NamedTuple):
+    """How to read node v's neighbor row at one level (ids, -1 = no
+    neighbor), the port's form of JAX's fetch closures:
+
+    * ``dense``: ``rows`` i32[N, width] (make_dense_fetch);
+    * ``rank``: ``aux`` = rank i32[N] maps v to its row of ``rows``
+      i32[R, width], -1 = no row at this level (make_rank_fetch);
+    * ``chal``: ``rows`` = nbr i32[E], ``aux`` = lvl_off i32[N, L+2]; the row
+      is nbr[lvl_off[v, level] : lvl_off[v, level+1]] cut at ``width``
+      (make_chal_fetch).
+    """
+
+    mode: str
+    rows: torch.Tensor
+    aux: torch.Tensor | None
+    width: int
+    level: int = 0
+
+
+def dense_fetch(rows) -> Fetch:
+    return Fetch("dense", rows, None, int(rows.shape[1]))
+
+
+def rank_fetch(rank, dense_l) -> Fetch:
+    return Fetch("rank", dense_l, rank, int(dense_l.shape[1]))
+
+
+def chal_fetch(nbr, lvl_off, l: int, width: int) -> Fetch:
+    return Fetch("chal", nbr, lvl_off, int(width), int(l))
+
+
+def as_fetch(rows) -> Fetch:
+    """A Fetch as it is; a dense row tensor i32[N, W] as a dense Fetch."""
+    return rows if isinstance(rows, Fetch) else dense_fetch(rows)
+
+
+def fetch_rows_plain(fetch: Fetch, v) -> torch.Tensor:
+    """Plain PyTorch fetch: the rows of nodes ``v`` (any int dtype, [B]) as
+    i32[B, width], -1 padded, lane for lane as the JAX closures give them."""
+    v = v.long()
+    if fetch.mode == "dense":
+        return fetch.rows[v]
+    if fetch.mode == "rank":
+        r = fetch.aux[v].long()
+        return torch.where(r[:, None] >= 0, fetch.rows[r.clamp(min=0)], -1)
+    start = fetch.aux[v, fetch.level].long()
+    end = fetch.aux[v, fetch.level + 1].long()
+    idx = start[:, None] + torch.arange(fetch.width, device=v.device)
+    ids = fetch.rows[idx.clamp(0, fetch.rows.shape[0] - 1)]
+    return torch.where(idx < end[:, None], ids, -1)
+
+
+def _fetch_args(fetch: Fetch) -> tuple:
+    """The six kernel arguments of a Fetch (rows, aux, mode, W, level,
+    stride), validated."""
+    if fetch.mode == "dense":
+        cuda.require(fetch.rows, torch.int32, "rows", (-1, fetch.width))
+        return fetch.rows.data_ptr(), None, 0, fetch.width, 0, 0
+    if fetch.mode == "rank":
+        cuda.require(fetch.rows, torch.int32, "dense rows", (-1, fetch.width))
+        cuda.require(fetch.aux, torch.int32, "rank", (-1,))
+        return (fetch.rows.data_ptr(), fetch.aux.data_ptr(), 1, fetch.width,
+                0, 0)
+    if fetch.mode != "chal":
+        raise ValueError(f"unknown fetch mode {fetch.mode!r}")
+    cuda.require(fetch.rows, torch.int32, "nbr", (-1,))
+    cuda.require(fetch.aux, torch.int32, "lvl_off", (-1, -1))
+    stride = int(fetch.aux.shape[1])
+    if not 0 <= fetch.level < stride - 1:
+        raise ValueError(f"level {fetch.level} outside lvl_off's {stride} "
+                         "columns")
+    return (fetch.rows.data_ptr(), fetch.aux.data_ptr(), 2, fetch.width,
+            fetch.level, stride)
 
 
 def bitonic_buffer_width(ef: int) -> int:
@@ -68,12 +163,16 @@ def cand_width(P: int, pop_width: int, W: int, scan_width: int) -> int:
 
 def beam_search_plain(vectors, q, qn, rows, seed_d, seed_id, *, P: int,
                       ef_eff: int, pop_width: int, cw: int, max_iters: int,
-                      k: int, metric: str = "l2"):
+                      k: int, metric: str = "l2", allowed=None, track_d=None,
+                      track_id=None):
     """Plain PyTorch Kβ: the JAX lockstep batched beam, step for step.
-    Returns (d f32[B, k], ids i32[B, k], hops i32[B], dcomp i32[B])."""
+    ``rows`` is a Fetch or dense rows. Returns (d f32[B, k], ids i32[B, k],
+    hops i32[B], dcomp i32[B]); with ``allowed`` (bool[N]) and the incoming
+    track (f32/i32[B, P]) two more: the track after the beam."""
+    fetch = as_fetch(rows)
     b, S = seed_d.shape
     dev = q.device
-    E, W = pop_width, rows.shape[1]
+    E, W = pop_width, fetch.width
     ew = E * W
     buf_d = torch.full((b, P), INF, device=dev)
     buf_id = torch.full((b, P), -1, dtype=torch.int32, device=dev)
@@ -88,7 +187,8 @@ def beam_search_plain(vectors, q, qn, rows, seed_d, seed_id, *, P: int,
         if bool(done.all()):
             break
         unchk = (buf_chk == 0) & (buf_id >= 0) & (pos < ef_eff)
-        bound = buf_d[:, ef_eff - 1]
+        # allowed-only bound: search on until ef_eff allowed results exist
+        bound = (buf_d if allowed is None else track_d)[:, ef_eff - 1]
         rank = torch.cumsum(unchk.int(), dim=1) - 1
         first = unchk & (rank == 0)
         sel_d = torch.where(first, buf_d, -INF).max(dim=1).values
@@ -99,7 +199,8 @@ def beam_search_plain(vectors, q, qn, rows, seed_d, seed_id, *, P: int,
         sk, order = torch.sort(popkey, dim=1, stable=True)
         sv = torch.gather(buf_id, 1, order)
         pops = torch.where(sk[:, :E] < BIG, sv[:, :E], -1)
-        ids = torch.where(pops[:, :, None] >= 0, rows[pops.clamp(min=0)],
+        fetched = fetch_rows_plain(fetch, pops.clamp(min=0).reshape(b * E))
+        ids = torch.where(pops[:, :, None] >= 0, fetched.reshape(b, E, W),
                           -1).reshape(b, ew)
         valid = (ids >= 0) & ~done[:, None]
         if E > 1 and 2 * cw < ew:
@@ -126,6 +227,17 @@ def beam_search_plain(vectors, q, qn, rows, seed_d, seed_id, *, P: int,
                         INF)
         hops += selmask.sum(dim=1, dtype=torch.int32)
         dcomp += cand.sum(dim=1, dtype=torch.int32)
+        if allowed is not None:
+            # allowed candidates not yet in the track merge into it, track
+            # entries first on equal distance (a stable sort)
+            fdup = (cand_sorted[:, :, None] == track_id[:, None, :]).any(dim=2)
+            take = cand & allowed[safe.long()] & ~fdup
+            fc_d = torch.cat([track_d, torch.where(take, d, INF)], dim=1)
+            fc_i = torch.cat([track_id, torch.where(take, cand_sorted, -1)],
+                             dim=1)
+            rd, order = torch.sort(fc_d, dim=1, stable=True)
+            track_d = rd[:, :P]
+            track_id = torch.gather(fc_i, 1, order[:, :P])
         cat_d = torch.cat([buf_d, d], dim=1)
         cat_i = torch.cat([buf_id, torch.where(cand, cand_sorted, -1)], dim=1)
         cat_c = torch.cat([buf_chk, torch.zeros_like(cand_sorted)], dim=1)
@@ -133,22 +245,29 @@ def beam_search_plain(vectors, q, qn, rows, seed_d, seed_id, *, P: int,
         buf_d = sd[:, :P]
         buf_id = torch.gather(cat_i, 1, order[:, :P])
         buf_chk = torch.gather(cat_c, 1, order[:, :P])
-    return buf_d[:, :k], buf_id[:, :k], hops, dcomp
+    out = (buf_d[:, :k], buf_id[:, :k], hops, dcomp)
+    if allowed is not None:
+        out += (track_d, track_id)
+    return out
 
 
 def beam_search(vectors, q, qn, rows, seed_d, seed_id, *, P: int,
                 ef_eff: int, pop_width: int, cw: int, max_iters: int, k: int,
-                metric: str = "l2"):
-    """Kβ: base-layer beam, one CUDA block per query (csrc/beam_search.cu).
-    CPU tensors run ``beam_search_plain``. Same arguments and results."""
+                metric: str = "l2", allowed=None, track_d=None,
+                track_id=None):
+    """Kβ: one level's beam, one CUDA block per query (csrc/beam_search.cu),
+    over a Fetch (or dense rows), filtered when ``allowed`` is given. CPU
+    tensors run ``beam_search_plain``. Same arguments and results."""
     if not q.is_cuda:
         return beam_search_plain(
             vectors, q, qn, rows, seed_d, seed_id, P=P, ef_eff=ef_eff,
             pop_width=pop_width, cw=cw, max_iters=max_iters, k=k,
-            metric=metric)
+            metric=metric, allowed=allowed, track_d=track_d,
+            track_id=track_id)
+    fetch = as_fetch(rows)
     b, d = q.shape
     S = seed_d.shape[1]
-    W = rows.shape[1]
+    W = fetch.width
     if not (1 <= k <= P <= 512 and 1 <= ef_eff <= P and S <= P):
         raise ValueError(f"beam_search: need k <= P <= 512, ef_eff <= P, "
                          f"seeds <= P (k={k}, P={P}, ef_eff={ef_eff}, S={S})")
@@ -157,29 +276,45 @@ def beam_search(vectors, q, qn, rows, seed_d, seed_id, *, P: int,
     cuda.require(vectors, torch.float32, "vectors", (-1, d))
     cuda.require(q, torch.float32, "q", (b, d))
     cuda.require(qn, torch.float32, "qn", (b,))
-    cuda.require(rows, torch.int32, "rows", (-1, W))
+    fargs = _fetch_args(fetch)
     cuda.require(seed_d, torch.float32, "seed_d", (b, S))
     cuda.require(seed_id, torch.int32, "seed_id", (b, S))
-    out_d = torch.empty((b, k), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((b, k), dtype=torch.int32, device=q.device)
-    hops = torch.empty((b,), dtype=torch.int32, device=q.device)
-    dcomp = torch.empty((b,), dtype=torch.int32, device=q.device)
+    dev = q.device
+    out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    hops = torch.empty((b,), dtype=torch.int32, device=dev)
+    dcomp = torch.empty((b,), dtype=torch.int32, device=dev)
+    modes = () if fetch.mode == "dense" else (fetch.mode,)
+    filt = (None,) * 5
+    if allowed is not None:
+        cuda.require(allowed, torch.bool, "allowed", (vectors.shape[0],))
+        cuda.require(track_d, torch.float32, "track_d", (b, P))
+        cuda.require(track_id, torch.int32, "track_id", (b, P))
+        trk_d = torch.empty((b, P), dtype=torch.float32, device=dev)
+        trk_i = torch.empty((b, P), dtype=torch.int32, device=dev)
+        filt = (allowed.data_ptr(), track_d.data_ptr(), track_id.data_ptr(),
+                trk_d.data_ptr(), trk_i.data_ptr())
+        modes += ("filtered",)
     if b:
         cuda.launch(
-            "beam_search", vectors.data_ptr(), d, rows.data_ptr(), W,
-            q.data_ptr(), qn.data_ptr(), seed_d.data_ptr(),
-            seed_id.data_ptr(), b, S, P, ef_eff, pop_width, cw, max_iters, k,
-            int(metric == "ip"), out_d.data_ptr(), out_i.data_ptr(),
-            hops.data_ptr(), dcomp.data_ptr(),
+            "beam_search", vectors.data_ptr(), d, *fargs, q.data_ptr(),
+            qn.data_ptr(), seed_d.data_ptr(), seed_id.data_ptr(), b, S, P,
+            ef_eff, pop_width, cw, max_iters, k, int(metric == "ip"),
+            *filt[:3], out_d.data_ptr(), out_i.data_ptr(), hops.data_ptr(),
+            dcomp.data_ptr(), *filt[3:], modes=modes,
         )
+    if allowed is not None:
+        return out_d, out_i, hops, dcomp, trk_d, trk_i
     return out_d, out_i, hops, dcomp
 
 
 def greedy_descent_plain(vectors, q, qn, rows, cur, curdist, active=None,
                          metric: str = "l2"):
     """Plain PyTorch Kε: JAX ``greedy_level`` step for step (the batch moves
-    in lockstep while any query still improves). Returns (cur i32[B],
-    curdist f32[B], hops i32[B] rows fetched, dcomp i32[B] distances)."""
+    in lockstep while any query still improves), over a Fetch or dense rows.
+    Returns (cur i32[B], curdist f32[B], hops i32[B] rows fetched, dcomp
+    i32[B] distances)."""
+    fetch = as_fetch(rows)
     b = q.shape[0]
     dev = q.device
     cur = cur.to(torch.int32).clone()
@@ -189,7 +324,7 @@ def greedy_descent_plain(vectors, q, qn, rows, cur, curdist, active=None,
     hops = torch.zeros(b, dtype=torch.int32, device=dev)
     dcomp = torch.zeros(b, dtype=torch.int32, device=dev)
     while bool(changed.any()):
-        ids = rows[cur.long()]
+        ids = fetch_rows_plain(fetch, cur)
         valid = (ids >= 0) & changed[:, None]
         safe = ids.clamp(min=0)
         d = torch.where(valid, gathered_dist(q, vectors[safe.long()], metric,
@@ -208,19 +343,19 @@ def greedy_descent_plain(vectors, q, qn, rows, cur, curdist, active=None,
 
 def greedy_descent(vectors, q, qn, rows, cur, curdist, active=None,
                    metric: str = "l2"):
-    """Kε: one level of greedy descent over dense rows i32[N, W], one warp
-    per query (csrc/greedy_descent.cu). ``active`` bool[B] (None = all):
-    inactive queries keep (cur, curdist). CPU tensors run
-    ``greedy_descent_plain``. Same arguments and results."""
+    """Kε: one level of greedy descent over a Fetch (or dense rows
+    i32[N, W]), one warp per query (csrc/greedy_descent.cu). ``active``
+    bool[B] (None = all): inactive queries keep (cur, curdist). CPU tensors
+    run ``greedy_descent_plain``. Same arguments and results."""
     if not q.is_cuda:
         return greedy_descent_plain(vectors, q, qn, rows, cur, curdist,
                                     active, metric)
+    fetch = as_fetch(rows)
     b, d = q.shape
-    W = rows.shape[1]
     cuda.require(vectors, torch.float32, "vectors", (-1, d))
     cuda.require(q, torch.float32, "q", (b, d))
     cuda.require(qn, torch.float32, "qn", (b,))
-    cuda.require(rows, torch.int32, "rows", (-1, W))
+    fargs = _fetch_args(fetch)
     if active is not None:
         cuda.require(active, torch.bool, "active", (b,))
     cur = cur.to(torch.int32).contiguous().clone()
@@ -231,20 +366,25 @@ def greedy_descent(vectors, q, qn, rows, cur, curdist, active=None,
     dcomp = torch.zeros((b,), dtype=torch.int32, device=q.device)
     if b:
         cuda.launch(
-            "greedy_descent", vectors.data_ptr(), d, rows.data_ptr(), W,
-            q.data_ptr(), qn.data_ptr(),
-            None if active is None else active.data_ptr(), b,
+            "greedy_descent", vectors.data_ptr(), d, *fargs, q.data_ptr(),
+            qn.data_ptr(), None if active is None else active.data_ptr(), b,
             int(metric == "ip"), cur.data_ptr(), curdist.data_ptr(),
             hops.data_ptr(), dcomp.data_ptr(),
+            modes=() if fetch.mode == "dense" else (fetch.mode,),
         )
     return cur, curdist, hops, dcomp
 
 
-def entry_dist(vectors, vn, q, qn, entry: int, metric: str = "l2"):
-    """(cur i32[B], curdist f32[B]): every query at the entry point, with
-    the distance in the JAX form (the entry's stored norm)."""
+def entry_dist(vectors, vn, q, qn, entry, metric: str = "l2"):
+    """(cur i32[B], curdist f32[B]): every query at its entry point (one int
+    for all, or per-query ids [B]), with the distance in the JAX form (the
+    entry's stored norm)."""
     b = q.shape[0]
-    cur = torch.full((b,), entry, dtype=torch.int32, device=q.device)
+    if isinstance(entry, int):
+        cur = torch.full((b,), entry, dtype=torch.int32, device=q.device)
+    else:
+        cur = torch.as_tensor(entry, device=q.device).to(torch.int32)
+        cur = cur.broadcast_to((b,)).contiguous()
     e = cur.long()
     curdist = gathered_dist(q, vectors[e][:, None, :], metric, qn=qn,
                             vn=vn[e][:, None])[:, 0]
@@ -270,6 +410,17 @@ def beam_reseed(buf_d, buf_id, seed_id, seed_d, active):
             torch.where(active[:, None], new_id, buf_id))
 
 
+def filter_track_init(allowed, cur, curdist, P: int):
+    """The allowed-only result track (d f32[B, P], id i32[B, P]) seeded with
+    the beam's best seed when that seed is allowed — and with nothing else:
+    the other exact seeds sit in the traversal buffer, are never scored
+    again, and so never enter the track (the JAX package's behaviour, kept
+    for id parity)."""
+    seed_ok = allowed[cur.clamp(min=0).long()] & (cur >= 0)
+    return beam_init(torch.where(seed_ok, cur, -1),
+                     torch.where(seed_ok, curdist, INF), P)
+
+
 def beam_level(vectors, q, qn, rows, buf_d, buf_id, active, *,
                max_iters: int, metric: str = "l2"):
     """One level's beam (JAX ``beam_level`` with pop_width 1, exact scorer,
@@ -289,57 +440,121 @@ def beam_level(vectors, q, qn, rows, buf_d, buf_id, active, *,
 
 def level_search(adjs, entry: int, vectors, vn, q, *, max_level: int,
                  ef: int, k: int, max_iters: int, metric: str = "l2",
-                 pop_width: int = 1):
+                 pop_width: int = 1, allowed=None):
     """Vanilla HNSW query path (hnswalg.h searchKnn): greedy descent
-    max_level..1 (Kε), then the ef-beam at level 0 from that one seed (Kβ).
-    Returns (dists f32[B, k], ids i32[B, k], hops i32[B], dcomp i32[B]);
-    hops and dcomp count the level-0 beam, as in the JAX package."""
+    max_level..1 (Kε), then the ef-beam at level 0 from that one seed (Kβ),
+    filtered in the kernel when ``allowed`` (bool[N]) is given. Returns
+    (dists f32[B, k], ids i32[B, k], hops i32[B], dcomp i32[B]); hops and
+    dcomp count the level-0 beam, as in the JAX package."""
     qn = sq_norms(q)
     cur, curdist = entry_dist(vectors, vn, q, qn, entry, metric)
     for l in range(max_level, 0, -1):
         cur, curdist, _, _ = greedy_descent(vectors, q, qn, adjs[l], cur,
                                             curdist, None, metric)
-    return beam_search(
-        vectors, q, qn, adjs[0], curdist[:, None].contiguous(),
-        cur[:, None].contiguous(), P=ef, ef_eff=ef, pop_width=pop_width,
-        cw=cand_width(ef, pop_width, adjs[0].shape[1], 0),
-        max_iters=max_iters, k=k, metric=metric)
+    kw = dict(P=ef, ef_eff=ef, pop_width=pop_width,
+              cw=cand_width(ef, pop_width, adjs[0].shape[1], 0),
+              max_iters=max_iters, metric=metric)
+    seeds = (curdist[:, None].contiguous(), cur[:, None].contiguous())
+    if allowed is None:
+        return beam_search(vectors, q, qn, adjs[0], *seeds, k=k, **kw)
+    trk_d, trk_i = filter_track_init(allowed, cur, curdist, ef)
+    _, _, hops, dcomp, trk_d, trk_i = beam_search(
+        vectors, q, qn, adjs[0], *seeds, k=k, allowed=allowed, track_d=trk_d,
+        track_id=trk_i, **kw)
+    return trk_d[:, :k], trk_i[:, :k], hops, dcomp
 
 
-def chal_search(vectors, q, dense0, *, max_level: int,
-                threshold_level: int, ef: int, k: int, max_iters: int,
-                metric: str = "l2", pop_width: int = 1, scan_width: int = 0,
-                seed_width: int = 0, up_vecs=None, up_vn=None, up_ids=None,
-                seed_strata: int = 0):
-    """Slim query path in the slice's configuration (JAX ``chal_search``
-    with threshold_level 0, the exact seed table and dense level-0 rows).
-    Returns (dists f32[B, k], ids i32[B, k], hops i32[B], dcomp i32[B])."""
-    if threshold_level > 0:
-        raise NotImplementedError(
-            "threshold_level > 0 (greedy/beam upper levels): ROADMAP K4/K5")
-    if seed_strata > 1:
-        raise NotImplementedError("stratified seeds: ROADMAP K3-strata")
-    if dense0 is None:
-        raise NotImplementedError(
-            "CHAL/rank fetch at level 0: ROADMAP K4 (call densify_level0)")
+def chal_search(graph_nbr, graph_lvl_off, entry, vectors, vn, q, *,
+                max_level: int, threshold_level: int, cap0: int, cap: int,
+                ef: int, k: int, max_iters: int, metric: str = "l2",
+                pop_width: int = 1, dense0=None, dense_up=None, rank_up=None,
+                allowed=None, scan_width: int = 0, seed_width: int = 0,
+                up_vecs=None, up_vn=None, up_ids=None, seed_strata: int = 0):
+    """Full Slim query path (hnswalg_slim.h searchKnn; JAX ``chal_search``).
+
+    Greedy descent (Kε) for levels max_level..threshold_level+1, then one
+    carried buffer beamed (Kβ) over levels threshold_level..0, checked bits
+    reset between levels. ``entry``: one id or per-query ids [B]. Level 0
+    reads ``dense0`` rows when given, upper levels ``dense_up`` through
+    ``rank_up`` when given, else the CHAL slices. ``allowed`` (bool[N])
+    filters in the kernel: results come from the allowed-only track, whose
+    worst entry sets the stop bound, and the candidate cap ``scan_width`` is
+    not applied (as in JAX). ``seed_width`` > 1 with threshold_level 0 seeds
+    level 0 with seed_width entries: the exact top of the (up_vecs, up_vn,
+    up_ids) table of all level>=1 nodes (Kα; per table segment when
+    ``seed_strata`` > 1), or without the table the buffer of a
+    seed_width-wide level-1 beam. ef >= 256 that is not a bitonic width
+    rounds the buffer up and keeps the window at ef.
+    Returns (dists f32[B, k], ids i32[B, k], hops i32[B], dcomp i32[B]);
+    hops and dcomp count the beams and the seed scan, as in the JAX package.
+    """
     P, ef_eff = ef, ef
     if ef >= 256 and not _is_bitonic_width(ef):
         P = bitonic_buffer_width(ef)
-    seed_width = min(seed_width, P)
-    if max_level < 1 or seed_width <= 1 or up_vecs is None:
-        raise NotImplementedError(
-            "entry-point, greedy-descent (K5) or level-1-beam seeding of the "
-            "Slim path: ROADMAP queue 1 item 5")
+    b = q.shape[0]
     qn = sq_norms(q)
-    sd, spos = topk_dist(q, up_vecs, up_vn, seed_width, metric,
-                         row_ids=up_ids)
-    si = torch.where(spos >= 0, up_ids[spos.clamp(min=0).long()], -1)
-    si = torch.where(torch.isinf(sd), -1, si).to(torch.int32)
-    dcomp0 = int((up_ids >= 0).sum())
-    d, ids, hops, dcomp = beam_search(
-        vectors, q, qn, dense0, sd.contiguous(), si.contiguous(), P=P,
-        ef_eff=ef_eff, pop_width=pop_width,
-        cw=cand_width(P, pop_width, dense0.shape[1], scan_width),
-        max_iters=max_iters, k=k, metric=metric,
-    )
-    return d, ids, hops, dcomp + dcomp0
+    cur, curdist = entry_dist(vectors, vn, q, qn, entry, metric)
+
+    def level_fetch(l):
+        if l > 0 and dense_up is not None and l - 1 < len(dense_up):
+            return rank_fetch(rank_up, dense_up[l - 1])
+        return chal_fetch(graph_nbr, graph_lvl_off, l, cap if l > 0 else cap0)
+
+    hops = torch.zeros(b, dtype=torch.int32, device=q.device)
+    dcomp = torch.zeros(b, dtype=torch.int32, device=q.device)
+    seeds = None
+    seed_width = min(seed_width, P)
+    use_seed = seed_width > 1 and threshold_level == 0 and max_level >= 1
+    if use_seed and up_vecs is not None:
+        if seed_strata > 1:
+            sd, si = topk_dist_strata(q, up_vecs, up_vn, up_ids, seed_width,
+                                      seed_strata, metric)
+        else:
+            sd, spos = topk_dist(q, up_vecs, up_vn, seed_width, metric,
+                                 row_ids=up_ids)
+            si = torch.where(spos >= 0, up_ids[spos.clamp(min=0).long()], -1)
+            si = torch.where(torch.isinf(sd), -1, si).to(torch.int32)
+        dcomp = dcomp + (up_ids >= 0).sum().to(torch.int32)
+        seeds = (sd.contiguous(), si.contiguous())
+    else:
+        for l in range(max_level, threshold_level, -1):
+            fetch = level_fetch(l)
+            if l == 1 and use_seed:
+                pw = min(4, seed_width)
+                d1, i1, h, dc = beam_search(
+                    vectors, q, qn, fetch, curdist[:, None].contiguous(),
+                    cur[:, None].contiguous(), P=seed_width,
+                    ef_eff=seed_width, pop_width=pw,
+                    cw=cand_width(seed_width, pw, fetch.width, 0),
+                    max_iters=max_iters, k=seed_width, metric=metric)
+                hops, dcomp = hops + h, dcomp + dc
+                seeds = (d1, i1)
+                break
+            cur, curdist, _, _ = greedy_descent(vectors, q, qn, fetch, cur,
+                                                curdist, None, metric)
+    if seeds is not None:
+        buf_d, buf_id = seeds
+        # the allowed track's seed keys off the best seed
+        cur, curdist = buf_id[:, 0], buf_d[:, 0]
+    else:
+        buf_d, buf_id = curdist[:, None].contiguous(), cur[:, None].contiguous()
+    filt = {}
+    if allowed is not None:
+        trk_d, trk_i = filter_track_init(allowed, cur, curdist, P)
+        filt = dict(allowed=allowed, track_d=trk_d, track_id=trk_i)
+    for l in range(min(threshold_level, max_level), -1, -1):
+        fetch = dense_fetch(dense0) if l == 0 and dense0 is not None \
+            else level_fetch(l)
+        out = beam_search(
+            vectors, q, qn, fetch, buf_d, buf_id, P=P, ef_eff=ef_eff,
+            pop_width=pop_width,
+            cw=cand_width(P, pop_width, fetch.width,
+                          0 if allowed is not None else scan_width),
+            max_iters=max_iters, k=P if l > 0 else k, metric=metric, **filt)
+        buf_d, buf_id = out[0], out[1]
+        hops, dcomp = hops + out[2], dcomp + out[3]
+        if allowed is not None:
+            filt.update(track_d=out[4], track_id=out[5])
+    if allowed is not None:
+        return filt["track_d"][:, :k], filt["track_id"][:, :k], hops, dcomp
+    return buf_d, buf_id, hops, dcomp

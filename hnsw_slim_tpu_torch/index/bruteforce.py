@@ -5,6 +5,8 @@ programs ``_bf_topk`` / ``exact_topk`` (a chunked distance matmul feeding a
 running ``lax.top_k``), the exact seed block of ``chal_search`` and the
 subset kNN of the NND build. Results are ordered by (distance, position):
 equal distances put the lower row first, as ``lax.top_k`` does.
+``topk_dist_strata`` is its stratified form, the seed block of
+``chal_search`` with ``seed_strata`` > 1.
 """
 
 from __future__ import annotations
@@ -91,6 +93,82 @@ def topk_dist(q, x, xn, k: int, metric: str = "l2", n_valid: int = -1,
         None if row_ids is None else row_ids.data_ptr(), b, n, d, n if n_valid < 0 else n_valid,
         self_offset, k, int(metric == "ip"), splits, part_d.data_ptr(),
         part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+    )
+    return out_d, out_i
+
+
+def strata_shape(n: int, seed_width: int, strata: int) -> tuple[int, int]:
+    """(rows per segment, seeds per segment) of a stratified seed scan over
+    an n-row table."""
+    if strata < 1 or n % strata:
+        raise ValueError(f"seed table of {n} rows does not split into "
+                         f"{strata} equal segments")
+    return n // strata, max(1, seed_width // strata)
+
+
+def topk_dist_strata_plain(q, x, xn, row_ids, seed_width: int, strata: int,
+                           metric: str = "l2"):
+    """Plain PyTorch stratified seeds, as the JAX code takes them: the table
+    is cut into ``strata`` equal segments, each gives its
+    seed_width // strata nearest rows (repeated argmin, lowest row first on
+    equal distance; rows with a negative ``row_ids`` entry masked), and the
+    picks are sorted by distance, stably in segment-major order. Returns
+    (d f32[B, S], ids i32[B, S]) with S = strata * (seed_width // strata);
+    ids come from ``row_ids``, -1 where the distance is inf."""
+    b, n = q.shape[0], x.shape[0]
+    u, sps = strata_shape(n, seed_width, strata)
+    dmat = pairwise_dist(q, x, metric, qn=sq_norms(q), xn=xn)
+    d3 = torch.where((row_ids >= 0)[None, :], dmat, INF).reshape(b, strata, u)
+    sds, poss = [], []
+    for _ in range(sps):
+        sd = d3.min(dim=2).values
+        # the lowest position among equal minima
+        am = torch.where(d3 == sd[:, :, None],
+                         torch.arange(u, device=q.device), u).min(dim=2).values
+        sds.append(sd)
+        poss.append(am)
+        d3 = d3.scatter(2, am[:, :, None], INF)
+    sd = torch.stack(sds, dim=2).reshape(b, strata * sps)
+    pos = torch.stack(poss, dim=2) + (
+        torch.arange(strata, device=q.device) * u)[None, :, None]
+    si = row_ids[pos.reshape(b, strata * sps)]
+    sd, order = torch.sort(sd, dim=1, stable=True)
+    si = torch.gather(si, 1, order)
+    return sd, torch.where(torch.isinf(sd), -1, si).to(torch.int32)
+
+
+def topk_dist_strata(q, x, xn, row_ids, seed_width: int, strata: int,
+                     metric: str = "l2"):
+    """Kα in strata mode (see topk_dist_strata_plain): one scan split per
+    segment, then an in-kernel stable sort of the picks. CUDA tensors run
+    the kernel (csrc/topk_dist.cu), CPU tensors the plain version."""
+    if not q.is_cuda:
+        return topk_dist_strata_plain(q, x, xn, row_ids, seed_width, strata,
+                                      metric)
+    b, d = q.shape
+    n = x.shape[0]
+    _, sps = strata_shape(n, seed_width, strata)
+    if sps > 64 or strata * sps > 1024:
+        raise ValueError(f"topk_dist_strata: {sps} seeds per segment (max "
+                         f"64), {strata * sps} in all (max 1024)")
+    cuda.require(q, torch.float32, "q", (-1, -1))
+    cuda.require(x, torch.float32, "x", (-1, d))
+    cuda.require(xn, torch.float32, "xn", (n,))
+    cuda.require(row_ids, torch.int32, "row_ids", (n,))
+    qn = sq_norms(q).contiguous()
+    out_d = torch.empty((b, strata * sps), dtype=torch.float32,
+                        device=q.device)
+    out_i = torch.empty((b, strata * sps), dtype=torch.int32, device=q.device)
+    if b == 0:
+        return out_d, out_i
+    part_d = torch.empty((strata, b, sps), dtype=torch.float32,
+                         device=q.device)
+    part_i = torch.empty((strata, b, sps), dtype=torch.int32, device=q.device)
+    cuda.launch(
+        "topk_dist", q.data_ptr(), qn.data_ptr(), x.data_ptr(), xn.data_ptr(),
+        row_ids.data_ptr(), b, n, d, sps, strata, int(metric == "ip"),
+        part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
+        out_i.data_ptr(), entry="topk_strata", modes=("strata",),
     )
     return out_d, out_i
 

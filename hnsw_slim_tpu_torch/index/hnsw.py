@@ -3,7 +3,8 @@ hnsw_slim_tpu/index/hnsw.py).
 
 The index holds dense per-level adjacency (LevelGraph) and the vectors on
 its device. Builds by insertion rounds (``HnswBuilder``: Kε, Kβ, Kγ, Kζ) or
-by NN-descent; searches by greedy descent (Kε) and the level-0 beam (Kβ).
+by NN-descent; searches by greedy descent (Kε) and the level-0 beam (Kβ),
+filtered in the kernel when the caller passes ``filter_mask``.
 The update flows (``add_points``, ``replace_points``) are not ported yet.
 """
 
@@ -33,6 +34,14 @@ def resolve_build_strategy(strategy: str, n: int) -> str:
     if strategy != "auto":
         return strategy
     return "nnd" if n < AUTO_NND_MAX_N else "insert"
+
+
+def filter_iters(max_iters: int, mask: np.ndarray) -> int:
+    """Iteration cap of a filtered search: heavy filtering needs more hops
+    to fill the allowed-only track, so the cap grows with the inverse of the
+    allowed share (floored at 5%), as in the JAX package."""
+    density = max(float(np.mean(mask)), 0.05)
+    return int(max_iters / density) + 8
 
 
 def _check(ok, msg: str) -> None:
@@ -104,17 +113,26 @@ class HnswIndex:
                filter_mask: np.ndarray | None = None):
         """(dists f32[B, k], ids i32[B, k]) approximate top-k, ascending, as
         numpy. Sets ``last_stats`` (hops, distance_computations of the
-        level-0 beam)."""
-        if filter_mask is not None:
-            raise NotImplementedError("filtered search: ROADMAP K6")
+        level-0 beam).
+
+        filter_mask bool[N]: traverse everything, return only allowed ids,
+        keep searching until k allowed results are held (the kernel's
+        allowed-only result track)."""
         g = self.graph
         ef = max(self.scfg.ef, k)
+        allowed = None
+        max_iters = self.scfg.iters()
+        if filter_mask is not None:
+            mask = np.asarray(filter_mask, bool)
+            allowed = torch.as_tensor(mask, device=self.device)
+            max_iters = filter_iters(max_iters, mask)
         q = torch.as_tensor(np.asarray(queries, np.float32),
                             device=self.device)
         d, i, hops, dcomp = gs.level_search(
             g.adjs, g.entry, self.vectors, self.vn, q,
-            max_level=g.max_level, ef=ef, k=k, max_iters=self.scfg.iters(),
-            metric=self.cfg.metric, pop_width=self.scfg.pop_width)
+            max_level=g.max_level, ef=ef, k=k, max_iters=max_iters,
+            metric=self.cfg.metric, pop_width=self.scfg.pop_width,
+            allowed=allowed)
         d, i = d.cpu().numpy(), i.cpu().numpy()
         self.last_stats = {
             "hops": int(hops.sum()),

@@ -10,8 +10,10 @@ edited kernel is rebuilt rather than reloaded stale.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 ``check`` raises on a non-zero code. ``launches`` counts, per kernel, the
-wrapper calls that launched it: ``reset_launches`` before a run and read the
-counts after it to show which kernels the run went through.
+wrapper calls that launched it, and per kernel mode (``kernel.mode``: a fetch
+form, the filtered beam, stratified seeds, the guarded prune) the launches
+made in that mode: ``reset_launches`` before a run and read the counts after
+it to show which kernels and modes the run went through.
 """
 
 from __future__ import annotations
@@ -37,8 +39,12 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
-launches = {"topk_dist": 0, "beam_search": 0, "rng_prune": 0,
-            "cand_merge": 0, "greedy_descent": 0, "rev_connect": 0}
+KERNELS = ("topk_dist", "beam_search", "rng_prune", "cand_merge",
+           "greedy_descent", "rev_connect")
+MODES = ("topk_dist.strata", "beam_search.chal", "beam_search.rank",
+         "beam_search.filtered", "greedy_descent.chal", "greedy_descent.rank",
+         "rng_prune.guarded")
+launches = dict.fromkeys(KERNELS + MODES, 0)
 
 P, I32 = ctypes.c_void_p, ctypes.c_int
 
@@ -48,21 +54,30 @@ _SIGNATURES = {
     # splits, part_d, part_i, out_d, out_i, stream
     "hs_topk_dist": [P, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32,
                      P, P, P, P, P],
-    # vectors, D, rows, W, q, qn, seed_d, seed_id, B, S, P, ef_eff, E, cw,
-    # max_iters, k, metric, out_d, out_id, hops, dcomp, stream
-    "hs_beam_search": [P, I32, P, I32, P, P, P, P, I32, I32, I32, I32, I32,
-                       I32, I32, I32, I32, P, P, P, P, P],
+    # q, qn, x, xn, row_ids, B, N, D, seeds per segment, strata, metric,
+    # part_d, part_i, out_d, out_id, stream
+    "hs_topk_strata": [P, P, P, P, P, I32, I32, I32, I32, I32, I32, P, P, P,
+                       P, P],
+    # vectors, D, fetch (rows, aux, mode, W, level, stride), q, qn, seed_d,
+    # seed_id, B, S, P, ef_eff, E, cw, max_iters, k, metric, allowed,
+    # track_d, track_id, out_d, out_id, hops, dcomp, track_d_out,
+    # track_id_out, stream
+    "hs_beam_search": [P, I32, P, P, I32, I32, I32, I32, P, P, P, P, I32,
+                       I32, I32, I32, I32, I32, I32, I32, I32, P, P, P, P, P,
+                       P, P, P, P, P],
     # vectors, vn, D, base_ids, cand, m_per_row, B, C, m_max,
-    # keep_all_under_m, keep_pruned, out_width, metric, out, cnt, stream
+    # keep_all_under_m, keep_pruned, out_width, metric, guard, out, cnt,
+    # stream
     "hs_rng_prune": [P, P, I32, P, P, P, I32, I32, I32, I32, I32, I32, I32,
-                     P, P, P],
+                     P, P, P, P],
     # vectors, vn, D, row0, ids, dists, newf, cand, n, K, C, metric,
     # out_ids, out_d, out_nf, inserted, stream
     "hs_cand_merge": [P, P, I32, I32, P, P, P, P, I32, I32, I32, I32, P, P,
                       P, P, P],
-    # vectors, D, rows, W, q, qn, active, B, metric, cur, curdist, hops,
-    # dcomp, stream
-    "hs_greedy_descent": [P, I32, P, I32, P, P, P, I32, I32, P, P, P, P, P],
+    # vectors, D, fetch (rows, aux, mode, W, level, stride), q, qn, active,
+    # B, metric, cur, curdist, hops, dcomp, stream
+    "hs_greedy_descent": [P, I32, P, P, I32, I32, I32, I32, P, P, P, I32,
+                          I32, P, P, P, P, P],
     # us, ps, E, adj, deg, cap, ovf, stream
     "hs_rev_append": [P, P, I32, P, P, I32, P, P],
     # adj, cap, of_u, of_p, E, ut, T, new_w, base, ocand, stream
@@ -159,14 +174,18 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
-def launch(name: str, *args, entry: str | None = None) -> None:
+def launch(name: str, *args, entry: str | None = None,
+           modes: tuple = ()) -> None:
     """Call C entry point ``hs_<entry or name>`` on the current stream, raise
-    on a launch error, and count one launch of kernel ``name``."""
+    on a launch error, and count one launch of kernel ``name`` and of each
+    of its ``modes`` this launch ran in."""
     err = getattr(lib(), f"hs_{entry or name}")(
         *args, torch.cuda.current_stream().cuda_stream
     )
     check(err, entry or name)
     launches[name] += 1
+    for mode in modes:
+        launches[f"{name}.{mode}"] += 1
 
 
 def resolve_device(device=None) -> torch.device:

@@ -30,7 +30,8 @@ def _meta(z) -> dict:
 
 
 def save_slim(path: str | Path, index) -> None:
-    """Save an HnswSlimIndex (graph + vectors + metadata)."""
+    """Save an HnswSlimIndex or HnswSlimZeroIndex (graph + vectors +
+    metadata; the kind is the class name)."""
     g = index.graph
     meta = dict(
         version=FORMAT_VERSION,
@@ -55,16 +56,17 @@ def save_slim(path: str | Path, index) -> None:
 
 def load_slim(path: str | Path, search_cfg: SearchConfig | None = None,
               device=None):
-    """Load an HnswSlimIndex onto ``device``."""
+    """Load an HnswSlimIndex or HnswSlimZeroIndex, as the file's kind says,
+    onto ``device``."""
     from ..index.slim import HnswSlimIndex
+    from ..index.slimzero import HnswSlimZeroIndex
 
     with np.load(path) as z:
         meta = _meta(z)
-        if meta["kind"] != "HnswSlimIndex":
-            raise NotImplementedError(
-                f"{meta['kind']} is not ported yet (ROADMAP queue 1)")
-        idx = HnswSlimIndex(metric=meta["metric"], search_cfg=search_cfg,
-                            device=device)
+        cls = {"HnswSlimIndex": HnswSlimIndex,
+               "HnswSlimZeroIndex": HnswSlimZeroIndex}[meta["kind"]]
+        idx = cls(metric=meta["metric"], search_cfg=search_cfg,
+                  device=device)
         idx.graph = ChalGraph.from_numpy(
             z["nbr"], z["lvl_off"], z["level"], entry=meta["entry"],
             max_level=meta["max_level"],

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (Kα–Kζ) against their plain PyTorch versions on
-the card. Marked ``cuda``; each test skips when no CUDA device is present.
+"""The port's CUDA kernels (Kα–Kζ, and their fetch-form, filtered, strata
+and guarded modes) against their plain PyTorch versions on the card. Marked ``cuda``; each test skips when no CUDA device is present.
 The machine with the card has no JAX, so run these without the suite's
 conftest (which imports JAX):
 
@@ -224,3 +224,194 @@ def test_rev_connect_kernel_matches_plain():
     revconn.write_rows(ak, dk, ut, osel, ocnt)
     revconn.write_rows_plain(ap, dp, ut, osel, ocnt)
     assert torch.equal(ak, ap) and torch.equal(dk, dp)
+
+
+# ---- fetch forms, the filtered beam, stratified seeds, the guarded prune
+
+
+@pytest.fixture(scope="module")
+def slim_index(data):
+    """A Slim index of the 20k vectors on the card (NN-descent build) with
+    both dense serving layouts, and its exact seeds for the 512 queries."""
+    from hnsw_slim_tpu_torch.config import HnswConfig, SlimConfig
+    from hnsw_slim_tpu_torch.index import bruteforce as bf
+    from hnsw_slim_tpu_torch.index.hnsw import HnswIndex
+    from hnsw_slim_tpu_torch.index.slim import HnswSlimIndex
+
+    x, _, q = data
+    h = HnswIndex(HnswConfig(M=16, ef_construction=64), strategy="nnd",
+                  device="cuda")
+    h.build(x.cpu().numpy())
+    idx = HnswSlimIndex.from_hnsw(h, SlimConfig.from_ratios())
+    idx.densify_level0()
+    idx.densify_upper()
+    up_vecs, up_vn, up_ids = idx._seed_table()
+    sd, sp = bf.topk_dist_plain(q, up_vecs, up_vn, 32, row_ids=up_ids)
+    si = torch.where(sp >= 0, up_ids[sp.clamp(min=0).long()], -1)
+    return h, idx, sd.contiguous(), si.to(torch.int32).contiguous()
+
+
+def _level_fetches(idx, l):
+    from hnsw_slim_tpu_torch.graph import search as gs
+
+    g = idx.graph
+    chal = gs.chal_fetch(g.nbr, g.lvl_off, l, g.cap if l else g.cap0)
+    if l == 0:
+        return {"chal": chal, "dense": gs.dense_fetch(idx.dense0)}
+    return {"chal": chal,
+            "rank": gs.rank_fetch(idx.rank_up, idx.dense_up[l - 1])}
+
+
+def test_fetch_forms_on_card(data, slim_index):
+    """Kβ at level 0 and Kε at level 1 over every fetch form: each kernel
+    agrees with its plain version (>= 99%) and gives exactly the same
+    result whatever the form."""
+    from hnsw_slim_tpu_torch.config import SearchConfig
+    from hnsw_slim_tpu_torch.graph import search as gs
+    from hnsw_slim_tpu_torch.ops import cuda
+
+    x, xn, q = data
+    _, idx, sd, si = slim_index
+    qn = (q * q).sum(1)
+    kw = dict(P=64, ef_eff=64, pop_width=8,
+              cw=gs.cand_width(64, 8, idx.graph.cap0, 0),
+              max_iters=SearchConfig(ef=64, pop_width=8).iters(), k=10)
+    cuda.reset_launches()
+    outs = {}
+    for name, f in _level_fetches(idx, 0).items():
+        kd, ki, kh, kc = gs.beam_search(x, q, qn, f, sd, si, **kw)
+        pd, pi, ph, pc = gs.beam_search_plain(x, q, qn, f, sd, si, **kw)
+        assert (ki == pi).float().mean() >= 0.99, name
+        assert _close(kd[ki == pi], pd[ki == pi])
+        outs[name] = (ki, kh, kc)
+    assert torch.equal(outs["chal"][0], outs["dense"][0])
+    assert torch.equal(outs["chal"][1], outs["dense"][1])
+    assert torch.equal(outs["chal"][2], outs["dense"][2])
+    assert cuda.launches["beam_search.chal"] == 1
+    cur0, dist0 = gs.entry_dist(x, xn, q, qn, idx.graph.entry)
+    res = {}
+    for name, f in _level_fetches(idx, 1).items():
+        kc_, kd_, kh_, _ = gs.greedy_descent(x, q, qn, f, cur0, dist0)
+        pc_, pd_, ph_, _ = gs.greedy_descent_plain(x, q, qn, f, cur0, dist0)
+        same = kc_ == pc_
+        assert same.float().mean() >= 0.99, name
+        assert _close(kd_[same], pd_[same])
+        assert (kh_[same] == ph_[same]).all()
+        res[name] = kc_
+    assert torch.equal(res["chal"], res["rank"])
+    assert cuda.launches["greedy_descent.chal"] == 1
+    assert cuda.launches["greedy_descent.rank"] == 1
+
+
+@pytest.mark.parametrize("share", [0.5, 0.1])
+def test_filtered_beam_on_card(data, slim_index, share):
+    """Kβ's filtered mode against its plain version at 50% and 10% allowed:
+    track ids equal on >= 99% of slots, hops equal on >= 99% of queries,
+    every id allowed."""
+    from hnsw_slim_tpu_torch.graph import search as gs
+    from hnsw_slim_tpu_torch.index.hnsw import filter_iters
+
+    x, _, q = data
+    _, idx, sd, si = slim_index
+    qn = (q * q).sum(1)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    allowed = torch.rand(len(x), generator=g, device="cuda") < share
+    trk = gs.filter_track_init(allowed, si[:, 0], sd[:, 0], 64)
+    kw = dict(P=64, ef_eff=64, pop_width=8,
+              cw=gs.cand_width(64, 8, idx.graph.cap0, 0),
+              max_iters=filter_iters(24, allowed.cpu().numpy()), k=10,
+              allowed=allowed, track_d=trk[0], track_id=trk[1])
+    k_out = gs.beam_search(x, q, qn, idx.dense0, sd, si, **kw)
+    p_out = gs.beam_search_plain(x, q, qn, idx.dense0, sd, si, **kw)
+    ki, pi = k_out[5], p_out[5]
+    assert (ki == pi).float().mean() >= 0.99
+    assert (k_out[2] == p_out[2]).float().mean() >= 0.99
+    fin = (ki == pi) & torch.isfinite(p_out[4])
+    assert _close(k_out[4][fin], p_out[4][fin])
+    assert allowed[ki[ki >= 0].long()].all()
+    assert (ki[:, :10] >= 0).all()
+
+
+@pytest.mark.parametrize("strata", [2, 4])
+def test_strata_seeds_on_card(data, slim_index, strata):
+    """Kα's strata mode against its plain version: ids equal on >= 99% of
+    slots, distances close."""
+    from hnsw_slim_tpu_torch.index import bruteforce as bf
+
+    _, _, q = data
+    _, idx, _, _ = slim_index
+    up_vecs, up_vn, up_ids = idx._seed_table()
+    kd, ki = bf.topk_dist_strata(q, up_vecs, up_vn, up_ids, 32, strata)
+    pd, pi = bf.topk_dist_strata_plain(q, up_vecs, up_vn, up_ids, 32, strata)
+    assert kd.shape == pd.shape == (len(q), 32)
+    assert (ki == pi).float().mean() >= 0.99
+    fin = torch.isfinite(pd)
+    assert torch.equal(torch.isfinite(kd), fin) and _close(kd[fin], pd[fin])
+
+
+def test_guarded_prune_on_card(data, slim_index):
+    """Kγ's guarded mode against its plain version on the level-0 rows of
+    the unpruned graph with random guards and budgets: rows and counts equal
+    on >= 99% of rows; some rows keep more than their budget."""
+    from hnsw_slim_tpu_torch.graph import heuristic as th
+
+    x, xn, _ = data
+    h, _, _, _ = slim_index
+    g = torch.Generator(device="cuda").manual_seed(2)
+    base = torch.randperm(len(x), generator=g, device="cuda")[:4096]
+    cand = h.graph.adjs[0][base].contiguous()
+    guard = torch.rand(cand.shape, generator=g, device="cuda") < 0.3
+    m = torch.randint(1, 9, (len(base),), generator=g, device="cuda",
+                      dtype=torch.int32)
+    w = cand.shape[1]
+    args = (x, xn, base.to(torch.int32), cand, cand >= 0, guard)
+    ks, kc = th.prune_batch_guarded(*args, M=w, out_width=w, m_per_row=m)
+    ps, pc = th.rng_prune_plain(
+        x, xn, base.to(torch.int32), cand, m, keep_all_under_m=False,
+        keep_pruned=False, out_width=w, guard=guard)
+    assert (ks == ps).all(1).float().mean() >= 0.99
+    assert (kc == pc).float().mean() >= 0.99
+    assert (kc > m).any()
+
+
+def test_query_surface_on_card(data, slim_index):
+    """Through the entry points: identical ids over the three serving
+    layouts (seeded and greedy), filtered results all allowed and full,
+    search_async equal to search, a SlimZero conversion that passes
+    check_integrity and serves."""
+    import dataclasses
+
+    from hnsw_slim_tpu_torch.config import SearchConfig, SlimConfig
+    from hnsw_slim_tpu_torch.index.slim import HnswSlimIndex
+    from hnsw_slim_tpu_torch.index.slimzero import HnswSlimZeroIndex
+
+    x, _, q = data
+    h, idx, _, _ = slim_index
+    qs = q.cpu().numpy()
+    for seed_width in (32, 0):
+        scfg = SearchConfig(ef=64, pop_width=8, seed_width=seed_width)
+        outs = []
+        for layout in ("chal", "dense0", "dense"):
+            v = HnswSlimIndex(metric="l2", search_cfg=scfg, device="cuda")
+            v.graph, v.vectors, v.vn = idx.graph, idx.vectors, idx.vn
+            if layout != "chal":
+                v.dense0 = idx.dense0
+            if layout == "dense":
+                v.dense_up, v.rank_up = idx.dense_up, idx.rank_up
+            outs.append(v.search(qs, 10)[1])
+        assert (outs[0] == outs[1]).all() and (outs[0] == outs[2]).all()
+    idx.scfg = SearchConfig(ef=64, pop_width=8, seed_width=32)
+    mask = np.random.default_rng(0).random(len(x)) < 0.1
+    for engine in (idx, h):
+        engine.scfg = dataclasses.replace(engine.scfg, ef=64)
+        _, ids = engine.search(qs, 10, filter_mask=mask)
+        assert (ids >= 0).all() and mask[ids].all()
+    d, ids = idx.search(qs, 10)
+    ad, ai, _, _ = idx.search_async(qs, 10)
+    assert (ai.cpu().numpy() == ids).all() and (ad.cpu().numpy() == d).all()
+    z = HnswSlimZeroIndex.from_hnsw(h, SlimConfig.from_ratios(),
+                                    search_cfg=idx.scfg)
+    assert z.check_integrity()["edges"] > 0
+    z.densify_level0()
+    _, zi = z.search(qs, 10)
+    assert ((zi >= 0) & (zi < len(x))).all()

@@ -60,12 +60,22 @@ def test_recorded_jax_search_is_reproduced(engines, tmp_path_factory):
 
 def test_integrity_and_unported_options(engines):
     """check_integrity reports JAX's in-degree statistics on the same graph;
-    the filtered search (K6) raises NotImplementedError."""
+    the filtered search (K6) returns the JAX engine's ids (>= 99% of slots),
+    all allowed; with everything allowed it returns the unfiltered
+    result."""
     js, ps = engines
     assert ps.check_integrity() == js.check_integrity()
     n = ps.graph.n
-    with pytest.raises(NotImplementedError, match="K6"):
-        ps.search(np.zeros((1, 16), np.float32), 1,
-                  filter_mask=np.ones(n, bool))
+    _, queries = insert_dataset()
+    for idx in (js, ps):
+        idx.scfg = dataclasses.replace(idx.scfg, ef=32, pop_width=4)
+    mask = np.arange(n) % 2 == 1
+    _, ji = js.search(queries, 10, filter_mask=mask)
+    _, pi = ps.search(queries, 10, filter_mask=mask)
+    assert (pi == ji).mean() >= 0.99
+    assert (pi >= 0).all() and mask[pi].all()
+    np.testing.assert_array_equal(
+        ps.search(queries, 10, filter_mask=np.ones(n, bool))[1],
+        ps.search(queries, 10)[1])
     assert HnswIndex(HnswConfig(), device="cpu").scfg.ef == \
         HnswConfig().ef_search

@@ -46,11 +46,26 @@ def test_slim_checkpoint_roundtrips_through_jax(engines, tmp_path):
 
 
 def test_search_knobs_outside_the_slice_raise(engines):
-    """Configurations the port does not serve yet raise, naming the item."""
-    _, ps, queries, _ = engines
-    ps.scfg = dataclasses.replace(ps.scfg, seed_width=0)
-    with pytest.raises(NotImplementedError, match="K5"):
+    """Knobs beside the exact-seeded configuration: seed_width=0 (greedy
+    descent, Kε) returns the JAX engine's ids (>= 99% of slots, hops equal)
+    and a filter_mask returns allowed ids only, equal to JAX's. What the
+    port does not serve, dynamic_ef, raises and says so."""
+    js, ps, queries, _ = engines
+    for idx in (js, ps):
+        idx.scfg = dataclasses.replace(idx.scfg, ef=32, pop_width=4,
+                                       scan_width=0, seed_width=0)
+    _, ji = js.search(queries, k=10)
+    _, pi = ps.search(queries, k=10)
+    assert (pi == ji).mean() >= 0.99
+    assert ps.last_stats["hops"] == js.last_stats["hops"]
+    for idx in (js, ps):
+        idx.scfg = dataclasses.replace(idx.scfg, seed_width=32)
+    mask = np.arange(ps.graph.n) % 3 != 0
+    _, ji = js.search(queries, k=10, filter_mask=mask)
+    _, pi = ps.search(queries, k=10, filter_mask=mask)
+    assert (pi == ji).mean() >= 0.99
+    assert (pi >= 0).all() and mask[pi].all()
+    ps.scfg = dataclasses.replace(ps.scfg, dynamic_ef=True)
+    with pytest.raises(NotImplementedError, match="dynamic_ef"):
         ps.search(queries, k=10)
-    ps.scfg = dataclasses.replace(ps.scfg, seed_width=32)
-    with pytest.raises(NotImplementedError, match="K6"):
-        ps.search(queries, k=10, filter_mask=np.ones(len(queries), bool))
+    ps.scfg = dataclasses.replace(ps.scfg, dynamic_ef=False)

@@ -51,6 +51,58 @@ def jax_graph_dir(tmp_path_factory):
     return d
 
 
+def jax_modes_dir(tmp_path_factory):
+    """Directory holding two more conversions of jax_graph_dir's hnsw.npz,
+    made and saved by the JAX package: slim_t1.npz (SlimConfig.from_ratios(
+    threshold_level=1)) and slimzero.npz (HnswSlimZeroIndex, default
+    ratios). Built once per session under a file lock, as jax_graph_dir."""
+    from hnsw_slim_tpu.index.slim import HnswSlimIndex
+    from hnsw_slim_tpu.index.slimzero import HnswSlimZeroIndex
+    from hnsw_slim_tpu.persist.checkpoint import load_hnsw, save_slim
+
+    src = jax_graph_dir(tmp_path_factory)
+    d = src.parent / "torch_parity_modes"
+    d.mkdir(exist_ok=True)
+    with open(d / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not (d / "slimzero.npz").exists():
+            h = load_hnsw(src / "hnsw.npz")
+            save_slim(d / "slim_t1.npz", HnswSlimIndex.from_hnsw(
+                h, SlimConfig.from_ratios(threshold_level=1)))
+            save_slim(d / "slimzero.tmp.npz", HnswSlimZeroIndex.from_hnsw(
+                h, SlimConfig.from_ratios()))
+            os.replace(d / "slimzero.tmp.npz", d / "slimzero.npz")
+    return d
+
+
+def slim_pair(path, layout: str = "chal"):
+    """(JAX index, port index on the CPU) loaded from one Slim checkpoint,
+    both in serving layout ``layout``: "chal" (flat CHAL arrays only),
+    "dense0" (+ densify_level0) or "dense" (+ densify_upper too)."""
+    from hnsw_slim_tpu.persist.checkpoint import load_slim as jax_load_slim
+    from hnsw_slim_tpu_torch.persist.checkpoint import load_slim
+
+    pair = jax_load_slim(path), load_slim(path, device="cpu")
+    for idx in pair:
+        if layout in ("dense0", "dense"):
+            idx.densify_level0()
+        if layout == "dense":
+            idx.densify_upper()
+    return pair
+
+
+def assert_ids_match(pi, pd, ji, jd, share: float = 0.99):
+    """ids equal on >= ``share`` of (query, rank) slots; where they differ
+    the two engines' distances at that slot lie within 1e-4 * (1 + |d|) (a
+    near-tie ordered differently); on equal slots the distances agree to
+    the same tolerance."""
+    same = pi == ji
+    assert same.mean() >= share, same.mean()
+    fin = np.isfinite(jd) & np.isfinite(pd)
+    assert (np.isfinite(jd) == np.isfinite(pd)).all()
+    assert np.all(np.abs(pd[fin] - jd[fin]) <= 1e-4 * (1 + np.abs(jd[fin])))
+
+
 def recall(ids, gt):
     return np.mean([len(set(a) & set(b)) / gt.shape[1]
                     for a, b in zip(ids, gt)])
