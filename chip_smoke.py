@@ -27,20 +27,39 @@ Phases (one line each on stdout, the kernel table second to last):
   4. SlimZero, with its own launch counts: HnswSlimZeroIndex.from_hnsw on
      the same HNSW, integrity, the in-degree floor at level 0, a seeded
      sweep;
-  5. the NN-descent path (strategy "nnd") -> conversion -> seeded sweep,
+  5. SlimQ, with its own launch counts, on the manifold data the JAX
+     package documents for it (manifold(N, 128, latent_dim=24,
+     n_clusters=250, seed=5), HnswConfig(M=32, ef_construction=128),
+     SlimConfig(32, 8, 16, 4), 4 bits, both dense layouts):
+     HnswSlimQIndex.build with its split (HNSW build, conversion, KMeans,
+     rotation, quantization) and the Kα launches of its KMeans step,
+     index_size and runtime_memory, exact ground
+     truth, a sweep at ef 32..256 with the rerank (seed_width 32, pop 8) and
+     its time split (rotate, seeds, beam), the same at ef 64/128 with
+     use_ex, with rerank=False, with seed_width=0, and a save_slimq ->
+     load_slimq round trip;
+  6. the NN-descent path (strategy "nnd") -> conversion -> seeded sweep,
      with its own launch counts;
-  6. each kernel and each kernel mode against its plain PyTorch version on
+  7. each kernel and each kernel mode against its plain PyTorch version on
      the card: Kε, Kβ in build mode, Kγ and Kζ on one 4096-insert batch
      recorded during the insertion build (its pre-batch graph and inputs),
      Kα and Kβ on the serving paths, Kγ on the NND build's and conversion's
      prunes, Kδ on an NND chunk, and on inputs of phases 3 and 4 Kβ over
      CHAL and rank rows, Kβ filtered, Kε over CHAL and rank rows, Kα in
      strata mode, Kγ guarded (one recorded 8192-row chunk with its live
-     guard); both times, agreement, and the least time the card could
-     take (bytes over 3.35 TB/s or fp32 flops over 67 TFLOP/s, the larger);
-  7. output checks (finite, in range, true distances, recall sanity, the
+     guard), and on the SlimQ index Kη on the 4096 queries, the g_add
+     table, Kβ quant / quant_ex / rerank on 512 queries at ef 64, Kε quant
+     (which scores the entry point itself), Kα in estimate mode and Kα with
+     k=1 on one 262144-row KMeans chunk (beside torch.cdist().argmin(); a
+     line of its own, it is the same kernel as any k=1 call); both times,
+     agreement, and the least time the card could take (bytes over
+     3.35 TB/s or fp32 flops over 67 TFLOP/s, the larger);
+  8. output checks (finite, in range, true distances, recall sanity, the
      insertion-built Slim index above the NND-built one at ef=320, SlimZero
-     within 0.02 of the Slim index there).
+     within 0.02 of the Slim index there; SlimQ: ids in range, reranked
+     distances the true ones, reranked recall not below the estimate-only
+     recall, recall not falling with ef, index_size under 0.35 of the raw
+     vectors).
 Any failed check exits non-zero before the last line, which is
 {"ok": true, "device": {...}}. Without a CUDA card it exits 2 at once.
 """
@@ -67,6 +86,8 @@ ROUTES = {  # kernel: (source, the JAX program it replaces)
                        "hnsw_slim_tpu/graph/search.py:101"),
     "rev_connect": ("hnsw_slim_tpu_torch/csrc/rev_connect.cu",
                     "hnsw_slim_tpu/graph/revconn.py:47"),
+    "fht_rotate": ("hnsw_slim_tpu_torch/csrc/fht_rotate.cu",
+                   "hnsw_slim_tpu/quant/rotator.py:41"),
 }
 MODE_ROUTES = {  # kernel mode: (kernel, the JAX code that mode replaces)
     "topk_dist.strata": ("topk_dist", "hnsw_slim_tpu/graph/search.py:800"),
@@ -79,6 +100,15 @@ MODE_ROUTES = {  # kernel mode: (kernel, the JAX code that mode replaces)
     "greedy_descent.rank": ("greedy_descent",
                             "hnsw_slim_tpu/graph/search.py:67"),
     "rng_prune.guarded": ("rng_prune", "hnsw_slim_tpu/graph/heuristic.py:61"),
+    "topk_dist.estimate": ("topk_dist", "hnsw_slim_tpu/index/slimq.py:148"),
+    "beam_search.quant": ("beam_search", "hnsw_slim_tpu/index/slimq.py:116"),
+    "beam_search.quant_ex": ("beam_search",
+                             "hnsw_slim_tpu/quant/estimator.py:56"),
+    "beam_search.rerank": ("beam_search", "hnsw_slim_tpu/index/slimq.py:182"),
+    "greedy_descent.quant": ("greedy_descent",
+                             "hnsw_slim_tpu/index/slimq.py:166"),
+    "fht_rotate.g_tables": ("fht_rotate",
+                            "hnsw_slim_tpu/quant/estimator.py:79"),
 }
 INSERT_PATH = ("topk_dist", "beam_search", "rng_prune", "greedy_descent",
                "rev_connect")
@@ -88,6 +118,13 @@ QUERY_PATH = ("topk_dist", "beam_search", "greedy_descent", "rng_prune",
               "beam_search.filtered", "greedy_descent.chal",
               "greedy_descent.rank")
 SLIMZERO_PATH = ("rng_prune", "rng_prune.guarded", "topk_dist", "beam_search")
+SLIMQ_PATH = ("fht_rotate", "fht_rotate.g_tables", "topk_dist",
+              "topk_dist.estimate", "beam_search.quant",
+              "beam_search.quant_ex", "beam_search.rerank",
+              "greedy_descent.quant", "greedy_descent.rank", "beam_search",
+              "greedy_descent", "rng_prune", "rev_connect")
+KM_PAIR = "topk_dist k=1 (KMeans assignment)"
+SLIMQ_EFS = (32, 64, 128, 256)
 EFS = (32, 64, 128, 256, 320)
 NQ = 4096
 HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s
@@ -295,7 +332,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from hnsw_slim_tpu_torch.config import HnswConfig, SearchConfig, SlimConfig
+    import tempfile
+    from pathlib import Path
+
+    from hnsw_slim_tpu_torch.config import (HnswConfig, QuantConfig,
+                                            SearchConfig, SlimConfig)
     from hnsw_slim_tpu_torch.graph import build as tb
     from hnsw_slim_tpu_torch.graph import heuristic, nnd, prune, revconn
     from hnsw_slim_tpu_torch.graph import search as gs
@@ -303,10 +344,16 @@ def main() -> int:
     from hnsw_slim_tpu_torch.index.hnsw import (HnswIndex,
                                                 resolve_build_strategy)
     from hnsw_slim_tpu_torch.index.slim import HnswSlimIndex, autotune_index
+    from hnsw_slim_tpu_torch.index import slimq as slimq_mod
+    from hnsw_slim_tpu_torch.index.slimq import HnswSlimQIndex
     from hnsw_slim_tpu_torch.index.slimzero import HnswSlimZeroIndex
     from hnsw_slim_tpu_torch.ops import cuda
+    from hnsw_slim_tpu_torch.persist.checkpoint import load_slimq, save_slimq
     from hnsw_slim_tpu_torch.persist.patch import _level_rows
-    from hnsw_slim_tpu_torch.utils.data import clustered
+    from hnsw_slim_tpu_torch.quant import estimator as qest
+    from hnsw_slim_tpu_torch.quant import kmeans as qkm
+    from hnsw_slim_tpu_torch.quant import rotator as qrot
+    from hnsw_slim_tpu_torch.utils.data import clustered, manifold
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -329,8 +376,11 @@ def main() -> int:
                                        "strata_sort", "beam_kernel", "prune_kernel",
                                        "merge_kernel", "greedy_kernel",
                                        "append_kernel", "degree_kernel",
-                                       "rows_kernel", "write_kernel")
+                                       "rows_kernel", "write_kernel",
+                                       "fht_kernel", "g_tables_kernel")
                            if k in fn), "?")
+            if "ILb1E" in fn:  # the quantized / estimate instantiation
+                kernel += "<quant>"
         elif line.startswith("Used"):
             say(f"  ptxas {kernel}: {line}")
 
@@ -553,7 +603,120 @@ def main() -> int:
           f"Slim index's: {slim_zero[-1]['recall@10']} vs "
           f"{slim_ins[-1]['recall@10']}")
 
-    # ---- 5. the NN-descent path -------------------------------------------
+
+    # ---- 5. SlimQ ----------------------------------------------------------
+    cuda.reset_launches()
+    mbase, mq = manifold(n, 128, latent_dim=24, n_queries=NQ, n_clusters=250,
+                         seed=5)
+    km_launches = []  # Kα launches of the build's KMeans step (K18)
+
+    def kmeans_counted(*a, **kw):
+        before = cuda.launches["topk_dist"]
+        out = qkm.kmeans(*a, **kw)
+        km_launches.append(cuda.launches["topk_dist"] - before)
+        return out
+
+    slimq_mod.kmeans = kmeans_counted
+    try:
+        t0 = time.perf_counter()
+        sq = HnswSlimQIndex.build(
+            mbase, hnsw_cfg=HnswConfig(M=32, ef_construction=128),
+            slim_cfg=SlimConfig(top_M0=32, low_m0=8, top_M=16, low_m=4),
+            quant_cfg=QuantConfig(total_bits=4), strategy=strategy,
+            device=dev)
+        torch.cuda.synchronize()
+        t_qbuild = time.perf_counter() - t0
+    finally:
+        slimq_mod.kmeans = qkm.kmeans
+    q_dense = sq.densify_level0() + sq.densify_upper()
+    fp32_slim = sq.graph.chal_bytes() + mbase.nbytes
+    sq_size = {"index_size": sq.index_size(),
+               "runtime_memory": sq.runtime_memory(),
+               "raw_vectors": int(mbase.nbytes),
+               "fp32_slim_serving_set": int(fp32_slim),
+               "of_raw": round(sq.index_size() / mbase.nbytes, 4),
+               "of_fp32_slim": round(sq.index_size() / fp32_slim, 4),
+               "dense_layouts": q_dense}
+    say(f"slimq build: {t_qbuild:.2f} s, split (s) "
+        f"{json.dumps({k: round(v, 3) for k, v in sq.build_stats.items()})}, "
+        f"max_level {sq.graph.max_level}, sizes (B) {json.dumps(sq_size)}, "
+        f"topk_dist launches of the KMeans step (k=1, 16 centroids): "
+        f"{sum(km_launches)}")
+    check(sum(km_launches) > 0, "the SlimQ build's KMeans step never "
+                                "launched topk_dist")
+    check(sq.index_size() < 0.35 * mbase.nbytes,
+          f"SlimQ index_size {sq.index_size()} is not under 0.35 of the raw "
+          f"vectors' {mbase.nbytes} B")
+    t0 = time.perf_counter()
+    _, mgt = bf.BruteForceIndex(mbase, device=dev).search(mq, k=10)
+    say(f"slimq ground truth (manifold data): {time.perf_counter() - t0:.3f} "
+        f"s for {NQ} x {n}")
+
+    def slimq_line(label, scfg, rerank=True):
+        """serve_line plus the SlimQ checks: ids in range and, with the
+        rerank, returned distances the true ones."""
+        sq.scfg = scfg
+        row = serve_line(sq, mq, mgt, label, rerank=rerank)
+        d_, ids_ = row.pop("d"), row.pop("ids")
+        check(((ids_ >= 0) & (ids_ < n)).all(), f"{label}: id range")
+        if rerank:
+            true_d = ((mq[:, None, :] - mbase[ids_]) ** 2).sum(-1)
+            check(np.allclose(d_, true_d, rtol=1e-3, atol=1e-3),
+                  f"{label}: returned distances are not the true ones")
+        row["ids"] = ids_
+        return row
+
+    def sq_cfg(ef, **kw):
+        return SearchConfig(**{**dict(ef=ef, pop_width=8, seed_width=32),
+                               **kw})
+
+    sq_rows = {}
+    for ef in SLIMQ_EFS:
+        sq_rows[f"rerank ef={ef}"] = slimq_line(f"slimq ef={ef}", sq_cfg(ef))
+    rec_q = [sq_rows[f"rerank ef={ef}"]["recall@10"] for ef in SLIMQ_EFS]
+    check(all(b_ >= a_ for a_, b_ in zip(rec_q, rec_q[1:])) and
+          rec_q[-1] >= 0.5, f"SlimQ recall falls with ef: {rec_q}")
+    for ef in (64, 128):
+        sq_rows[f"use_ex ef={ef}"] = slimq_line(
+            f"slimq use_ex ef={ef}", sq_cfg(ef, use_ex=True))
+        sq_rows[f"estimate-only ef={ef}"] = slimq_line(
+            f"slimq rerank=False ef={ef}", sq_cfg(ef), rerank=False)
+        sq_rows[f"estimate-only use_ex ef={ef}"] = slimq_line(
+            f"slimq rerank=False use_ex ef={ef}", sq_cfg(ef, use_ex=True),
+            rerank=False)
+        sq_rows[f"seed_width=0 ef={ef}"] = slimq_line(
+            f"slimq seed_width=0 ef={ef}", sq_cfg(ef, seed_width=0))
+        for ex in ("", "use_ex "):
+            a_ = sq_rows[f"{ex or 'rerank '}ef={ef}"]["recall@10"]
+            b_ = sq_rows[f"estimate-only {ex}ef={ef}"]["recall@10"]
+            check(a_ >= b_, f"SlimQ ef={ef} {ex}: reranked recall {a_} under "
+                            f"the estimate-only recall {b_}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        save_slimq(Path(tmp) / "slimq.npz", sq)
+        t_save = time.perf_counter() - t0
+        file_b = (Path(tmp) / "slimq.npz").stat().st_size
+        t0 = time.perf_counter()
+        sq2 = load_slimq(Path(tmp) / "slimq.npz", search_cfg=sq_cfg(64),
+                         device=dev)
+        t_load = time.perf_counter() - t0
+    sq2.set_dataset(mbase)
+    sq2.densify_level0()
+    sq2.densify_upper()
+    _, ids2 = sq2.search(mq, k=10)
+    check((ids2 == sq_rows["rerank ef=64"]["ids"]).all(),
+          "the save_slimq -> load_slimq round trip changed the search's ids")
+    say(f"slimq save_slimq {t_save:.2f} s ({file_b} B) -> load_slimq "
+        f"{t_load:.2f} s: identical ids at ef=64")
+    del sq2
+    launch_sq = dict(cuda.launches)
+    say(f"slimq-path launches: {launch_sq}")
+    for name in SLIMQ_PATH:
+        check(launch_sq[name] > 0, f"{name} never launched on the SlimQ path")
+    for row in sq_rows.values():
+        row.pop("ids")
+
+    # ---- 6. the NN-descent path -------------------------------------------
     cuda.reset_launches()
     t0 = time.perf_counter()
     h2 = HnswIndex(hcfg, strategy="nnd", device=dev)
@@ -582,7 +745,7 @@ def main() -> int:
               "the insertion-built Slim index does not beat the NND-built "
               f"one at ef={EFS[-1]}")
 
-    # ---- 6. each kernel against its plain version -------------------------
+    # ---- 7. each kernel against its plain version -------------------------
     report = {}
     x, xn = h.vectors, h.vn
     d = x.shape[1]
@@ -1155,11 +1318,245 @@ def main() -> int:
           f"rng_prune (guarded) disagrees with its plain version: "
           f"{report['rng_prune.guarded']}")
 
+
+    # ---- SlimQ's kernels and modes, on the SlimQ index ---------------------
+    mq_t = torch.as_tensor(mq, device=dev)
+    mx = sq._dataset_dev
+    rot = sq.rotator
+    p_rot = rot.padded_dim
+    nbq, exq = int(sq.codes.bin_code.shape[1]), int(sq.codes.ex_bits)
+
+    def cand_b(use_ex):
+        """Bytes a scored candidate needs of its packed row: the bit planes
+        the mode reads (the 1-bit plane, with use_ex also the ex planes), one
+        factor pair and the cluster id."""
+        return 4 * nbq * (1 + exq if use_ex else 1) + 12
+
+    n_c = int(sq.centroids_rot.shape[0])
+    up_rows, up_ids_q = sq._seed_table()
+
+    def est_err(a, b_):
+        """max |a - b| relative to 1 + |b| (estimates cancel large terms)"""
+        return float(((a - b_).abs() / (1 + b_.abs())).max())
+
+    # Kη on the 4096 queries (and its rate on one 262144-row build chunk)
+    k_rot = qrot.fht_rotate(mq_t, rot.signs, rot.fac)
+    p_rot_out = qrot._rotate(mq_t, rot.signs, rot.fac)
+    chunk_x = mx[:min(n, 262144)].contiguous()
+    build_ms = cuda_ms(lambda: qrot.fht_rotate(chunk_x, rot.signs, rot.fac))
+    report["fht_rotate"] = dict(
+        agree=float((k_rot == p_rot_out).float().mean()),
+        max_abs_err=float((k_rot - p_rot_out).abs().max()),
+        ms=cuda_ms(lambda: qrot.fht_rotate(mq_t, rot.signs, rot.fac), 10),
+        plain_ms=cuda_ms(lambda: qrot._rotate(mq_t, rot.signs, rot.fac)),
+        bound=bound(8 * p_rot * NQ + 16 * p_rot,
+                    NQ * p_rot * 4 * (2 + p_rot.bit_length() - 1)),
+        shapes=f"{NQ} queries, dim 128 -> P {p_rot}; one build chunk of "
+               f"{len(chunk_x)} rows: {build_ms:.3f} ms (bound "
+               f"{bound(8 * p_rot * len(chunk_x), 0)[0]:.3f} ms)")
+    check(report["fht_rotate"]["max_abs_err"] <= 1e-6,
+          f"fht_rotate disagrees with its plain version: "
+          f"{report['fht_rotate']}")
+    ks_, kg_ = qrot.g_tables(k_rot, sq.centroids_rot)
+    ps_, pg_ = qrot.g_tables_plain(k_rot, sq.centroids_rot)
+    report["fht_rotate.g_tables"] = dict(
+        agree=1.0, max_abs_err=max(est_err(ks_, ps_), est_err(kg_, pg_)),
+        ms=cuda_ms(lambda: qrot.g_tables(k_rot, sq.centroids_rot), 10),
+        plain_ms=cuda_ms(lambda: qrot.g_tables_plain(k_rot,
+                                                     sq.centroids_rot)),
+        bound=bound(4 * (NQ * p_rot + n_c * p_rot + NQ * (n_c + 1)),
+                    3 * NQ * n_c * p_rot + NQ * p_rot),
+        shapes=f"{NQ} rotated queries x {n_c} centroids, P {p_rot}; "
+               "max_abs_err relative to 1 + |value|")
+    check(report["fht_rotate.g_tables"]["max_abs_err"] <= 1e-5,
+          f"g_tables disagrees with its plain version: "
+          f"{report['fht_rotate.g_tables']}")
+
+    def scorer_for(qt, use_ex):
+        q_rot_ = rot.rotate(qt)
+        sumq_, g_add_ = qrot.g_tables(q_rot_, sq.centroids_rot)
+        return qest.QuantScorer(sq._packed_rows(), nbq, exq, use_ex, q_rot_,
+                                sumq_, g_add_)
+
+    def est_seeds(sc):
+        s_d, s_pos = bf.topk_estimate(
+            sc._replace(rows=up_rows, use_ex=False), up_ids_q, 32)
+        s_id = torch.where(s_pos >= 0,
+                           up_ids_q[s_pos.clamp(min=0).long()], -1)
+        return s_d.contiguous(), s_id.to(torch.int32).contiguous()
+
+    # Kα in estimate mode: the seed block, all 4096 queries
+    sc_all = scorer_for(mq_t, False)
+    st_all = sc_all._replace(rows=up_rows)
+    ked, kep = bf.topk_estimate(st_all, up_ids_q, 32)
+    ped, pep = bf.topk_estimate_plain(st_all, up_ids_q, 33)
+    n_upq = int((up_ids_q >= 0).sum())
+    agree_e = tie_ok(kep.cpu().numpy(), pep.cpu().numpy(), ped.cpu().numpy(),
+                     32)
+    est_ms = cuda_ms(lambda: bf.topk_estimate(st_all, up_ids_q, 32))
+    report["topk_dist.estimate"] = dict(
+        agree=agree_e, max_abs_err=est_err(ked, ped[:, :32]), ms=est_ms,
+        plain_ms=cuda_ms(lambda: bf.topk_estimate_plain(st_all, up_ids_q,
+                                                        32), 1),
+        bound=bound(up_rows.shape[0] * (cand_b(False) + 4)
+                    + NQ * (p_rot + n_c + 1) * 4 + NQ * 32 * 8,
+                    2 * NQ * up_rows.shape[0] * p_rot),
+        shapes=f"{NQ} x {up_rows.shape[0]} packed rows ({n_upq} valid, "
+               f"{cand_b(False)} B of each read), k=32; max_abs_err relative "
+               "to 1 + |estimate|")
+    check(agree_e >= 0.99 and report["topk_dist.estimate"]["max_abs_err"]
+          <= 1e-4, f"topk_dist (estimate) disagrees with its plain version: "
+                   f"{report['topk_dist.estimate']}")
+
+    # Kα with k=1 over the 16 centroids: one KMeans assignment chunk, beside
+    # the one PyTorch call that computes it (the same kernel as every other
+    # topk_dist call, so a line of its own and no row of the kernel table)
+    cent_q, _ = qkm.kmeans(chunk_x[:65536], k=16, iters=2)
+    cent_t = torch.as_tensor(cent_q, device=dev)
+    cn_t = (cent_t * cent_t).sum(1)
+    k_as = qkm._assign(chunk_x, cent_t)
+    p_as_d, p_as = bf.topk_dist_plain(chunk_x, cent_t, cn_t, 2)
+    lib_as = torch.cdist(chunk_x, cent_t).argmin(dim=1)
+    near = (p_as_d[:, 1] - p_as_d[:, 0]) <= 1e-5 * (1 + p_as_d[:, 0].abs())
+    report[KM_PAIR] = dict(
+        agree=float(((k_as == p_as[:, 0].long()) | near).float().mean()),
+        max_abs_err=float((bf.topk_dist(chunk_x, cent_t, cn_t, 1)[0][:, 0]
+                           - p_as_d[:, 0]).abs().max()),
+        ms=cuda_ms(lambda: qkm._assign(chunk_x, cent_t)),
+        plain_ms=cuda_ms(lambda: bf.topk_dist_plain(chunk_x, cent_t, cn_t,
+                                                    1)),
+        library_ms=cuda_ms(lambda: torch.cdist(chunk_x, cent_t).argmin(dim=1)),
+        bound=bound(chunk_x.numel() * 4 + cent_t.numel() * 4
+                    + len(chunk_x) * 8, 2 * len(chunk_x) * 16 * d),
+        shapes=f"{len(chunk_x)} rows x 16 centroids, k=1; equal to "
+               f"torch.cdist().argmin() on "
+               f"{float((k_as == lib_as).float().mean()):.5f} of rows")
+    check(report[KM_PAIR]["agree"] >= 0.999,
+          f"topk_dist (k=1, KMeans assignment) disagrees with its plain "
+          f"version: {report[KM_PAIR]}")
+
+    # Kβ quant / quant_ex / rerank: 512 queries, ef 64, pop 8, seeded as the
+    # SlimQ search seeds them
+    mq512 = mq_t[:512].contiguous()
+    kw_q = dict(P=64, ef_eff=64, pop_width=8,
+                cw=gs.cand_width(64, 8, sq.graph.cap0, 0),
+                max_iters=SearchConfig(ef=64, pop_width=8).iters(), k=64)
+    track0 = gs.pop_track_init(mx, mq512, 16)
+
+    def quant_beam_pair(what, use_ex, with_track):
+        sc = scorer_for(mq512, use_ex)
+        args_q = (None, None, None, gs.dense_fetch(sq.dense0), *est_seeds(sc))
+        extra = dict(scorer=sc, pop_track=track0 if with_track else None)
+        k_o = gs.beam_search(*args_q, **kw_q, **extra)
+        p_o = gs.beam_search_plain(*args_q, **kw_q, **extra)
+        if with_track:
+            same = k_o[4].ids == p_o[4].ids
+            fin = same & torch.isfinite(p_o[4].d)
+            err_ = float((k_o[4].d - p_o[4].d)[fin].abs().max())
+        else:
+            same = k_o[1] == p_o[1]
+            fin = same & torch.isfinite(p_o[0])
+            err_ = est_err(k_o[0][fin], p_o[0][fin])
+        hops_, dc_ = int(k_o[2].sum()), int(k_o[3].sum())
+        planes = 1 + exq if use_ex else 1
+        n_bytes = (hops_ * sq.dense0.shape[1] * 4 + dc_ * cand_b(use_ex)
+                   + 512 * (p_rot + n_c + 1) * 4 + 512 * 32 * 8
+                   + 512 * 64 * 8)
+        n_flops = dc_ * 2 * p_rot * planes
+        if with_track:  # one raw row per pop, the raw query, the track
+            n_bytes += hops_ * d * 4 + 512 * (d * 4 + 2 * 16 * 8)
+            n_flops += hops_ * 4 * d
+        rep = dict(
+            agree=float(same.float().mean()), max_abs_err=err_,
+            ms=cuda_ms(lambda: gs.beam_search(*args_q, **kw_q, **extra)),
+            plain_ms=cuda_ms(
+                lambda: gs.beam_search_plain(*args_q, **kw_q, **extra), 1),
+            bound=bound(n_bytes, n_flops),
+            shapes=f"{what}: 512 queries, ef 64, E 8, W "
+                   f"{sq.dense0.shape[1]}, {cand_b(use_ex)} B per scored "
+                   f"candidate, hops {hops_} vs {int(p_o[2].sum())}, dcomp "
+                   f"{dc_} vs {int(p_o[3].sum())}; buffer slots equal "
+                   f"{float((k_o[1] == p_o[1]).float().mean()):.5f}")
+        check(rep["agree"] >= 0.99, f"beam_search ({what}) disagrees with "
+                                    f"its plain version: {rep}")
+        return rep, k_o
+
+    report["beam_search.quant"], _ = quant_beam_pair(
+        "1-bit estimates, no track; max_abs_err relative to 1 + |estimate|",
+        False, False)
+    report["beam_search.quant_ex"], _ = quant_beam_pair(
+        "full-code estimates (4 planes), no track; max_abs_err relative to "
+        "1 + |estimate|", True, False)
+    report["beam_search.rerank"], out_rr = quant_beam_pair(
+        "1-bit estimates with the rerank track (kk 16); agreement over the "
+        "track's ids, max_abs_err over its exact distances", False, True)
+    rr_ids = out_rr[4].ids
+    rr_true = ((mq512[:, None, :] - mx[rr_ids.clamp(min=0).long()]) ** 2
+               ).sum(-1)
+    check(bool(torch.allclose(out_rr[4].d[rr_ids >= 0],
+                              rr_true[rr_ids >= 0], rtol=1e-3, atol=1e-3)),
+          "Kβ's rerank track does not hold the true distances")
+
+    # Kε on estimates: the seed_width=0 descent, all 4096 queries, each
+    # level from the plain state; at the top level the kernel scores the
+    # entry point itself
+    gq_ = sq.graph
+    ent = torch.full((NQ,), gq_.entry, dtype=torch.int32, device=dev)
+    pc_, pd_ = ent, None
+    eq_, tot_, err_, kms, pms, byt, flo = 0, 0, 0.0, 0.0, 0.0, 0, 0
+    for l in range(gq_.max_level, 0, -1):
+        fch = gs.rank_fetch(sq.rank_up, sq.dense_up[l - 1])
+        st_ = (None, None, None, fch, pc_, pd_)
+        kc_, kd_, kh_, kdc_ = gs.greedy_descent(*st_, scorer=sc_all)
+        kms += cuda_ms(lambda: gs.greedy_descent(*st_, scorer=sc_all))
+        pms += cuda_ms(lambda: gs.greedy_descent_plain(*st_, scorer=sc_all),
+                       1)
+        npc, npd, _, _ = gs.greedy_descent_plain(*st_, scorer=sc_all)
+        same_ = kc_ == npc
+        eq_, tot_ = eq_ + int(same_.sum()), tot_ + len(same_)
+        if same_.any():
+            err_ = max(err_, est_err(kd_[same_], npd[same_]))
+        byt += (int(kh_.sum()) * (fch.width * 4 + 8)
+                + (int(kdc_.sum()) + NQ * (pd_ is None)) * cand_b(False)
+                + NQ * (p_rot + n_c + 1) * 4 + NQ * 16)
+        flo += (int(kdc_.sum()) + NQ * (pd_ is None)) * 2 * p_rot
+        pc_, pd_ = npc, npd
+    report["greedy_descent.quant"] = dict(
+        agree=eq_ / max(1, tot_), max_abs_err=err_, ms=kms, plain_ms=pms,
+        bound=bound(byt, flo),
+        shapes=f"{NQ} queries, levels {gq_.max_level}..1 of the SlimQ graph "
+               f"through rank rows, 1-bit estimates ({cand_b(False)} B per "
+               "scored candidate), the entry point scored at the top level; "
+               "max_abs_err relative to 1 + |estimate|")
+    check(report["greedy_descent.quant"]["agree"] >= 0.99,
+          f"greedy_descent (quant) disagrees with its plain version: "
+          f"{report['greedy_descent.quant']}")
+
+    # where a SlimQ search() call's time goes per ef: rotation + table,
+    # seeds, beam with the rerank track (CUDA events, 4096 queries)
+    rot_ms = cuda_ms(lambda: scorer_for(mq_t, False), 10)
+    s_allq = est_seeds(sc_all)
+    track_all = gs.pop_track_init(mx, mq_t, 16)
+    for ef in SLIMQ_EFS:
+        beam_ms = cuda_ms(lambda: gs.beam_search(
+            None, None, None, gs.dense_fetch(sq.dense0), *s_allq,
+            **dict(kw_q, P=ef, ef_eff=ef, k=ef,
+                   cw=gs.cand_width(ef, 8, sq.graph.cap0, 0),
+                   max_iters=SearchConfig(ef=ef, pop_width=8).iters()),
+            scorer=sc_all, pop_track=track_all))
+        row = sq_rows[f"rerank ef={ef}"]
+        row["split_ms"] = {"rotate+table": round(rot_ms, 3),
+                           "seeds": round(est_ms, 3),
+                           "beam": round(beam_ms, 3)}
+        say(f"time split slimq ef={ef}: rotate+table {rot_ms:.3f} ms, seeds "
+            f"{est_ms:.3f} ms, beam {beam_ms:.3f} ms, search() "
+            f"{row['search_ms']:.3f} ms for {NQ} queries")
+
     for name, rep in report.items():
         say(f"kernel {name}: {json.dumps(rep)}")
 
-    # ---- 7. summary --------------------------------------------------------
-    paths = (launch_ins, launch_qs, launch_sz, launch_nnd)
+    # ---- 8. summary --------------------------------------------------------
+    paths = (launch_ins, launch_qs, launch_sz, launch_sq, launch_nnd)
     kernels = [{
         "name": name,
         "route": "cuda",
@@ -1173,7 +1570,8 @@ def main() -> int:
         "plain_ms": round(report[name]["plain_ms"], 4),
         "bound_ms": round(report[name]["bound"][0], 4),
         "bound_by": report[name]["bound"][1],
-        "library_ms": None,  # no single PyTorch call computes these
+        # no single PyTorch call computes any of these functions
+        "library_ms": None,
     } for name in list(ROUTES) + list(MODE_ROUTES)]
     for kern in kernels:
         check(kern["launches"] > 0, f"{kern['name']} was never launched on "
@@ -1194,6 +1592,11 @@ def main() -> int:
                      "index_size": z.index_size(),
                      "floor_share": floor_share, "slim": slim_zero,
                      "launches": launch_sz},
+        "slimq": {"build_s": round(t_qbuild, 2),
+                  "build_split_s": {k: round(v, 3)
+                                    for k, v in sq.build_stats.items()},
+                  "sizes": sq_size, "lines": sq_rows,
+                  "launches": launch_sq},
         "nnd": {"n": n, "build_s": round(t_build2, 2),
                 "convert_s": round(t_conv2, 2),
                 "index_size": idx2.index_size(), "slim": slim_nnd,

@@ -12,6 +12,7 @@ pass ``device="cpu"`` to run on the CPU.
     from hnsw_slim_tpu_torch.index.hnsw import HnswIndex
     from hnsw_slim_tpu_torch.index.slim import HnswSlimIndex
     from hnsw_slim_tpu_torch.index.slimzero import HnswSlimZeroIndex
+    from hnsw_slim_tpu_torch.index.slimq import HnswSlimQIndex
     from hnsw_slim_tpu_torch.index.bruteforce import BruteForceIndex
 
 ``config.py``, ``utils/data.py`` and ``utils/native.py`` are byte-equal
@@ -19,6 +20,8 @@ copies of the JAX package's jax-free modules (a test holds them equal), so
 the port never imports the JAX package.
 """
 
-from .config import HnswConfig, SearchConfig, SlimConfig
+from .config import HnswConfig, QuantConfig, SearchConfig, SlimConfig
+from .index.slimq import HnswSlimQIndex
 
-__all__ = ["HnswConfig", "SlimConfig", "SearchConfig"]
+__all__ = ["HnswConfig", "SlimConfig", "SearchConfig", "QuantConfig",
+           "HnswSlimQIndex"]

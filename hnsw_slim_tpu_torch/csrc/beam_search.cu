@@ -40,6 +40,21 @@
 // is left unchecked). The track comes in and goes out whole, so a caller can
 // carry it across levels beside the buffer. At P = 512, E = 8, W = 60 the
 // block needs 21 KB of shared memory unfiltered and 37 KB filtered.
+//
+// Quantized mode (QUANT; JAX: index/slimq.py _slimq_search_jit's score
+// closure over pack_code_rows with quant/estimator.py est_dist_1bit /
+// est_dist_ex, and its pop_hook): step 3 scores a candidate by its RaBitQ
+// estimate from one packed code row (common.cuh quant_score: 84 B at P = 128
+// and 4 bits instead of a 512 B vector; the 1-bit or the full-code estimate),
+// with the rotated query and the query's g_add row in shared memory. With a
+// rerank track (common.cuh PopTrack) the block also keeps the raw query and
+// a sorted list of kk (exact distance, id): after step 1 one warp per pop
+// reads the popped node's raw vector (the one 4 D-byte gather per pop) and
+// computes |q|^2 + |x|^2 - 2 q.x (or 1 - q.x); pops already in the track are
+// dropped, and the rest merge into it by rank — track entries first on equal
+// distance, pops in pop order, as the reference's stable sort by distance
+// alone. Rerank distances are not counted in dcomp. The track adds
+// 16 kk + 4 D bytes of shared memory (under 1 KB at kk = 16, D = 128).
 #include <climits>
 
 #include "common.cuh"
@@ -50,8 +65,10 @@ constexpr int THREADS = 256;
 constexpr int NW = THREADS / 32;
 constexpr int MAX_POP = 64;
 
+template <bool QUANT>
 __global__ void __launch_bounds__(THREADS)
 beam_kernel(const float* __restrict__ vec, int D, const hs::Fetch f,
+            const hs::Quant z, const hs::PopTrack t, int Cp, int Drp, int KKp,
             const float* __restrict__ q, const float* __restrict__ qn,
             const float* __restrict__ seed_d, const int* __restrict__ seed_id,
             int S, int P, int ef_eff, int E, int cw, int max_iters, int k,
@@ -63,8 +80,17 @@ beam_kernel(const float* __restrict__ vec, int D, const hs::Fetch f,
             int* __restrict__ dcomp_out, float* __restrict__ trk_d_out,
             int* __restrict__ trk_id_out) {
   extern __shared__ __align__(16) unsigned char smem[];
+  // exact: the query (D floats). Quantized: q_rot (D = 32 nb), the g_add
+  // row (Cp), and with a rerank track the raw query (Drp) and the track with
+  // its double buffer (4 KKp); all three sizes are 0 when unused
   float* qs = reinterpret_cast<float*>(smem);
-  float* bd = qs + Dp;
+  float* ga = qs + Dp;
+  float* qraw = ga + Cp;
+  float* rd = qraw + Drp;
+  int* ri = reinterpret_cast<int*>(rd + KKp);
+  float* nrd = reinterpret_cast<float*>(ri + KKp);
+  int* nri = reinterpret_cast<int*>(nrd + KKp);
+  float* bd = reinterpret_cast<float*>(nri + KKp);
   int* bi = reinterpret_cast<int*>(bd + P);
   int* bc = bi + P;
   float* nd = reinterpret_cast<float*>(bc + P);
@@ -87,12 +113,28 @@ beam_kernel(const float* __restrict__ vec, int D, const hs::Fetch f,
   __shared__ int s_pos[MAX_POP], s_popid[MAX_POP], s_npop, s_scr[32];
   __shared__ const int* s_row[MAX_POP];
   __shared__ int s_rowcnt[MAX_POP];
+  __shared__ float s_ed[MAX_POP];  // the pops' exact distances (rerank)
 
   const int b = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const bool vec4 = (D & 3) == 0;
-  const float qnv = qn[b];
-  for (int i = tid; i < D; i += THREADS) qs[i] = q[(size_t)b * D + i];
+  const bool track = QUANT && t.data != nullptr;
+  const float qnv = QUANT ? z.sumq[b] : qn[b];  // quantized: sum(q_rot)
+  const float qnr = (track && !metric) ? t.qn_raw[b] : 0.f;
+  const bool rvec4 = (t.D & 3) == 0;
+  const float* qsrc = QUANT ? z.q_rot : q;
+  for (int i = tid; i < D; i += THREADS) qs[i] = qsrc[(size_t)b * D + i];
+  if (QUANT)
+    for (int i = tid; i < z.C; i += THREADS)
+      ga[i] = z.g_add[(size_t)b * z.C + i];
+  if (track) {
+    for (int i = tid; i < t.D; i += THREADS)
+      qraw[i] = t.q_raw[(size_t)b * t.D + i];
+    for (int j = tid; j < t.kk; j += THREADS) {
+      rd[j] = t.d_in[(size_t)b * t.kk + j];
+      ri[j] = t.id_in[(size_t)b * t.kk + j];
+    }
+  }
   for (int j = tid; j < P; j += THREADS) {
     bd[j] = j < S ? seed_d[(size_t)b * S + j] : HS_INF;
     bi[j] = j < S ? seed_id[(size_t)b * S + j] : -1;
@@ -142,6 +184,40 @@ beam_kernel(const float* __restrict__ vec, int D, const hs::Fetch f,
     hops += npop;
     __syncthreads();
 
+    // 1b. rerank track: exact distance of every pop (one warp per pop),
+    // pops already in the track dropped, the rest merged in by rank
+    if (track) {
+      for (int c = warp; c < npop; c += NW) {
+        const int id = s_popid[c];
+        float nrm;
+        const float dot = hs::warp_dot(qraw, t.data + (size_t)id * t.D, t.D,
+                                       rvec4, &nrm);
+        bool dup = false;
+        for (int j = lane; j < t.kk; j += 32) dup |= ri[j] == id;
+        dup = __any_sync(HS_FULL, dup);
+        if (lane == 0)
+          s_ed[c] = dup ? HS_INF
+                        : (metric ? 1.f - dot : (qnr + nrm) - 2.f * dot);
+      }
+      __syncthreads();
+      for (int j = tid; j < t.kk; j += THREADS) {
+        const float v = rd[j];
+        int pos = j;
+        for (int c = 0; c < npop; ++c) pos += s_ed[c] < v;
+        if (pos < t.kk) { nrd[pos] = v; nri[pos] = ri[j]; }
+      }
+      for (int c = tid; c < npop; c += THREADS) {
+        const float v = s_ed[c];
+        int pos = hs::count_at_or_below(rd, t.kk, v);
+        for (int c2 = 0; c2 < npop; ++c2)
+          pos += s_ed[c2] < v || (s_ed[c2] == v && c2 < c);
+        if (pos < t.kk) { nrd[pos] = v; nri[pos] = isinf(v) ? -1 : s_popid[c]; }
+      }
+      __syncthreads();
+      float* xd = rd; rd = nrd; nrd = xd;
+      int* xi = ri; ri = nri; nri = xi;
+    }
+
     // 2. candidate ids: fetch rows, sort, dedup, cap at cw lanes
     for (int t = tid; t < EWp; t += THREADS) {
       int v = hs::BIG;
@@ -185,10 +261,16 @@ beam_kernel(const float* __restrict__ vec, int D, const hs::Fetch f,
 
     // 3. score: one warp per candidate
     for (int c = warp; c < m; c += NW) {
-      float nrm;
-      const float dot =
-          hs::warp_dot(qs, vec + (size_t)ci[c] * D, D, vec4, &nrm);
-      if (lane == 0) cd[c] = metric ? 1.f - dot : (qnv + nrm) - 2.f * dot;
+      float dist;
+      if (QUANT) {
+        dist = hs::quant_score(z, qs, ga, qnv, ci[c]);
+      } else {
+        float nrm;
+        const float dot =
+            hs::warp_dot(qs, vec + (size_t)ci[c] * D, D, vec4, &nrm);
+        dist = metric ? 1.f - dot : (qnv + nrm) - 2.f * dot;
+      }
+      if (lane == 0) cd[c] = dist;
     }
     const int mp = hs::next_pow2(m);
     for (int c = m + tid; c < mp; c += THREADS) {
@@ -256,10 +338,49 @@ beam_kernel(const float* __restrict__ vec, int D, const hs::Fetch f,
       trk_id_out[(size_t)b * P + j] = ti[j];
     }
   }
+  if (track) {
+    for (int j = tid; j < t.kk; j += THREADS) {
+      t.d_out[(size_t)b * t.kk + j] = rd[j];
+      t.id_out[(size_t)b * t.kk + j] = ri[j];
+    }
+  }
   if (tid == 0) {
     hops_out[b] = hops;
     dcomp_out[b] = dcomp;
   }
+}
+
+template <bool QUANT>
+int launch_beam(const float* vec, int D, const hs::Fetch& f,
+                const hs::Quant& z, const hs::PopTrack& t, const float* q,
+                const float* qn, const float* seed_d, const int* seed_id,
+                int B, int S, int P, int ef_eff, int E, int cw, int max_iters,
+                int k, int metric, const unsigned char* allowed,
+                const float* trk_d_in, const int* trk_id_in, float* out_d,
+                int* out_id, int* hops, int* dcomp, float* trk_d_out,
+                int* trk_id_out, void* stream) {
+  if (E > MAX_POP) return static_cast<int>(cudaErrorInvalidValue);
+  const int Dp = (D + 3) / 4 * 4;
+  const int Cp = QUANT ? (z.C + 3) / 4 * 4 : 0;
+  const int Drp = (QUANT && t.data) ? (t.D + 3) / 4 * 4 : 0;
+  const int KKp = (QUANT && t.data) ? (t.kk + 3) / 4 * 4 : 0;
+  const int EWp = hs::next_pow2(E * f.W);
+  const int Pp = hs::next_pow2(P);
+  const int CWp = hs::next_pow2(cw);
+  size_t smem = sizeof(float) * (Dp + Cp + Drp + 4 * KKp) +
+                6 * sizeof(int) * P + sizeof(int) * (EWp + Pp) +
+                2 * sizeof(int) * CWp;
+  if (allowed)
+    smem += 4 * sizeof(int) * P + sizeof(int) * Pp + 3 * sizeof(int) * CWp;
+  cudaError_t err = cudaFuncSetAttribute(
+      beam_kernel<QUANT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  beam_kernel<QUANT><<<B, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      vec, D, f, z, t, Cp, Drp, KKp, q, qn, seed_d, seed_id, S, P, ef_eff, E,
+      cw, max_iters, k, metric, Dp, EWp, Pp, CWp, allowed, trk_d_in,
+      trk_id_in, out_d, out_id, hops, dcomp, trk_d_out, trk_id_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -275,23 +396,34 @@ extern "C" int hs_beam_search(const float* vec, int D, const int* rows,
                               float* out_d, int* out_id, int* hops,
                               int* dcomp, float* trk_d_out, int* trk_id_out,
                               void* stream) {
-  if (E > MAX_POP) return static_cast<int>(cudaErrorInvalidValue);
   const hs::Fetch f{rows, aux, mode, W, level, stride};
-  const int Dp = (D + 3) / 4 * 4;
-  const int EWp = hs::next_pow2(E * W);
-  const int Pp = hs::next_pow2(P);
-  const int CWp = hs::next_pow2(cw);
-  size_t smem = sizeof(float) * Dp + 6 * sizeof(int) * P +
-                sizeof(int) * (EWp + Pp) + 2 * sizeof(int) * CWp;
-  if (allowed)
-    smem += 4 * sizeof(int) * P + sizeof(int) * Pp + 3 * sizeof(int) * CWp;
-  cudaError_t err = cudaFuncSetAttribute(
-      beam_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  beam_kernel<<<B, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      vec, D, f, q, qn, seed_d, seed_id, S, P, ef_eff, E, cw, max_iters, k,
-      metric, Dp, EWp, Pp, CWp, allowed, trk_d_in, trk_id_in, out_d, out_id,
-      hops, dcomp, trk_d_out, trk_id_out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_beam<false>(vec, D, f, hs::Quant{}, hs::PopTrack{}, q, qn,
+                            seed_d, seed_id, B, S, P, ef_eff, E, cw,
+                            max_iters, k, metric, allowed, trk_d_in,
+                            trk_id_in, out_d, out_id, hops, dcomp, trk_d_out,
+                            trk_id_out, stream);
+}
+
+// Kβ on estimates: the scorer (arguments as in hs_greedy_descent_quant)
+// takes the place of the vectors; data != nullptr adds the rerank track
+// (dataset f32[N, Dr], raw queries and their squared norms, kk, the track in
+// and out). metric selects the rerank distance only.
+extern "C" int hs_beam_search_quant(
+    const uint32_t* qrows, int qstride, int nb, int ex_bits, int use_ex,
+    const float* q_rot, const float* sumq, const float* g_add, int C,
+    const int* rows, const int* aux, int mode, int W, int level, int stride,
+    const float* seed_d, const int* seed_id, int B, int S, int P, int ef_eff,
+    int E, int cw, int max_iters, int k, int metric, const float* data,
+    int Dr, const float* q_raw, const float* qn_raw, int kk,
+    const float* rr_d_in, const int* rr_id_in, float* out_d, int* out_id,
+    int* hops, int* dcomp, float* rr_d_out, int* rr_id_out, void* stream) {
+  const hs::Fetch f{rows, aux, mode, W, level, stride};
+  const hs::Quant z{qrows, qstride, nb, ex_bits, use_ex, q_rot, sumq, g_add,
+                    C};
+  const hs::PopTrack t{data, Dr, kk, q_raw, qn_raw, rr_d_in, rr_id_in,
+                       rr_d_out, rr_id_out};
+  return launch_beam<true>(nullptr, nb * 32, f, z, t, nullptr, nullptr,
+                           seed_d, seed_id, B, S, P, ef_eff, E, cw, max_iters,
+                           k, metric, nullptr, nullptr, nullptr, out_d,
+                           out_id, hops, dcomp, nullptr, nullptr, stream);
 }

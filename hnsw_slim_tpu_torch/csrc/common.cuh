@@ -1,4 +1,4 @@
-// Device helpers shared by the port's kernels (Kα–Kζ).
+// Device helpers shared by the port's kernels (Kα–Kη).
 //
 // Every routine that takes a shared-memory array is called by ALL threads of
 // the block (blockDim.x a multiple of 32) and ends with __syncthreads(); the
@@ -219,5 +219,80 @@ __device__ __forceinline__ const int* fetch_row(const Fetch& f, int v,
   cnt = min(max(end - start, 0), f.W);
   return f.rows + start;
 }
+
+
+// RaBitQ estimate scorer (quant/estimator.py QuantScorer; JAX:
+// quant/estimator.py est_dist_1bit / est_dist_ex over the packed rows of
+// index/slimq.py pack_code_rows). A node's row of `stride` u32 words is
+//   [bin (nb) | ex planes (ex_bits * nb) | f_add | f_rescale | f_add_ex |
+//    f_rescale_ex (f32 bits) | cluster id],
+// bit j of word w of a plane being dimension 32 * w + j. The per-query terms
+// are the rotated query q_rot f32[B, 32 * nb], sumq = sum(q_rot) and the
+// g_add row f32[C] of the query, indexed by the node's cluster id.
+struct Quant {
+  const uint32_t* rows;
+  int stride, nb, ex_bits, use_ex;
+  const float* q_rot;
+  const float* sumq;
+  const float* g_add;
+  int C;
+};
+
+// Estimated distance of node `id` by one warp (every lane gets it). qr: the
+// query's q_rot (shared or global memory), ga: its g_add row. Lane j owns
+// dimension j of every word: the word is broadcast from the lane that
+// loaded it and lane j adds q_rot[32 w + j] where bit j is set.
+//   1-bit: f_add + g_add + f_rescale * (<q, bin> - sumq / 2)
+//   ex:    f_add_ex + g_add + f_rescale_ex *
+//          (2^ex <q, bin> + sum_b 2^b <q, ex_b> - (2^ex - 1/2) sumq)
+__device__ __forceinline__ float quant_score(const Quant& z, const float* qr,
+                                             const float* ga, float sumq,
+                                             int id) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t* row = z.rows + (size_t)id * z.stride;
+  const int nb = z.nb;
+  const int planes = z.use_ex ? 1 + z.ex_bits : 1;
+  float a_bin = 0.f, a_ex = 0.f;
+  for (int p = 0; p < planes; ++p) {
+    const float wgt = p ? (float)(1 << (p - 1)) : 1.f;
+    float acc = 0.f;
+    for (int w0 = 0; w0 < nb; w0 += 32) {
+      const int cnt = min(32, nb - w0);
+      const uint32_t mine = lane < cnt ? __ldg(row + p * nb + w0 + lane) : 0u;
+      for (int w = 0; w < cnt; ++w) {
+        const uint32_t word = __shfl_sync(HS_FULL, mine, w);
+        if ((word >> lane) & 1u) acc += qr[(w0 + w) * 32 + lane];
+      }
+    }
+    if (p) a_ex = fmaf(wgt, acc, a_ex); else a_bin = acc;
+  }
+  const uint32_t* tail = row + nb * (1 + z.ex_bits);
+  const float f_add = __uint_as_float(__ldg(tail + (z.use_ex ? 2 : 0)));
+  const float f_rescale = __uint_as_float(__ldg(tail + (z.use_ex ? 3 : 1)));
+  const int cid = static_cast<int>(__ldg(tail + 4));
+  const float g = ga[cid];
+  const float ip_bin = warp_sum(a_bin);
+  if (!z.use_ex) return (f_add + g) + f_rescale * (ip_bin - 0.5f * sumq);
+  const float ip_ex = warp_sum(a_ex);
+  const float two_ex = (float)(1 << z.ex_bits);
+  return (f_add + g) +
+         f_rescale * ((two_ex * ip_bin + ip_ex) - (two_ex - 0.5f) * sumq);
+}
+
+
+// Rerank track of the quantized beam (graph/search.py PopTrack; JAX: the
+// pop_hook of index/slimq.py _slimq_search_jit): every popped node's exact
+// distance to an external dataset enters a sorted list of kk (distance, id)
+// that comes in and goes out whole, so a caller carries it across levels.
+struct PopTrack {
+  const float* data;    // f32[N, D] raw vectors; nullptr = no track
+  int D, kk;
+  const float* q_raw;   // f32[B, D]
+  const float* qn_raw;  // f32[B] squared norms (L2 only)
+  const float* d_in;    // f32[B, kk]
+  const int* id_in;     // i32[B, kk]
+  float* d_out;
+  int* id_out;
+};
 
 }  // namespace hs

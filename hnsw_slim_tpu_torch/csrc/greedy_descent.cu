@@ -24,6 +24,15 @@
 // |x|^2 from the gathered row (or 1 - q.x), the argmin takes the smallest id
 // among equal minima, and the query moves only on a strict improvement.
 // Queries whose active flag is 0 keep their (cur, curdist) and count 0.
+//
+// Quantized scorer (QUANT, JAX greedy_level_scored with the SlimQ estimate
+// scorer of index/slimq.py _slimq_search_jit): the distance of a neighbor is
+// its RaBitQ estimate from one packed code row (common.cuh quant_score; 84 B
+// at P = 128 and 4 bits instead of a 512 B vector), with the rotated query
+// and the query's g_add row in shared memory. Same tie and move rules.
+// With score_cur the warp first scores its query's own start node (curdist
+// is then output only), as the JAX search scores the entry point through the
+// same closure; with every query inactive the launch does just that.
 #include "common.cuh"
 
 namespace {
@@ -32,24 +41,33 @@ constexpr int THREADS = 256;
 constexpr int NW = THREADS / 32;
 constexpr int GROUP = 4;
 
+template <bool QUANT>
 __global__ void __launch_bounds__(THREADS)
 greedy_kernel(const float* __restrict__ vec, int D, const hs::Fetch f,
-              const float* __restrict__ q, const float* __restrict__ qn,
+              const hs::Quant z, const float* __restrict__ q,
+              const float* __restrict__ qn,
               const unsigned char* __restrict__ active, int B, int metric,
-              int Dp, int* __restrict__ cur, float* __restrict__ curdist,
-              int* __restrict__ hops_out, int* __restrict__ dcomp_out) {
+              int Dp, int score_cur, int* __restrict__ cur,
+              float* __restrict__ curdist, int* __restrict__ hops_out, int* __restrict__ dcomp_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b = blockIdx.x * NW + warp;
   if (b >= B) return;  // whole warp; the kernel has no block barrier
-  float* qs = reinterpret_cast<float*>(smem) + (size_t)warp * Dp;
-  for (int i = lane; i < D; i += 32) qs[i] = q[(size_t)b * D + i];
+  // exact: the query (D floats); quantized: q_rot (D = 32 nb) then g_add
+  float* qs = reinterpret_cast<float*>(smem) +
+              (size_t)warp * (Dp + (QUANT ? z.C : 0));
+  float* ga = qs + Dp;
+  const float* qsrc = QUANT ? z.q_rot : q;
+  for (int i = lane; i < D; i += 32) qs[i] = qsrc[(size_t)b * D + i];
+  if (QUANT)
+    for (int i = lane; i < z.C; i += 32) ga[i] = z.g_add[(size_t)b * z.C + i];
   __syncwarp();
 
   const bool vec4 = (D & 3) == 0;
-  const float qnv = qn[b];
+  const float qnv = QUANT ? z.sumq[b] : qn[b];  // quantized: sum(q_rot)
   int c = cur[b];
-  float cd = curdist[b];
+  float cd = (QUANT && score_cur) ? hs::quant_score(z, qs, ga, qnv, c)
+                                  : curdist[b];
   int hops = 0, dcomp = 0;
   bool go = active == nullptr || active[b] != 0;
   while (go) {
@@ -70,19 +88,27 @@ greedy_kernel(const float* __restrict__ vec, int D, const hs::Fetch f,
           s[g] = 0.f;
           n[g] = 0.f;
         }
+        if (!QUANT) {
 #pragma unroll
-        for (int g = 0; g < GROUP; ++g)
-          if (id[g] >= 0)  // warp-uniform: every lane holds the same id
-            hs::partial_dot(qs, vec + (size_t)id[g] * D, D, vec4, s[g], n[g]);
+          for (int g = 0; g < GROUP; ++g)
+            if (id[g] >= 0)  // warp-uniform: every lane holds the same id
+              hs::partial_dot(qs, vec + (size_t)id[g] * D, D, vec4, s[g],
+                              n[g]);
+        }
 #pragma unroll
         for (int g = 0; g < GROUP; ++g) {
           if (id[g] < 0) continue;
           ++dcomp;
           // the butterfly sum leaves the same value in every lane, so the
           // comparisons below agree across the warp
-          const float dot = hs::warp_sum(s[g]);
-          const float nrm = hs::warp_sum(n[g]);
-          const float d = metric ? 1.f - dot : (qnv + nrm) - 2.f * dot;
+          float d;
+          if (QUANT) {
+            d = hs::quant_score(z, qs, ga, qnv, id[g]);
+          } else {
+            const float dot = hs::warp_sum(s[g]);
+            const float nrm = hs::warp_sum(n[g]);
+            d = metric ? 1.f - dot : (qnv + nrm) - 2.f * dot;
+          }
           if (hs::pair_less(d, id[g], best_d, best_id)) {
             best_d = d;
             best_id = id[g];
@@ -105,6 +131,26 @@ greedy_kernel(const float* __restrict__ vec, int D, const hs::Fetch f,
   }
 }
 
+template <bool QUANT>
+int launch_greedy(const float* vec, int D, const hs::Fetch& f,
+                  const hs::Quant& z, const float* q, const float* qn,
+                  const unsigned char* active, int B, int metric,
+                  int score_cur, int* cur, float* curdist, int* hops,
+                  int* dcomp, void* stream) {
+  const int Dp = (D + 3) / 4 * 4;
+  const size_t smem = sizeof(float) * (Dp + (QUANT ? z.C : 0)) * NW;
+  cudaError_t err = cudaFuncSetAttribute(
+      greedy_kernel<QUANT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (B + NW - 1) / NW;
+  greedy_kernel<QUANT><<<grid, THREADS, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      vec, D, f, z, q, qn, active, B, metric, Dp, score_cur, cur, curdist,
+      hops, dcomp);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int hs_greedy_descent(const float* vec, int D, const int* rows,
@@ -114,14 +160,23 @@ extern "C" int hs_greedy_descent(const float* vec, int D, const int* rows,
                                  int metric, int* cur, float* curdist,
                                  int* hops, int* dcomp, void* stream) {
   const hs::Fetch f{rows, aux, mode, W, level, stride};
-  const int Dp = (D + 3) / 4 * 4;
-  const size_t smem = sizeof(float) * Dp * NW;
-  cudaError_t err = cudaFuncSetAttribute(
-      greedy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (B + NW - 1) / NW;
-  greedy_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      vec, D, f, q, qn, active, B, metric, Dp, cur, curdist, hops, dcomp);
-  return static_cast<int>(cudaGetLastError());
+  return launch_greedy<false>(vec, D, f, hs::Quant{}, q, qn, active, B,
+                              metric, 0, cur, curdist, hops, dcomp, stream);
+}
+
+// Kε on estimates: the scorer (packed rows, row stride in words, nb,
+// ex_bits, use_ex, q_rot, sumq, g_add, C) takes the place of the vectors;
+// score_cur: curdist comes in unset and starts as the estimate of cur
+extern "C" int hs_greedy_descent_quant(
+    const uint32_t* qrows, int qstride, int nb, int ex_bits, int use_ex,
+    const float* q_rot, const float* sumq, const float* g_add, int C,
+    const int* rows, const int* aux, int mode, int W, int level, int stride,
+    const unsigned char* active, int B, int score_cur, int* cur,
+    float* curdist, int* hops, int* dcomp, void* stream) {
+  const hs::Fetch f{rows, aux, mode, W, level, stride};
+  const hs::Quant z{qrows, qstride, nb, ex_bits, use_ex, q_rot, sumq, g_add,
+                    C};
+  return launch_greedy<true>(nullptr, nb * 32, f, z, nullptr, nullptr, active,
+                             B, 0, score_cur, cur, curdist, hops, dcomp,
+                             stream);
 }

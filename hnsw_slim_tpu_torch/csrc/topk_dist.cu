@@ -25,6 +25,17 @@
 // and k = seeds per segment, and a second kernel sorts each query's
 // strata * k picks by (distance, segment-major position) — JAX's stable sort
 // of the per-segment argmin picks — and maps rows to ids (inf gives -1).
+//
+// Estimate mode (EST; the seed block of the SlimQ search, JAX
+// index/slimq.py _slimq_search_jit: the 1-bit RaBitQ estimate to every
+// level>=1 node as two matmuls over unpacked bit planes and a cluster
+// one-hot, then lax.top_k): the table is the nodes' packed code rows
+// (common.cuh Quant). A 32-dim slab of a row is one u32 word, unpacked into
+// the x tile as {0, 1}, so the same micro-tiles accumulate <q_rot, bits>;
+// the epilogue forms f_add + g_add[query, cluster] + f_rescale *
+// (<q_rot, bits> - sumq / 2) from the row's own factors — always the 1-bit
+// pair — and the same running top-k takes it. Neither the unpacked planes
+// nor the [B, rows] estimates reach device memory.
 #include "common.cuh"
 
 namespace {
@@ -81,12 +92,14 @@ __device__ __forceinline__ void list_offer(float (&ld)[2], int (&li)[2],
   }
 }
 
+template <bool EST>
 __global__ void __launch_bounds__(THREADS)
 topk_scan(const float* __restrict__ q, const float* __restrict__ qn,
           const float* __restrict__ x, const float* __restrict__ xn,
-          const int* __restrict__ row_ids, int B, int N, int D, int n_valid,
-          int self_offset, int k, int metric, int rows_per_split,
-          float* __restrict__ out_d, int* __restrict__ out_i) {
+          const hs::Quant z, const int* __restrict__ row_ids, int B, int N,
+          int D, int n_valid, int self_offset, int k, int metric,
+          int rows_per_split, float* __restrict__ out_d,
+          int* __restrict__ out_i) {
   __shared__ float qs[BQ][DK + 1];
   __shared__ float xs[BN][DK + 1];
   __shared__ float dt[BQ][BN + 1];
@@ -118,7 +131,14 @@ topk_scan(const float* __restrict__ q, const float* __restrict__ qn,
       }
       for (int e = tid; e < BN * DK; e += THREADS) {
         const int a = e / DK, c = e % DK, gr = r0 + a, gc = k0 + c;
-        xs[a][c] = (gr < r_end && gc < D) ? x[(size_t)gr * D + gc] : 0.f;
+        if (EST) {  // DK = 32: this slab is word k0 / 32 of the 1-bit plane
+          const uint32_t word =
+              gr < r_end ? __ldg(z.rows + (size_t)gr * z.stride + k0 / DK)
+                         : 0u;
+          xs[a][c] = static_cast<float>((word >> c) & 1u);
+        } else {
+          xs[a][c] = (gr < r_end && gc < D) ? x[(size_t)gr * D + gc] : 0.f;
+        }
       }
       __syncthreads();
 #pragma unroll 8
@@ -142,9 +162,18 @@ topk_scan(const float* __restrict__ q, const float* __restrict__ qn,
         const bool ok = gq < B && gr < r_end && gr < n_valid &&
                         (row_ids == nullptr || row_ids[gr] >= 0) &&
                         !(self_offset >= 0 && gr == self_offset + gq);
-        if (ok)
+        if (ok && EST) {
+          const uint32_t* tail =
+              z.rows + (size_t)gr * z.stride + z.nb * (1 + z.ex_bits);
+          const float f_add = __uint_as_float(__ldg(tail));
+          const float f_rescale = __uint_as_float(__ldg(tail + 1));
+          const int cid = static_cast<int>(__ldg(tail + 4));
+          dist = (f_add + z.g_add[(size_t)gq * z.C + cid]) +
+                 f_rescale * (acc[a][j] - 0.5f * z.sumq[gq]);
+        } else if (ok) {
           dist = metric ? 1.f - acc[a][j]
                         : (qn[gq] + xn[gr]) - 2.f * acc[a][j];
+        }
         dt[ty * 2 + a][tx * 4 + j] = dist;
       }
     }
@@ -251,14 +280,15 @@ extern "C" int hs_topk_dist(const float* q, const float* qn, const float* x,
   const int per = (N + splits - 1) / splits;
   const int rows_per_split = (per + BN - 1) / BN * BN;
   const dim3 grid((B + BQ - 1) / BQ, splits);
+  const hs::Quant z{};
   if (splits == 1) {
-    topk_scan<<<grid, THREADS, 0, st>>>(q, qn, x, xn, row_ids, B, N, D,
-                                        n_valid, self_offset, k, metric,
-                                        rows_per_split, out_d, out_i);
+    topk_scan<false><<<grid, THREADS, 0, st>>>(
+        q, qn, x, xn, z, row_ids, B, N, D, n_valid, self_offset, k, metric,
+        rows_per_split, out_d, out_i);
   } else {
-    topk_scan<<<grid, THREADS, 0, st>>>(q, qn, x, xn, row_ids, B, N, D,
-                                        n_valid, self_offset, k, metric,
-                                        rows_per_split, part_d, part_i);
+    topk_scan<false><<<grid, THREADS, 0, st>>>(
+        q, qn, x, xn, z, row_ids, B, N, D, n_valid, self_offset, k, metric,
+        rows_per_split, part_d, part_i);
     topk_merge<<<(B + 7) / 8, 256, 0, st>>>(part_d, part_i, splits, B, k,
                                             out_d, out_i);
   }
@@ -275,10 +305,36 @@ extern "C" int hs_topk_strata(const float* q, const float* qn, const float* x,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((B + BQ - 1) / BQ, strata);
-  topk_scan<<<grid, THREADS, 0, st>>>(q, qn, x, xn, row_ids, B, N, D, N, -1,
-                                      sps, metric, N / strata, part_d, part_i);
+  topk_scan<false><<<grid, THREADS, 0, st>>>(q, qn, x, xn, hs::Quant{},
+                                             row_ids, B, N, D, N, -1, sps,
+                                             metric, N / strata, part_d,
+                                             part_i);
   strata_sort<<<B, 256, 0, st>>>(part_d, part_i, row_ids, strata, B, sps,
                                  out_d, out_id);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kα in estimate mode: top-k rows of the packed table (N rows; scorer
+// arguments as in hs_greedy_descent_quant) by 1-bit estimate, rows whose
+// row_ids entry is negative masked
+extern "C" int hs_topk_estimate(const uint32_t* qrows, int qstride, int nb,
+                                int ex_bits, const float* q_rot,
+                                const float* sumq, const float* g_add, int C,
+                                const int* row_ids, int B, int N, int k,
+                                int splits, float* part_d, int* part_i,
+                                float* out_d, int* out_i, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const hs::Quant z{qrows, qstride, nb, ex_bits, 0, q_rot, sumq, g_add, C};
+  const int per = (N + splits - 1) / splits;
+  const int rows_per_split = (per + BN - 1) / BN * BN;
+  const dim3 grid((B + BQ - 1) / BQ, splits);
+  topk_scan<true><<<grid, THREADS, 0, st>>>(
+      q_rot, nullptr, nullptr, nullptr, z, row_ids, B, N, nb * 32, N, -1, k,
+      0, rows_per_split, splits == 1 ? out_d : part_d,
+      splits == 1 ? out_i : part_i);
+  if (splits > 1)
+    topk_merge<<<(B + 7) / 8, 256, 0, st>>>(part_d, part_i, splits, B, k,
+                                            out_d, out_i);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -43,11 +43,25 @@ call: every call starts with all entries unchecked, which is what JAX does
 between levels. A row that should not beam enters with an empty buffer (id
 -1), leaves at once, and gets its carried buffer back.
 
+Beside the Fetch, both kernels take a scorer description and Kβ a pop track,
+the port's forms of JAX's ``score`` closure and ``pop_hook``:
+
+* ``scorer`` (quant/estimator.py ``QuantScorer``): candidates are scored by
+  their RaBitQ estimate from one packed code row instead of the exact
+  distance to a gathered vector (SlimQ); ``vectors``, ``q`` and ``qn`` are
+  then unused (None);
+* ``pop_track`` (``PopTrack``, quantized beams only): every iteration's
+  popped ids get their exact distance to an external dataset and enter a
+  sorted list of kk (distance, id) — pops already in it dropped, then a
+  stable merge by distance alone (track entries first on equal distance,
+  pops in pop order). The track comes in and goes out whole, so a caller
+  carries it across levels. Its distances are not counted in ``dcomp``.
+
 Not ported: straggler compaction (``beam_staged_scored``, ``stages``) exists
 in the JAX package only for lockstep batching and leaves per-query results
 unchanged, and the kernels run each query on its own; ``dynamic_ef`` /
 ``ef_max`` (one compiled program for every ef) has no counterpart without a
-compiler; ``pop_hook`` belongs to SlimQ.
+compiler.
 """
 
 from __future__ import annotations
@@ -59,6 +73,7 @@ import torch
 from ..index.bruteforce import topk_dist, topk_dist_strata
 from ..ops import cuda
 from ..ops.distance import gathered_dist, sq_norms
+from ..quant.estimator import QuantScorer, packed_estimate_plain
 
 INF = float("inf")
 BIG = 2**30
@@ -81,6 +96,48 @@ class Fetch(NamedTuple):
     aux: torch.Tensor | None
     width: int
     level: int = 0
+
+
+class PopTrack(NamedTuple):
+    """The rerank track of a quantized beam: ``dataset`` f32[N, D] raw
+    vectors, ``q_raw`` f32[B, D], ``qn_raw`` f32[B] squared norms (None for
+    the IP metric), and the track so far (``d`` f32[B, kk] ascending, ``ids``
+    i32[B, kk], inf / -1 padded)."""
+
+    dataset: torch.Tensor
+    q_raw: torch.Tensor
+    qn_raw: torch.Tensor | None
+    d: torch.Tensor
+    ids: torch.Tensor
+
+
+def pop_track_init(dataset, q_raw, kk: int, metric: str = "l2") -> PopTrack:
+    """An empty track of kk entries for raw queries ``q_raw``."""
+    b = q_raw.shape[0]
+    return PopTrack(
+        dataset, q_raw, sq_norms(q_raw) if metric == "l2" else None,
+        torch.full((b, kk), INF, device=q_raw.device),
+        torch.full((b, kk), -1, dtype=torch.int32, device=q_raw.device))
+
+
+def pop_track_merge_plain(t: PopTrack, pops, metric: str) -> PopTrack:
+    """Plain PyTorch rerank step: popped ids i32[B, E] (-1 = no pop) into
+    the track, as the JAX pop_hook does it."""
+    ok = pops >= 0
+    vecs = t.dataset[pops.clamp(min=0).long()]
+    dot = torch.einsum("bd,bed->be", t.q_raw, vecs)
+    if metric == "ip":
+        ed = 1.0 - dot
+    else:
+        ed = t.qn_raw[:, None] + (vecs * vecs).sum(-1) - 2.0 * dot
+    dup = (pops[:, :, None] == t.ids[:, None, :]).any(dim=2)
+    keep = ok & ~dup
+    cd = torch.cat([t.d, torch.where(keep, ed, INF)], dim=1)
+    ci = torch.cat([t.ids, torch.where(keep, pops, -1)], dim=1)
+    sd, order = torch.sort(cd, dim=1, stable=True)
+    kk = t.d.shape[1]
+    return t._replace(d=sd[:, :kk],
+                      ids=torch.gather(ci, 1, order[:, :kk]).contiguous())
 
 
 def dense_fetch(rows) -> Fetch:
@@ -164,14 +221,16 @@ def cand_width(P: int, pop_width: int, W: int, scan_width: int) -> int:
 def beam_search_plain(vectors, q, qn, rows, seed_d, seed_id, *, P: int,
                       ef_eff: int, pop_width: int, cw: int, max_iters: int,
                       k: int, metric: str = "l2", allowed=None, track_d=None,
-                      track_id=None):
+                      track_id=None, scorer: QuantScorer | None = None,
+                      pop_track: PopTrack | None = None):
     """Plain PyTorch Kβ: the JAX lockstep batched beam, step for step.
     ``rows`` is a Fetch or dense rows. Returns (d f32[B, k], ids i32[B, k],
     hops i32[B], dcomp i32[B]); with ``allowed`` (bool[N]) and the incoming
-    track (f32/i32[B, P]) two more: the track after the beam."""
+    track (f32/i32[B, P]) two more: the track after the beam; with
+    ``pop_track`` one more: the PopTrack after the beam."""
     fetch = as_fetch(rows)
     b, S = seed_d.shape
-    dev = q.device
+    dev = seed_d.device
     E, W = pop_width, fetch.width
     ew = E * W
     buf_d = torch.full((b, P), INF, device=dev)
@@ -199,6 +258,8 @@ def beam_search_plain(vectors, q, qn, rows, seed_d, seed_id, *, P: int,
         sk, order = torch.sort(popkey, dim=1, stable=True)
         sv = torch.gather(buf_id, 1, order)
         pops = torch.where(sk[:, :E] < BIG, sv[:, :E], -1)
+        if pop_track is not None:
+            pop_track = pop_track_merge_plain(pop_track, pops, metric)
         fetched = fetch_rows_plain(fetch, pops.clamp(min=0).reshape(b * E))
         ids = torch.where(pops[:, :, None] >= 0, fetched.reshape(b, E, W),
                           -1).reshape(b, ew)
@@ -223,8 +284,11 @@ def beam_search_plain(vectors, q, qn, rows, seed_d, seed_id, *, P: int,
             cand_sorted = cand_sorted[:, :cw]
         cand = cand_sorted < BIG
         safe = torch.where(cand, cand_sorted, 0)
-        d = torch.where(cand, gathered_dist(q, vectors[safe], metric, qn=qn),
-                        INF)
+        if scorer is not None:
+            d = packed_estimate_plain(scorer, safe)
+        else:
+            d = gathered_dist(q, vectors[safe], metric, qn=qn)
+        d = torch.where(cand, d, INF)
         hops += selmask.sum(dim=1, dtype=torch.int32)
         dcomp += cand.sum(dim=1, dtype=torch.int32)
         if allowed is not None:
@@ -248,31 +312,38 @@ def beam_search_plain(vectors, q, qn, rows, seed_d, seed_id, *, P: int,
     out = (buf_d[:, :k], buf_id[:, :k], hops, dcomp)
     if allowed is not None:
         out += (track_d, track_id)
+    if pop_track is not None:
+        out += (pop_track,)
     return out
 
 
 def beam_search(vectors, q, qn, rows, seed_d, seed_id, *, P: int,
                 ef_eff: int, pop_width: int, cw: int, max_iters: int, k: int,
                 metric: str = "l2", allowed=None, track_d=None,
-                track_id=None):
+                track_id=None, scorer: QuantScorer | None = None,
+                pop_track: PopTrack | None = None):
     """Kβ: one level's beam, one CUDA block per query (csrc/beam_search.cu),
-    over a Fetch (or dense rows), filtered when ``allowed`` is given. CPU
-    tensors run ``beam_search_plain``. Same arguments and results."""
-    if not q.is_cuda:
+    over a Fetch (or dense rows), filtered when ``allowed`` is given, on
+    RaBitQ estimates when ``scorer`` is given, with the rerank track when
+    ``pop_track`` is. CPU tensors run ``beam_search_plain``. Same arguments
+    and results."""
+    if not seed_d.is_cuda:
         return beam_search_plain(
             vectors, q, qn, rows, seed_d, seed_id, P=P, ef_eff=ef_eff,
             pop_width=pop_width, cw=cw, max_iters=max_iters, k=k,
             metric=metric, allowed=allowed, track_d=track_d,
-            track_id=track_id)
+            track_id=track_id, scorer=scorer, pop_track=pop_track)
     fetch = as_fetch(rows)
-    b, d = q.shape
-    S = seed_d.shape[1]
+    b, S = seed_d.shape
     W = fetch.width
-    if not (1 <= k <= P <= 512 and 1 <= ef_eff <= P and S <= P):
-        raise ValueError(f"beam_search: need k <= P <= 512, ef_eff <= P, "
-                         f"seeds <= P (k={k}, P={P}, ef_eff={ef_eff}, S={S})")
-    if not (1 <= pop_width <= 64 and pop_width * W <= 4096 and cw >= 1):
-        raise ValueError(f"beam_search: pop_width={pop_width}, W={W}, cw={cw}")
+    if scorer is not None:
+        return _beam_search_quant(fetch, scorer, pop_track, seed_d, seed_id,
+                                  P, ef_eff, pop_width, cw, max_iters, k,
+                                  metric, allowed)
+    if pop_track is not None:
+        raise ValueError("beam_search: a pop track needs a quantized scorer")
+    d = q.shape[1]
+    _check_beam_shape(k, P, ef_eff, S, pop_width, W, cw)
     cuda.require(vectors, torch.float32, "vectors", (-1, d))
     cuda.require(q, torch.float32, "q", (b, d))
     cuda.require(qn, torch.float32, "qn", (b,))
@@ -308,16 +379,80 @@ def beam_search(vectors, q, qn, rows, seed_d, seed_id, *, P: int,
     return out_d, out_i, hops, dcomp
 
 
+def _check_beam_shape(k, P, ef_eff, S, pop_width, W, cw):
+    if not (1 <= k <= P <= 512 and 1 <= ef_eff <= P and S <= P):
+        raise ValueError(f"beam_search: need k <= P <= 512, ef_eff <= P, "
+                         f"seeds <= P (k={k}, P={P}, ef_eff={ef_eff}, S={S})")
+    if not (1 <= pop_width <= 64 and pop_width * W <= 4096 and cw >= 1):
+        raise ValueError(f"beam_search: pop_width={pop_width}, W={W}, cw={cw}")
+
+
+def _beam_search_quant(fetch, scorer, pop_track, seed_d, seed_id, P, ef_eff,
+                       pop_width, cw, max_iters, k, metric, allowed):
+    """Kβ's quantized mode on CUDA tensors (see beam_search)."""
+    if allowed is not None:
+        raise NotImplementedError("beam_search: no filtered quantized beam")
+    b, S = seed_d.shape
+    _check_beam_shape(k, P, ef_eff, S, pop_width, fetch.width, cw)
+    sargs = scorer.args()
+    if scorer.q_rot.shape[0] != b:
+        raise ValueError("beam_search: scorer and seeds disagree on the batch")
+    fargs = _fetch_args(fetch)
+    cuda.require(seed_d, torch.float32, "seed_d", (b, S))
+    cuda.require(seed_id, torch.int32, "seed_id", (b, S))
+    dev = seed_d.device
+    out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    hops = torch.empty((b,), dtype=torch.int32, device=dev)
+    dcomp = torch.empty((b,), dtype=torch.int32, device=dev)
+    modes = () if fetch.mode == "dense" else (fetch.mode,)
+    modes += ("quant_ex" if scorer.use_ex else "quant",)
+    targs = (None, 0, None, None, 0, None, None)
+    touts = (None, None)
+    new_track = None
+    if pop_track is not None:
+        t = pop_track
+        dr = t.q_raw.shape[1]
+        kk = t.d.shape[1]
+        cuda.require(t.dataset, torch.float32, "dataset", (-1, dr))
+        cuda.require(t.q_raw, torch.float32, "q_raw", (b, dr))
+        if metric == "l2":
+            cuda.require(t.qn_raw, torch.float32, "qn_raw", (b,))
+        cuda.require(t.d, torch.float32, "track d", (b, kk))
+        cuda.require(t.ids, torch.int32, "track ids", (b, kk))
+        new_track = t._replace(d=torch.empty_like(t.d),
+                               ids=torch.empty_like(t.ids))
+        targs = (t.dataset.data_ptr(), dr, t.q_raw.data_ptr(),
+                 t.qn_raw.data_ptr() if metric == "l2" else None, kk,
+                 t.d.data_ptr(), t.ids.data_ptr())
+        touts = (new_track.d.data_ptr(), new_track.ids.data_ptr())
+        modes += ("rerank",)
+    if b:
+        cuda.launch(
+            "beam_search", *sargs, *fargs, seed_d.data_ptr(),
+            seed_id.data_ptr(), b, S, P, ef_eff, pop_width, cw, max_iters, k,
+            int(metric == "ip"), *targs, out_d.data_ptr(), out_i.data_ptr(),
+            hops.data_ptr(), dcomp.data_ptr(), *touts,
+            entry="beam_search_quant", modes=modes)
+    out = (out_d, out_i, hops, dcomp)
+    return out if pop_track is None else out + (new_track,)
+
+
 def greedy_descent_plain(vectors, q, qn, rows, cur, curdist, active=None,
-                         metric: str = "l2"):
+                         metric: str = "l2",
+                         scorer: QuantScorer | None = None):
     """Plain PyTorch Kε: JAX ``greedy_level`` step for step (the batch moves
-    in lockstep while any query still improves), over a Fetch or dense rows.
-    Returns (cur i32[B], curdist f32[B], hops i32[B] rows fetched, dcomp
-    i32[B] distances)."""
+    in lockstep while any query still improves), over a Fetch or dense rows,
+    on RaBitQ estimates when ``scorer`` is given (``vectors``, ``q``, ``qn``
+    unused; ``curdist`` None: each query starts from the estimate of its
+    ``cur``). Returns (cur i32[B], curdist f32[B], hops i32[B] rows fetched,
+    dcomp i32[B] distances)."""
     fetch = as_fetch(rows)
-    b = q.shape[0]
-    dev = q.device
+    b = cur.shape[0]
+    dev = cur.device
     cur = cur.to(torch.int32).clone()
+    if curdist is None:
+        curdist = packed_estimate_plain(scorer, cur[:, None])[:, 0]
     curdist = curdist.clone()
     changed = (torch.ones(b, dtype=torch.bool, device=dev) if active is None
                else active.clone())
@@ -327,8 +462,11 @@ def greedy_descent_plain(vectors, q, qn, rows, cur, curdist, active=None,
         ids = fetch_rows_plain(fetch, cur)
         valid = (ids >= 0) & changed[:, None]
         safe = ids.clamp(min=0)
-        d = torch.where(valid, gathered_dist(q, vectors[safe.long()], metric,
-                                             qn=qn), INF)
+        if scorer is not None:
+            d = packed_estimate_plain(scorer, safe)
+        else:
+            d = gathered_dist(q, vectors[safe.long()], metric, qn=qn)
+        d = torch.where(valid, d, INF)
         dmin = d.min(dim=1).values
         # smallest id among the lanes at the minimum distance
         best = torch.where(d == dmin[:, None], safe, BIG).min(dim=1).values
@@ -342,19 +480,33 @@ def greedy_descent_plain(vectors, q, qn, rows, cur, curdist, active=None,
 
 
 def greedy_descent(vectors, q, qn, rows, cur, curdist, active=None,
-                   metric: str = "l2"):
+                   metric: str = "l2", scorer: QuantScorer | None = None):
     """Kε: one level of greedy descent over a Fetch (or dense rows
-    i32[N, W]), one warp per query (csrc/greedy_descent.cu). ``active``
-    bool[B] (None = all): inactive queries keep (cur, curdist). CPU tensors
-    run ``greedy_descent_plain``. Same arguments and results."""
-    if not q.is_cuda:
+    i32[N, W]), one warp per query (csrc/greedy_descent.cu), on RaBitQ
+    estimates when ``scorer`` is given. ``active`` bool[B] (None = all):
+    inactive queries keep (cur, curdist). With a scorer, ``curdist`` None
+    lets the kernel score each query's ``cur`` itself before it descends
+    (the SlimQ search's entry point; with no query active that is all the
+    launch does). CPU tensors run ``greedy_descent_plain``. Same arguments
+    and results."""
+    if not cur.is_cuda:
         return greedy_descent_plain(vectors, q, qn, rows, cur, curdist,
-                                    active, metric)
+                                    active, metric, scorer)
     fetch = as_fetch(rows)
-    b, d = q.shape
-    cuda.require(vectors, torch.float32, "vectors", (-1, d))
-    cuda.require(q, torch.float32, "q", (b, d))
-    cuda.require(qn, torch.float32, "qn", (b,))
+    b = cur.shape[0]
+    if scorer is None:
+        d = q.shape[1]
+        cuda.require(vectors, torch.float32, "vectors", (-1, d))
+        cuda.require(q, torch.float32, "q", (b, d))
+        cuda.require(qn, torch.float32, "qn", (b,))
+    elif scorer.q_rot.shape[0] != b:
+        raise ValueError("greedy_descent: scorer and cur disagree on the "
+                         "batch")
+    score_cur = curdist is None
+    if score_cur:
+        if scorer is None:
+            raise ValueError("greedy_descent: curdist=None needs a scorer")
+        curdist = torch.empty((b,), dtype=torch.float32, device=cur.device)
     fargs = _fetch_args(fetch)
     if active is not None:
         cuda.require(active, torch.bool, "active", (b,))
@@ -362,15 +514,22 @@ def greedy_descent(vectors, q, qn, rows, cur, curdist, active=None,
     curdist = curdist.to(torch.float32).contiguous().clone()
     cuda.require(cur, torch.int32, "cur", (b,))
     cuda.require(curdist, torch.float32, "curdist", (b,))
-    hops = torch.zeros((b,), dtype=torch.int32, device=q.device)
-    dcomp = torch.zeros((b,), dtype=torch.int32, device=q.device)
-    if b:
+    hops = torch.zeros((b,), dtype=torch.int32, device=cur.device)
+    dcomp = torch.zeros((b,), dtype=torch.int32, device=cur.device)
+    modes = () if fetch.mode == "dense" else (fetch.mode,)
+    if b and scorer is not None:
+        cuda.launch(
+            "greedy_descent", *scorer.args(), *fargs,
+            None if active is None else active.data_ptr(), b, int(score_cur),
+            cur.data_ptr(), curdist.data_ptr(), hops.data_ptr(),
+            dcomp.data_ptr(), entry="greedy_descent_quant",
+            modes=modes + ("quant",))
+    elif b:
         cuda.launch(
             "greedy_descent", vectors.data_ptr(), d, *fargs, q.data_ptr(),
             qn.data_ptr(), None if active is None else active.data_ptr(), b,
             int(metric == "ip"), cur.data_ptr(), curdist.data_ptr(),
-            hops.data_ptr(), dcomp.data_ptr(),
-            modes=() if fetch.mode == "dense" else (fetch.mode,),
+            hops.data_ptr(), dcomp.data_ptr(), modes=modes,
         )
     return cur, curdist, hops, dcomp
 

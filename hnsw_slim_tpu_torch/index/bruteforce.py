@@ -6,7 +6,9 @@ running ``lax.top_k``), the exact seed block of ``chal_search`` and the
 subset kNN of the NND build. Results are ordered by (distance, position):
 equal distances put the lower row first, as ``lax.top_k`` does.
 ``topk_dist_strata`` is its stratified form, the seed block of
-``chal_search`` with ``seed_strata`` > 1.
+``chal_search`` with ``seed_strata`` > 1. ``topk_estimate`` is its estimate
+mode, the seed block of the SlimQ search: the same scan and running top-k
+over the 1-bit RaBitQ estimates of a table of packed code rows.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from ..ops import cuda
 from ..ops.distance import pairwise_dist, sq_norms
+from ..quant.estimator import QuantScorer, unpack_bits, unpack_fields
 
 INF = float("inf")
 
@@ -170,6 +173,57 @@ def topk_dist_strata(q, x, xn, row_ids, seed_width: int, strata: int,
         part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
         out_i.data_ptr(), entry="topk_strata", modes=("strata",),
     )
+    return out_d, out_i
+
+
+def topk_estimate_plain(sc: QuantScorer, row_ids, k: int):
+    """Plain PyTorch Kα in estimate mode: (est f32[B, k], pos i32[B, k]),
+    the k table rows (``sc.rows``, packed code rows) with the smallest 1-bit
+    estimate f_add + g_add[query, cluster] + f_rescale * (<q_rot, bits> -
+    sumq / 2) — always the 1-bit factors, whatever ``sc.use_ex`` — lower row
+    first on equal estimates; rows whose ``row_ids`` entry is negative are
+    masked. Missing results are (inf, -1)."""
+    bc, _, fa, fr, _, _, cid = unpack_fields(sc.rows, sc.nb, sc.ex_bits)
+    ip = sc.q_rot @ unpack_bits(bc).T
+    est = fa[None, :] + sc.g_add[:, cid.long()] + fr[None, :] * (
+        ip - 0.5 * sc.sumq[:, None])
+    est = torch.where((row_ids >= 0)[None, :], est, INF)
+    sd, order = torch.sort(est, dim=1, stable=True)
+    k_have = min(k, est.shape[1])
+    out_d = torch.full((est.shape[0], k), INF, device=est.device)
+    out_i = torch.full((est.shape[0], k), -1, dtype=torch.int32,
+                       device=est.device)
+    out_d[:, :k_have] = sd[:, :k_have]
+    out_i[:, :k_have] = order[:, :k_have].to(torch.int32)
+    return out_d, torch.where(torch.isinf(out_d), -1, out_i)
+
+
+def topk_estimate(sc: QuantScorer, row_ids, k: int):
+    """Kα in estimate mode (see topk_estimate_plain): CUDA tensors run the
+    kernel (csrc/topk_dist.cu), CPU tensors the plain version. Neither the
+    unpacked bit planes nor the [B, rows] estimates are materialised on the
+    card."""
+    if not sc.q_rot.is_cuda:
+        return topk_estimate_plain(sc, row_ids, k)
+    b = sc.q_rot.shape[0]
+    n = sc.rows.shape[0]
+    if not 1 <= k <= 64:
+        raise ValueError(f"topk_estimate: k={k} outside [1, 64]")
+    sargs = sc.args()
+    cuda.require(row_ids, torch.int32, "row_ids", (n,))
+    dev = sc.q_rot.device
+    out_d = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    if b == 0:
+        return out_d, out_i
+    splits = _splits(
+        b, n, torch.cuda.get_device_properties(dev).multi_processor_count)
+    part_d = torch.empty((splits, b, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((splits, b, k), dtype=torch.int32, device=dev)
+    cuda.launch(
+        "topk_dist", *sargs[:4], *sargs[5:], row_ids.data_ptr(), b, n, k,
+        splits, part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
+        out_i.data_ptr(), entry="topk_estimate", modes=("estimate",))
     return out_d, out_i
 
 

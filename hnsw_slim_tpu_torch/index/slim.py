@@ -347,16 +347,26 @@ def autotune_index(idx, ef: int, k: int = 10, sample: int = 256,
         return cache[key]
     g = idx.graph
     n = g.n
+    vecs = getattr(idx, "vectors", None)
+    if vecs is not None:
+        vnv = idx.vn
+    else:
+        # SlimQ stores no raw vectors: probes and ground truth come from
+        # the external rerank dataset
+        if idx._dataset_dev is None:
+            idx._dataset_dev = idx._dev(np.asarray(idx.dataset, np.float32))
+        vecs = idx._dataset_dev
+        vnv = sq_norms(vecs)
     if queries is None:
         # deterministic near-manifold probes: blend pairs of stored rows
         idx_a = (np.arange(sample, dtype=np.int64) * 2654435761) % n
         idx_b = (idx_a * 40503 + 12345) % n
-        va = idx.vectors[idx._dev(idx_a)].cpu().numpy()
-        vb = idx.vectors[idx._dev(idx_b)].cpu().numpy()
+        va = vecs[idx._dev(idx_a)].cpu().numpy()
+        vb = vecs[idx._dev(idx_b)].cpu().numpy()
         queries = (0.85 * va + 0.15 * vb).astype(np.float32)
     queries = np.asarray(queries, np.float32)
     if gt is None:
-        _, gt = exact_topk(idx.vectors, idx.vn, idx._dev(queries), k=k,
+        _, gt = exact_topk(vecs, vnv, idx._dev(queries), k=k,
                            metric=idx.metric, n_valid=n)
         gt = gt.cpu().numpy()
     gt = np.asarray(gt)

@@ -11,9 +11,10 @@ edited kernel is rebuilt rather than reloaded stale.
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 ``check`` raises on a non-zero code. ``launches`` counts, per kernel, the
 wrapper calls that launched it, and per kernel mode (``kernel.mode``: a fetch
-form, the filtered beam, stratified seeds, the guarded prune) the launches
-made in that mode: ``reset_launches`` before a run and read the counts after
-it to show which kernels and modes the run went through.
+form, the filtered beam, stratified seeds, the guarded prune, the quantized
+scorers and the rerank track of SlimQ) the launches made in that mode:
+``reset_launches`` before a run and read the counts after it to show which
+kernels and modes the run went through.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("topk_dist.cu", "beam_search.cu", "rng_prune.cu", "cand_merge.cu",
-           "greedy_descent.cu", "rev_connect.cu")
+           "greedy_descent.cu", "rev_connect.cu", "fht_rotate.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -40,13 +41,19 @@ NVCC_FLAGS = (
 )
 
 KERNELS = ("topk_dist", "beam_search", "rng_prune", "cand_merge",
-           "greedy_descent", "rev_connect")
+           "greedy_descent", "rev_connect", "fht_rotate")
 MODES = ("topk_dist.strata", "beam_search.chal", "beam_search.rank",
          "beam_search.filtered", "greedy_descent.chal", "greedy_descent.rank",
-         "rng_prune.guarded")
+         "rng_prune.guarded", "topk_dist.estimate", "beam_search.quant",
+         "beam_search.quant_ex", "beam_search.rerank", "greedy_descent.quant",
+         "fht_rotate.g_tables")
 launches = dict.fromkeys(KERNELS + MODES, 0)
 
-P, I32 = ctypes.c_void_p, ctypes.c_int
+P, I32, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the quantized scorer (quant/estimator.py QuantScorer.args): packed rows,
+# row stride in words, nb, ex_bits, use_ex, q_rot, sumq, g_add, C
+_SCORER = [P, I32, I32, I32, I32, P, P, P, I32]
+_FETCH = [P, P, I32, I32, I32, I32]  # rows, aux, mode, W, level, stride
 
 # C signatures: every function returns a cudaError_t as int
 _SIGNATURES = {
@@ -78,6 +85,23 @@ _SIGNATURES = {
     # B, metric, cur, curdist, hops, dcomp, stream
     "hs_greedy_descent": [P, I32, P, P, I32, I32, I32, I32, P, P, P, I32,
                           I32, P, P, P, P, P],
+    # x, signs, fac, B, D, P, out, stream
+    "hs_fht_rotate": [P, P, F32, I32, I32, I32, P, P],
+    # q_rot, centroids_rot, B, C, P, metric, sumq, g_add, stream
+    "hs_g_tables": [P, P, I32, I32, I32, I32, P, P, P],
+    # scorer, fetch, seed_d, seed_id, B, S, P, ef_eff, E, cw, max_iters, k,
+    # metric, dataset, Dr, q_raw, qn_raw, kk, track d in, track id in, out_d,
+    # out_id, hops, dcomp, track d out, track id out, stream
+    "hs_beam_search_quant": _SCORER + _FETCH + [
+        P, P, I32, I32, I32, I32, I32, I32, I32, I32, I32, P, I32, P, P, I32,
+        P, P, P, P, P, P, P, P, P],
+    # scorer, fetch, active, B, score_cur, cur, curdist, hops, dcomp, stream
+    "hs_greedy_descent_quant": _SCORER + _FETCH + [P, I32, I32, P, P, P, P,
+                                                   P],
+    # packed table rows, stride, nb, ex_bits, q_rot, sumq, g_add, C, row_ids,
+    # B, N, k, splits, part_d, part_i, out_d, out_i, stream
+    "hs_topk_estimate": [P, I32, I32, I32, P, P, P, I32, P, I32, I32, I32,
+                         I32, P, P, P, P, P],
     # us, ps, E, adj, deg, cap, ovf, stream
     "hs_rev_append": [P, P, I32, P, P, I32, P, P],
     # adj, cap, of_u, of_p, E, ut, T, new_w, base, ocand, stream

@@ -78,6 +78,58 @@ def load_slim(path: str | Path, search_cfg: SearchConfig | None = None,
     return idx
 
 
+def save_slimq(path: str | Path, index) -> None:
+    """Save an HnswSlimQIndex: graph, quantized payload, the rotator's flip
+    bits and the rotated centroids; no raw vectors — the dataset stays
+    external. Code words are written as u32, as the JAX package writes
+    them."""
+    g = index.graph
+    c = index.codes
+    meta = dict(
+        version=FORMAT_VERSION,
+        kind="HnswSlimQIndex",
+        metric=index.metric,
+        max_level=g.max_level,
+        threshold_level=g.threshold_level,
+        cap0=g.cap0,
+        cap=g.cap,
+        entry=int(g.entry),
+        ex_bits=c.ex_bits,
+        dim=index.rotator.dim,
+    )
+    np.savez(
+        path,
+        meta=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8),
+        nbr=g.nbr.cpu().numpy(),
+        lvl_off=g.lvl_off[: g.n].cpu().numpy(),
+        level=g.level[: g.n].cpu().numpy(),
+        **c.to_numpy(),
+        cluster_ids=index.cluster_ids.cpu().numpy(),
+        centroids_rot=index.centroids_rot.cpu().numpy(),
+        flip_bits=index.rotator.state(),
+    )
+
+
+def load_slimq(path: str | Path, search_cfg: SearchConfig | None = None,
+               device=None):
+    """Load an HnswSlimQIndex onto ``device``; the rerank dataset is not in
+    the file (``set_dataset``)."""
+    from ..index.slimq import HnswSlimQIndex
+    from ..quant.rabitq import FIELDS
+
+    with np.load(path) as z:
+        meta = _meta(z)
+        return HnswSlimQIndex.from_numpy(
+            nbr=z["nbr"], lvl_off=z["lvl_off"], level=z["level"],
+            entry=meta["entry"], max_level=meta["max_level"],
+            threshold_level=meta["threshold_level"], cap0=meta["cap0"],
+            cap=meta["cap"], codes={f: z[f] for f in FIELDS},
+            ex_bits=meta["ex_bits"], cluster_ids=z["cluster_ids"],
+            centroids_rot=z["centroids_rot"], flip_bits=z["flip_bits"],
+            dim=meta["dim"], metric=meta["metric"], search_cfg=search_cfg,
+            device=device)
+
+
 def load_hnsw(path: str | Path, device=None):
     """Load a vanilla HnswIndex (the build side's LevelGraph) onto ``device``."""
     from ..index.hnsw import HnswIndex

@@ -1,13 +1,15 @@
-"""The port's CUDA kernels (Kα–Kζ, and their fetch-form, filtered, strata
-and guarded modes) against their plain PyTorch versions on the card. Marked ``cuda``; each test skips when no CUDA device is present.
+"""The port's CUDA kernels (Kα–Kη, and their fetch-form, filtered, strata,
+guarded, quantized-scorer and rerank-track modes) against their plain
+PyTorch versions on the card. Marked ``cuda``; each test skips when no CUDA device is present.
 The machine with the card has no JAX, so run these without the suite's
 conftest (which imports JAX):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: ids equal on >= 99% of rows/slots (near-ties in fp32 summation
-order may reorder), distances within 1e-4 * (1 + |d|); Kζ moves integers
-only and must be exactly equal.
+order may reorder), distances and estimates within 1e-4 * (1 + |d|); Kζ
+moves integers only and Kη adds in the plain version's order: both must be
+exactly equal.
 """
 
 import numpy as np
@@ -415,3 +417,224 @@ def test_query_surface_on_card(data, slim_index):
     z.densify_level0()
     _, zi = z.search(qs, 10)
     assert ((zi >= 0) & (zi < len(x))).all()
+
+
+# ---- SlimQ: the rotator, the quantized scorers, the rerank track
+
+
+def test_fht_rotate_kernel_matches_plain(data):
+    """Kη vs its plain version at dim 128 and at a padded dim (100 -> 128):
+    bit-equal (same butterfly order, one rounded operation per element and
+    stage); the g_add table and sumq within 1e-5 * (1 + |v|)."""
+    from hnsw_slim_tpu_torch.quant import rotator as rt
+
+    x, _, q = data
+    for dim in (128, 100):
+        rot = rt.FhtKacRotator(dim, seed=3, device="cuda")
+        xs = x[:4099, :dim].contiguous()
+        got = rt.fht_rotate(xs, rot.signs, rot.fac)
+        want = rt._rotate(torch.nn.functional.pad(xs, (0, 128 - dim)),
+                          rot.signs, rot.fac)
+        assert got.shape == want.shape == (4099, 128)
+        assert torch.equal(got, want)
+    q_rot = rot.rotate(q[:, :100])
+    cent = rot.rotate(x[:16, :100])
+    for metric in ("l2", "ip"):
+        ks, kg = rt.g_tables(q_rot, cent, metric)
+        ps, pg = rt.g_tables_plain(q_rot, cent, metric)
+        assert ((ks - ps).abs() <= 1e-5 * (1 + ps.abs())).all()
+        assert ((kg - pg).abs() <= 1e-5 * (1 + pg.abs())).all()
+
+
+def test_kmeans_assign_on_card(data):
+    """K18 on Kα (k = 1, a 16-row table): equal to the plain version on
+    >= 0.999 of rows."""
+    from hnsw_slim_tpu_torch.index import bruteforce as bf
+    from hnsw_slim_tpu_torch.quant import kmeans as km
+
+    x, _, _ = data
+    cent = x[::1250].contiguous()
+    assert cent.shape[0] == 16
+    got = km._assign(x, cent)
+    want = bf.topk_dist_plain(x, cent, (cent * cent).sum(1), 1)[1][:, 0]
+    assert (got == want.long()).float().mean() >= 0.999
+
+
+@pytest.fixture(scope="module")
+def slimq_index(data):
+    """A SlimQ index of the 20k vectors built on the card (4 bits) with both
+    dense layouts, and the launches its build made."""
+    from hnsw_slim_tpu_torch.config import HnswConfig, QuantConfig
+    from hnsw_slim_tpu_torch.index.slimq import HnswSlimQIndex
+    from hnsw_slim_tpu_torch.ops import cuda
+
+    x, _, _ = data
+    cuda.reset_launches()
+    idx = HnswSlimQIndex.build(
+        x.cpu().numpy(), hnsw_cfg=HnswConfig(M=16, ef_construction=64),
+        quant_cfg=QuantConfig(total_bits=4), device="cuda")
+    launched = dict(cuda.launches)
+    idx.densify_level0()
+    idx.densify_upper()
+    return idx, launched
+
+
+def _scorer(idx, q, use_ex):
+    from hnsw_slim_tpu_torch.quant.estimator import QuantScorer
+    from hnsw_slim_tpu_torch.quant.rotator import g_tables
+
+    q_rot = idx.rotator.rotate(q)
+    sumq, g_add = g_tables(q_rot, idx.centroids_rot)
+    c = idx.codes
+    return QuantScorer(idx._packed_rows(), int(c.bin_code.shape[1]),
+                       int(c.ex_bits), use_ex, q_rot, sumq, g_add)
+
+
+def _est_close(a, b):
+    return bool(((a - b).abs() <= 1e-4 * (1 + b.abs())).all())
+
+
+def test_slimq_build_on_card(data, slimq_index):
+    """The build goes through Kη and K18's Kα; codes equal the host
+    quantizer's on the kernel-rotated rows."""
+    idx, launched = slimq_index
+    x, _, _ = data
+    assert launched["fht_rotate"] > 0 and launched["topk_dist"] > 0
+    assert idx.index_size() < 0.35 * x.numel() * 4
+    assert set(idx.build_stats) == {"hnsw_s", "convert_s", "kmeans_s",
+                                    "rotate_s", "quantize_s"}
+
+
+@pytest.mark.parametrize("use_ex", [False, True])
+def test_quant_estimate_kernels_match_plain(data, slimq_index, use_ex):
+    """The scorer in Kε (greedy descent on estimates over rank and CHAL
+    rows, the kernel scoring the entry point itself; with no query active
+    the entry's estimate alone) and in Kα's estimate mode, each against its
+    plain version."""
+    from hnsw_slim_tpu_torch.graph import search as gs
+    from hnsw_slim_tpu_torch.index import bruteforce as bf
+    from hnsw_slim_tpu_torch.quant import estimator as est
+
+    _, _, q = data
+    idx, _ = slimq_index
+    sc = _scorer(idx, q, use_ex)
+    cur = torch.full((len(q),), idx.graph.entry, dtype=torch.int32,
+                     device="cuda")
+    dist = est.packed_estimate_plain(sc, cur[:, None])[:, 0]
+    idle = torch.zeros(len(q), dtype=torch.bool, device="cuda")
+    res = {}
+    for name, f in _level_fetches(idx, 1).items():
+        ec, ed, eh, en = gs.greedy_descent(None, None, None, f, cur, None,
+                                           idle, scorer=sc)
+        assert torch.equal(ec, cur) and _est_close(ed, dist)
+        assert not eh.any() and not en.any()
+        kc, kd, kh, kn = gs.greedy_descent(None, None, None, f, cur, None,
+                                           scorer=sc)
+        pc, pd, ph, pn = gs.greedy_descent_plain(None, None, None, f, cur,
+                                                 None, scorer=sc)
+        same = kc == pc
+        assert same.float().mean() >= 0.99, name
+        assert _est_close(kd[same], pd[same])
+        assert (kh[same] == ph[same]).all()
+        gc, gd, _, _ = gs.greedy_descent(None, None, None, f, cur, ed,
+                                         scorer=sc)
+        assert torch.equal(gc, kc) and torch.equal(gd, kd)
+        res[name] = kc
+    assert torch.equal(res["chal"], res["rank"])
+    rows, up_ids = idx._seed_table()
+    st = sc._replace(rows=rows)
+    kd, kp = bf.topk_estimate(st, up_ids, 32)
+    pd, pp = bf.topk_estimate_plain(st, up_ids, 32)
+    assert (kp == pp).float().mean() >= 0.99
+    fin = torch.isfinite(pd)
+    assert torch.equal(torch.isfinite(kd), fin) and _est_close(kd[fin], pd[fin])
+
+
+@pytest.mark.parametrize("use_ex,pop,ef", [(False, 8, 64), (True, 8, 64),
+                                           (False, 1, 32), (False, 16, 320)])
+def test_quant_beam_kernel_matches_plain(data, slimq_index, use_ex, pop, ef):
+    """Kβ's quantized mode with the rerank track against its plain version,
+    seeded as the SlimQ search seeds it: buffer ids and track ids equal on
+    >= 99% of slots, track distances the true ones, hops equal on >= 99% of
+    queries; without the track the same buffer."""
+    from hnsw_slim_tpu_torch.config import SearchConfig
+    from hnsw_slim_tpu_torch.graph import search as gs
+    from hnsw_slim_tpu_torch.index import bruteforce as bf
+
+    x, _, q = data
+    idx, _ = slimq_index
+    sc = _scorer(idx, q, use_ex)
+    rows, up_ids = idx._seed_table()
+    sd, sp = bf.topk_estimate_plain(sc._replace(rows=rows), up_ids, 32)
+    si = torch.where(sp >= 0, up_ids[sp.clamp(min=0).long()], -1)
+    si = si.to(torch.int32).contiguous()
+    P = gs.bitonic_buffer_width(ef) if ef == 320 else ef
+    kw = dict(P=P, ef_eff=ef, pop_width=pop,
+              cw=gs.cand_width(P, pop, idx.graph.cap0, 0),
+              max_iters=SearchConfig(ef=ef, pop_width=pop).iters(), k=P,
+              scorer=sc)
+    args = (None, None, None, idx.dense0, sd.contiguous(), si)
+    track = gs.pop_track_init(x, q, 16)
+    k_o = gs.beam_search(*args, **kw, pop_track=track)
+    p_o = gs.beam_search_plain(*args, **kw, pop_track=track)
+    assert (k_o[1] == p_o[1]).float().mean() >= 0.99
+    assert (k_o[2] == p_o[2]).float().mean() >= 0.99
+    kt, pt = k_o[4], p_o[4]
+    assert (kt.ids == pt.ids).float().mean() >= 0.99
+    ok = kt.ids >= 0
+    true_d = ((q[:, None, :] - x[kt.ids.clamp(min=0).long()]) ** 2).sum(-1)
+    assert _close(kt.d[ok], true_d[ok])
+    assert (kt.d[:, 1:] >= kt.d[:, :-1]).all()
+    n_o = gs.beam_search(*args, **kw)
+    assert len(n_o) == 4 and torch.equal(n_o[1], k_o[1])
+    # the CHAL form gives the same result as the dense rows
+    c_o = gs.beam_search(None, None, None, _level_fetches(idx, 0)["chal"],
+                         sd.contiguous(), si, **kw, pop_track=track)
+    assert torch.equal(c_o[1], k_o[1]) and torch.equal(c_o[4].ids, kt.ids)
+
+
+def test_slimq_search_on_card(data, slimq_index):
+    """Through the entry points: every mode launched, rerank distances the
+    true ones, identical ids with and without the dense layouts, a
+    save_slimq -> load_slimq round trip with identical ids."""
+    import dataclasses
+    import tempfile
+    from pathlib import Path
+
+    from hnsw_slim_tpu_torch.config import SearchConfig
+    from hnsw_slim_tpu_torch.index.slimq import HnswSlimQIndex
+    from hnsw_slim_tpu_torch.ops import cuda
+    from hnsw_slim_tpu_torch.persist.checkpoint import load_slimq, save_slimq
+
+    x, _, q = data
+    idx, _ = slimq_index
+    qs, xs = q.cpu().numpy(), x.cpu().numpy()
+    cuda.reset_launches()
+    outs = {}
+    for seed_width in (32, 0):
+        for use_ex in (False, True):
+            idx.scfg = SearchConfig(ef=64, pop_width=8, seed_width=seed_width,
+                                    use_ex=use_ex)
+            d, ids = idx.search(qs, 10)
+            assert ((ids >= 0) & (ids < len(xs))).all()
+            true_d = ((qs[:, None, :] - xs[ids]) ** 2).sum(-1)
+            assert np.allclose(d, true_d, rtol=1e-3, atol=1e-3)
+            outs[(seed_width, use_ex)] = ids
+            _, e_ids = idx.search(qs, 10, rerank=False)
+            assert ((e_ids >= 0) & (e_ids < len(xs))).all()
+    for mode in ("topk_dist.estimate", "beam_search.quant",
+                 "beam_search.quant_ex", "beam_search.rerank",
+                 "greedy_descent.quant", "fht_rotate",
+                 "fht_rotate.g_tables"):
+        assert cuda.launches[mode] > 0, mode
+    bare = HnswSlimQIndex(search_cfg=idx.scfg, device="cuda")
+    for f in ("graph", "codes", "rotator", "cluster_ids", "centroids_rot",
+              "dataset"):
+        setattr(bare, f, getattr(idx, f))
+    assert (bare.search(qs, 10)[1] == outs[(0, True)]).all()
+    with tempfile.TemporaryDirectory() as tmp:
+        save_slimq(Path(tmp) / "q.npz", idx)
+        back = load_slimq(Path(tmp) / "q.npz",
+                          search_cfg=dataclasses.replace(idx.scfg))
+    back.set_dataset(xs)
+    assert (back.search(qs, 10)[1] == outs[(0, True)]).all()
