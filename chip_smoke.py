@@ -54,7 +54,26 @@ Phases (one line each on stdout, the kernel table second to last):
      line of its own, it is the same kernel as any k=1 call); both times,
      agreement, and the least time the card could take (bytes over
      3.35 TB/s or fp32 flops over 67 TFLOP/s, the larger);
-  8. output checks (finite, in range, true distances, recall sanity, the
+  8. incremental updates on the insertion index, with their own launch
+     counts, as the JAX server's update_index runs them (1000-vector
+     batches into 1M points, the paper's Table 4 deployment):
+     IncrementalSlim.full (equal to the conversion of phase 2), three
+     add_points batches drawn around the base's cluster centres, each
+     followed by IncrementalSlim.update, the in-place refresh of both dense
+     serving layouts (against a fresh densify), PatchWriter -> apply_patch
+     onto a client copy (equal to the server's graph), integrity of both
+     indexes, recall@10 at ef=64 against fresh ground truth over the grown
+     set and self-hit@1 of the inserted vectors; then 1000 deletes served
+     through filter_mask, their slots reused by replace_points, and the
+     same round; the incremental graph against convert_to_slim of the
+     updated vanilla graph, equal on every row after the add batches with
+     nothing repaired and after the replace batch, whose update re-runs the
+     connectivity repair; IncrementalSlimZero.full and one update with
+     its floor, cap and hierarchy invariants; and Kθ row_deg on the 1M
+     level-0 adjacency, Kι kv_sort on a build batch's and an update
+     batch's edge list (beside torch.sort(stable=True)), and Kζ + Kγ on one
+     recorded collect-mode apply, against their plain versions;
+  9. output checks (finite, in range, true distances, recall sanity, the
      insertion-built Slim index above the NND-built one at ef=320, SlimZero
      within 0.02 of the Slim index there; SlimQ: ids in range, reranked
      distances the true ones, reranked recall not below the estimate-only
@@ -68,6 +87,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -88,6 +108,10 @@ ROUTES = {  # kernel: (source, the JAX program it replaces)
                     "hnsw_slim_tpu/graph/revconn.py:47"),
     "fht_rotate": ("hnsw_slim_tpu_torch/csrc/fht_rotate.cu",
                    "hnsw_slim_tpu/quant/rotator.py:41"),
+    "row_deg": ("hnsw_slim_tpu_torch/csrc/row_deg.cu",
+                "hnsw_slim_tpu/index/hnsw.py:39"),
+    "kv_sort": ("hnsw_slim_tpu_torch/csrc/kv_sort.cu",
+                "hnsw_slim_tpu/graph/revconn.py:90"),
 }
 MODE_ROUTES = {  # kernel mode: (kernel, the JAX code that mode replaces)
     "topk_dist.strata": ("topk_dist", "hnsw_slim_tpu/graph/search.py:800"),
@@ -111,7 +135,10 @@ MODE_ROUTES = {  # kernel mode: (kernel, the JAX code that mode replaces)
                             "hnsw_slim_tpu/quant/estimator.py:79"),
 }
 INSERT_PATH = ("topk_dist", "beam_search", "rng_prune", "greedy_descent",
-               "rev_connect")
+               "rev_connect", "kv_sort")
+UPDATE_PATH = ("row_deg", "kv_sort", "rev_connect", "rng_prune",
+               "beam_search", "greedy_descent", "topk_dist")
+UPD_BATCH = 1000  # vectors per update batch (the paper's Table 4)
 NND_PATH = ("topk_dist", "beam_search", "rng_prune", "cand_merge")
 QUERY_PATH = ("topk_dist", "beam_search", "greedy_descent", "rng_prune",
               "topk_dist.strata", "beam_search.chal", "beam_search.rank",
@@ -340,7 +367,10 @@ def main() -> int:
     from hnsw_slim_tpu_torch.graph import build as tb
     from hnsw_slim_tpu_torch.graph import heuristic, nnd, prune, revconn
     from hnsw_slim_tpu_torch.graph import search as gs
+    from hnsw_slim_tpu_torch.graph.incremental import (IncrementalSlim,
+                                                       IncrementalSlimZero)
     from hnsw_slim_tpu_torch.index import bruteforce as bf
+    from hnsw_slim_tpu_torch.index import hnsw as hnsw_mod
     from hnsw_slim_tpu_torch.index.hnsw import (HnswIndex,
                                                 resolve_build_strategy)
     from hnsw_slim_tpu_torch.index.slim import HnswSlimIndex, autotune_index
@@ -349,6 +379,7 @@ def main() -> int:
     from hnsw_slim_tpu_torch.index.slimzero import HnswSlimZeroIndex
     from hnsw_slim_tpu_torch.ops import cuda
     from hnsw_slim_tpu_torch.persist.checkpoint import load_slimq, save_slimq
+    from hnsw_slim_tpu_torch.persist import patch as patchlib
     from hnsw_slim_tpu_torch.persist.patch import _level_rows
     from hnsw_slim_tpu_torch.quant import estimator as qest
     from hnsw_slim_tpu_torch.quant import kmeans as qkm
@@ -377,7 +408,10 @@ def main() -> int:
                                        "merge_kernel", "greedy_kernel",
                                        "append_kernel", "degree_kernel",
                                        "rows_kernel", "write_kernel",
-                                       "fht_kernel", "g_tables_kernel")
+                                       "fht_kernel", "g_tables_kernel",
+                                       "row_deg_kernel", "sort_tile_kernel",
+                                       "global_step_kernel",
+                                       "merge_tile_kernel")
                            if k in fn), "?")
             if "ILb1E" in fn:  # the quantized / estimate instantiation
                 kernel += "<quant>"
@@ -1552,11 +1586,434 @@ def main() -> int:
             f"{est_ms:.3f} ms, beam {beam_ms:.3f} ms, search() "
             f"{row['search_ms']:.3f} ms for {NQ} queries")
 
+    # ---- 8. incremental updates on the insertion index ---------------------
+    class UpdateRecorder:
+        """Records, during the update rounds, the inputs of one Kι call on
+        an update batch's reverse-edge list and of one collect-mode level-0
+        apply (its pre-apply adjacency and degrees). The wrapped calls run
+        unchanged."""
+
+        def __init__(self):
+            self.sort_in = self.apply_in = None
+
+        @contextlib.contextmanager
+        def installed(self):
+            srt, ap = revconn.kv_sort, revconn.apply_insert
+
+            def srt_w(keys, payload=None):
+                if self.sort_in is None and payload is not None and \
+                        len(keys) == UPD_BATCH * hcfg.M:
+                    self.sort_in = (keys.clone(), payload.clone())
+                return srt(keys, payload)
+
+            def ap_w(adj, deg, vecs, vn, a_ids, cand, **kw):
+                if self.apply_in is None and kw["of_t"] == 16384:
+                    self.apply_in = (adj.clone(), deg.clone(), a_ids.clone(),
+                                     cand.clone(), kw)
+                return ap(adj, deg, vecs, vn, a_ids, cand, **kw)
+
+            revconn.kv_sort, revconn.apply_insert = srt_w, ap_w
+            try:
+                yield self
+            finally:
+                revconn.kv_sort, revconn.apply_insert = srt, ap
+
+    cuda.reset_launches()
+    t_phase = time.perf_counter()
+    slim_cfg = SlimConfig.from_ratios()
+    # update batches reuse the base's cluster centres (same seed: the centres
+    # are drawn first), new points around them: four add batches (the last
+    # one for SlimZero) and the vectors of the reused slots
+    extra, _ = clustered(5 * UPD_BATCH, 128, n_queries=0,
+                         n_clusters=max(64, n // 1000), seed=7, scale=0.3)
+    vec_np = np.empty((n + 4 * UPD_BATCH, 128), np.float32)
+    vec_np[:n] = base
+    pre_recall = slim_ins[EFS.index(64)]["recall@10"]
+    t0 = time.perf_counter()
+    inc = IncrementalSlim(slim_cfg, metric=hcfg.metric)
+    g_inc = inc.full(h.host_adj(), h.levels, int(h.graph.entry), h.vectors,
+                     h.vn)
+    torch.cuda.synchronize()
+    t_full = time.perf_counter() - t0
+    say(f"updates: IncrementalSlim.full {t_full:.2f} s, split (s) "
+        f"{json.dumps({k: round(v, 3) for k, v in inc.last_stats['seconds'].items() if v >= 0.05})}")
+    check(torch.equal(g_inc.nbr, idx.graph.nbr)
+          and torch.equal(g_inc.lvl_off, idx.graph.lvl_off)
+          and torch.equal(g_inc.level, idx.graph.level),
+          "IncrementalSlim.full differs from convert_to_slim")
+    srv = HnswSlimIndex(metric=hcfg.metric, search_cfg=scfg_slim(64),
+                        device=dev)
+    srv.graph, srv.vectors, srv.vn = g_inc, h.vectors, h.vn
+    srv.host_chal = inc.host_chal
+    srv.densify_level0()
+    srv.densify_upper()
+    client, client_vecs = g_inc, base
+    placeholder = (torch.zeros(8, dtype=torch.int32, device=dev),
+                   torch.zeros((8, 8), dtype=torch.int32, device=dev))
+    node_bucket = 65536
+    upd_rounds = []
+
+    def same_graph(a_np, n_a, b_np, n_b):
+        """Two flat CHAL mirrors hold the same logical graph (rows are
+        packed in canonical order, so the arrays themselves compare)."""
+        if n_a != n_b:
+            return False
+        ea, eb = int(a_np["lvl_off"][n_a - 1, -1]), \
+            int(b_np["lvl_off"][n_b - 1, -1])
+        return (ea == eb
+                and np.array_equal(a_np["level"][:n_a], b_np["level"][:n_b])
+                and np.array_equal(a_np["lvl_off"][:n_a],
+                                   b_np["lvl_off"][:n_b])
+                and np.array_equal(a_np["nbr"][:ea], b_np["nbr"][:eb]))
+
+    def update_round(label, new_vecs, slots=None):
+        """One update_index round: insert (or reuse ``slots``), incremental
+        re-prune, serving-layout refresh, patch, client apply, checks."""
+        nonlocal client, client_vecs
+        prev = h.graph.n
+        lc, reused = None, np.zeros(0, np.int64)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if slots is None:
+            touched = h.add_points(new_vecs)
+            vec_np[prev:prev + len(new_vecs)] = new_vecs
+            new_ids = np.arange(prev, prev + len(new_vecs))
+        else:
+            touched, lc = h.replace_points(slots, new_vecs)
+            vec_np[slots] = new_vecs
+            reused = new_ids = slots
+        torch.cuda.synchronize()
+        t_ins = time.perf_counter() - t0
+        n_now = h.graph.n
+        ust = h.last_update_stats
+        t0 = time.perf_counter()
+        # severed slots can cut the Slim graph where the full pass would
+        # bridge it again, so the round that reuses slots re-runs the
+        # connectivity repair; an add batch links into the graph and the
+        # reference repairs nothing there
+        inc.repair_updates = slots is not None
+        chal, changed = inc.update(
+            h.host_adj(), h.levels, int(h.graph.entry), h.vectors, h.vn,
+            touched=touched, level_changed=lc, device_pack=False)
+        torch.cuda.synchronize()
+        t_inc = time.perf_counter() - t0
+        hc = inc.host_chal
+        # the serving graph in host mode: both dense layouts serve, so the
+        # flat CHAL stays on the host and the device holds placeholders
+        t0 = time.perf_counter()
+        n_src = len(hc["level"])
+        n_pad = -(-n_src // node_bucket) * node_bucket
+        lvl_pad = np.full(n_pad, -1, np.int32)
+        lvl_pad[:n_src] = hc["level"]
+        srv.graph = dataclasses.replace(
+            chal, nbr=placeholder[0], lvl_off=placeholder[1],
+            level=torch.as_tensor(lvl_pad, device=dev), n_real=n_now)
+        srv.host_chal = hc
+        srv.vectors, srv.vn = h.vectors, h.vn
+        upd_ids = np.concatenate([changed, np.arange(prev, n_now), reused])
+        srv.update_dense0(hc, upd_ids)
+        srv.update_dense_upper(hc, upd_ids)
+        torch.cuda.synchronize()
+        t_dense = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        reused_set = set(int(v) for v in reused)
+        old = sorted(int(v) for v in changed
+                     if v < prev and int(v) not in reused_set)
+        new = sorted(set(range(prev, n_now)) | reused_set)
+        writer = patchlib.PatchWriter(chal, old, new, vectors=vec_np[:n_now],
+                                      host_chal=hc)
+        chunks, finished = [], False
+        while not finished:
+            blob, finished = writer.next_chunk()
+            chunks.append(blob)
+        t_patch = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for blob in chunks:
+            client, client_vecs = patchlib.apply_patch(client, blob,
+                                                       client_vecs)
+        t_apply = time.perf_counter() - t0
+        row = {"round": label, "n": n_now,
+               "insert_s": round(t_ins, 3),
+               "insert_split_s": {k: round(v, 3)
+                                  for k, v in ust["seconds"].items()},
+               "insert_device_s": {k: round(v, 3)
+                                   for k, v in ust["phase_s"].items()},
+               "touched": ust["touched"],
+               "overflow": ust.get("overflow"),
+               "inc_update_s": round(t_inc, 3),
+               "inc_split_s": {k: round(v, 3) for k, v in
+                               inc.last_stats["seconds"].items()
+                               if v >= 0.01},
+               "inc_sizes": inc.last_stats["sizes"],
+               "repair_updates": inc.repair_updates,
+               "repair_bridges": len(inc.repair_keys),
+               "changed": len(changed),
+               "dense_refresh_s": round(t_dense, 3),
+               "patch_s": round(t_patch, 3), "patch_chunks": len(chunks),
+               "patch_bytes": sum(len(c_) for c_ in chunks),
+               "records": len(old) + len(new),
+               "client_apply_s": round(t_apply, 3),
+               "update_s": round(t_ins + t_inc + t_dense + t_patch, 3)}
+        if ust.get("overflow"):
+            check(ust["overflow"]["truncated_applies"] == 0,
+                  f"{label}: reverse-connect truncated: {ust['overflow']}")
+        check(client.n == n_now and same_graph(
+            patchlib.to_np(client), client.n, hc, n_now),
+            f"{label}: the patched client differs from the server's graph")
+        check(np.array_equal(client_vecs, vec_np[:n_now]),
+              f"{label}: the patched client's vectors differ")
+        fresh = HnswSlimIndex(metric=hcfg.metric, device=dev)
+        fresh.graph, fresh.host_chal = srv.graph, hc
+        fresh.densify_level0()
+        fresh.densify_upper()
+        ok_up = True
+        for l in range(1, chal.max_level + 1):
+            at = torch.as_tensor(np.nonzero(lvl_pad >= l)[0], device=dev)
+            ok_up &= bool(torch.equal(
+                srv.dense_up[l - 1][srv.rank_up[at].long()],
+                fresh.dense_up[l - 1][fresh.rank_up[at].long()]))
+        check(bool(torch.equal(srv.dense0, fresh.dense0)) and ok_up,
+              f"{label}: the refreshed dense layouts differ from a fresh "
+              "densify")
+        del fresh
+        row["integrity"] = {"hnsw": h.check_integrity(),
+                            "slim": srv.check_integrity()}
+        t0 = time.perf_counter()
+        _, gt_new = bf.exact_topk(h.vectors, h.vn, qall, k=10,
+                                  metric=hcfg.metric, n_valid=n_now)
+        gt_new = gt_new.cpu().numpy()
+        row["gt_s"] = round(time.perf_counter() - t0, 3)
+        srv.scfg = scfg_slim(64)
+        line = serve_line(srv, queries, gt_new, f"updates {label} slim ef=64")
+        check(((line["ids"] >= 0) & (line["ids"] < n_now)).all(),
+              f"{label}: id range")
+        row["recall@10"], row["qps"] = line["recall@10"], line["qps"]
+        _, hit = srv.search(new_vecs, k=1)
+        row["self_hit@1"] = round(float((hit[:, 0] == new_ids).mean()), 4)
+        say(f"updates {label}: {json.dumps(row)}")
+        check(row["recall@10"] >= pre_recall - 0.01,
+              f"{label}: recall@10 {row['recall@10']} fell more than 0.01 "
+              f"under the pre-update {pre_recall}")
+        check(row["self_hit@1"] >= 0.9,
+              f"{label}: self-hit@1 of the inserted vectors "
+              f"{row['self_hit@1']} < 0.9")
+        upd_rounds.append(row)
+
+    def check_equals_full(when: str) -> float:
+        """The contract, at full size: the incremental graph equals
+        convert_to_slim of the updated vanilla graph on every row. Returns
+        the full conversion's seconds."""
+        t0 = time.perf_counter()
+        g_fresh = prune.convert_to_slim(h.graph, h.vectors, h.vn, slim_cfg,
+                                        metric=hcfg.metric)
+        dt = time.perf_counter() - t0
+        check(same_graph(patchlib.to_np(g_fresh), g_fresh.n, inc.host_chal,
+                         h.graph.n),
+              f"{when} the incremental graph differs from convert_to_slim "
+              "of the updated vanilla graph")
+        say(f"updates: {when} the incremental graph equals convert_to_slim "
+            f"of the updated vanilla graph exactly (full conversion "
+            f"{dt:.2f} s)")
+        return dt
+
+    u_rec = UpdateRecorder()
+    with u_rec.installed():
+        for b_ in range(3):
+            update_round(f"add batch {b_ + 1}",
+                         extra[b_ * UPD_BATCH:(b_ + 1) * UPD_BATCH])
+    check_equals_full("after three add batches, nothing repaired,")
+    # deletes and slot reuse
+    n_now = h.graph.n
+    dead = np.sort(np.random.default_rng(23).choice(n_now, UPD_BATCH,
+                                                    replace=False))
+    live = np.ones(int(srv.vectors.shape[0]), bool)  # one flag per row
+    live[dead] = False
+    srv.scfg = scfg_slim(64)
+    _, del_ids = srv.search(queries, k=10, filter_mask=live)
+    check((del_ids >= 0).all() and bool(live[del_ids].all()),
+          "a deleted id was served, or a filtered row is not full")
+    say(f"updates: {UPD_BATCH} ids marked deleted, served with filter_mask: "
+        "no deleted id returned, every row full")
+    update_round("delete + replace batch", extra[3 * UPD_BATCH:4 * UPD_BATCH],
+                 slots=dead.astype(np.int64))
+    t_fresh = check_equals_full(
+        "after the delete + replace batch, its update run with "
+        "repair_updates=True,")
+
+    # IncrementalSlimZero: full, one 1000-vector update, the invariants
+    t0 = time.perf_counter()
+    zinc = IncrementalSlimZero(zcfg, metric=hcfg.metric)
+    zinc.full(h.host_adj(), h.levels, int(h.graph.entry), h.vectors, h.vn)
+    torch.cuda.synchronize()
+    t_zfull = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    z_touched = h.add_points(extra[4 * UPD_BATCH:])
+    torch.cuda.synchronize()
+    t_zadd = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    zg, z_changed = zinc.update(h.host_adj(), h.levels, int(h.graph.entry),
+                                h.vectors, h.vn, touched=z_touched)
+    torch.cuda.synchronize()
+    t_zupd = time.perf_counter() - t0
+    n_now = h.graph.n
+    zsrv = HnswSlimZeroIndex(metric=hcfg.metric, search_cfg=scfg_slim(64),
+                             device=dev)
+    zsrv.graph, zsrv.vectors, zsrv.vn = zg, h.vectors, h.vn
+    zsrv.host_chal = zinc.host_chal
+    zsrv.densify_level0()
+    integ_zu = zsrv.check_integrity()  # cap and hierarchy rule
+    z_rows0 = zinc.final[0][:n_now]
+    z_indeg = np.bincount(z_rows0[z_rows0 >= 0], minlength=n_now)
+    donor = prune.level_indegrees(h.host_adj(), h.levels)[0][:n_now]
+    z_floor = float((z_indeg >= np.minimum(donor, zcfg.min_indegree0)).mean())
+    _, gt_z = bf.exact_topk(h.vectors, h.vn, qall, k=10, metric=hcfg.metric,
+                            n_valid=n_now)
+    z_line = serve_line(zsrv, queries, gt_z.cpu().numpy(),
+                        "updates slimzero ef=64")
+    z_pre = slim_zero[EFS.index(64)]["recall@10"]
+    z_row = {"full_s": round(t_zfull, 3), "add_points_s": round(t_zadd, 3),
+             "update_s": round(t_zupd, 3), "sizes": zinc.last_stats["sizes"],
+             "changed": len(z_changed), "integrity": integ_zu,
+             "floor_share": z_floor, "recall@10": z_line["recall@10"],
+             "pre_update_recall@10": z_pre}
+    say(f"updates slimzero: {json.dumps(z_row)}")
+    check(z_floor >= 0.999, f"SlimZero's in-degree floor is broken after the "
+                            f"update: {z_floor}")
+    check(z_line["recall@10"] >= z_pre - 0.02,
+          f"SlimZero recall@10 after the update {z_line['recall@10']} fell "
+          f"more than 0.02 under {z_pre}")
+    launch_upd = dict(cuda.launches)
+    say(f"update-path launches: {launch_upd}")
+    for name in UPDATE_PATH:
+        check(launch_upd[name] > 0, f"{name} never launched on the update "
+                                    "path")
+    check(u_rec.sort_in is not None and u_rec.apply_in is not None,
+          "no update batch's sort or collect-mode apply was recorded")
+    upd_summary = {"full_s": round(t_full, 2), "rounds": upd_rounds,
+                   "reconvert_s": round(t_fresh, 2), "slimzero": z_row,
+                   "phase_s": round(time.perf_counter() - t_phase, 1)}
+
+    # Kθ on the level-0 adjacency of the updated index (capacity-padded)
+    a0 = h.graph.adjs[0]
+    kdeg = hnsw_mod._row_deg(a0)
+    pdeg = hnsw_mod.row_deg_plain(a0)
+    deg_ms = cuda_ms(lambda: hnsw_mod._row_deg(a0), 10)
+    deg_pms = cuda_ms(lambda: hnsw_mod.row_deg_plain(a0), 10)
+    report["row_deg"] = dict(
+        agree=float((kdeg == pdeg).float().mean()),
+        max_abs_err=float((kdeg - pdeg).abs().max()), ms=deg_ms,
+        plain_ms=deg_pms, library_ms=deg_pms,
+        bound=bound(a0.numel() * 4 + a0.shape[0] * 4, a0.numel()),
+        shapes=f"i32[{a0.shape[0]}, {a0.shape[1]}] -> i32[{a0.shape[0]}]; "
+               "the plain version (a >= 0).sum(1) is also the library call")
+    check(bool(torch.equal(kdeg, pdeg)),
+          f"row_deg differs from its plain version: {report['row_deg']}")
+
+    # Kι on a build batch's reverse-edge list (the recorded 4096-insert
+    # batch's forward selection) and on an update batch's
+    def sort_pair(what, keys, payload):
+        ku, kp = revconn.kv_sort(keys, payload)
+        pu, pp = revconn.kv_sort_plain(keys, payload)
+        k_only, _ = revconn.kv_sort(keys)
+        e_ = len(keys)
+        part = dict(
+            what=what, E=e_,
+            equal=bool(torch.equal(ku, pu) and torch.equal(kp, pp)
+                       and torch.equal(k_only, pu)),
+            ms=cuda_ms(lambda: revconn.kv_sort(keys, payload), 20),
+            plain_ms=cuda_ms(lambda: revconn.kv_sort_plain(keys, payload),
+                             20),
+            key_only_ms=cuda_ms(lambda: revconn.kv_sort(keys), 20),
+            bound=bound(2 * e_ * 8, 0))
+        say(f"kernel kv_sort part: {json.dumps(part)}")
+        check(part["equal"], f"kv_sort differs from torch.sort(stable=True) "
+                             f"on {what}")
+        return part
+
+    u_b = torch.where(sel >= 0, sel, revconn.BIG).reshape(-1).contiguous()
+    p_b = a_ids[:, None].expand(*sel.shape).reshape(-1).contiguous()
+    s_build = sort_pair("the recorded build batch's reverse-edge list", u_b,
+                        p_b)
+    s_upd = sort_pair("an update batch's reverse-edge list", *u_rec.sort_in)
+    report["kv_sort"] = dict(
+        agree=1.0, max_abs_err=0.0, ms=s_build["ms"],
+        plain_ms=s_build["plain_ms"], library_ms=s_build["plain_ms"],
+        bound=s_build["bound"],
+        shapes=f"E {s_build['E']} (a 4096-insert build batch, keys with "
+               f"2^30 padding): keys and payload equal to torch.sort("
+               f"stable=True), which is the plain version and the library "
+               f"call; key-only {s_build['key_only_ms']:.4f} ms; an update "
+               f"batch's list, E {s_upd['E']}: {s_upd['ms']:.4f} ms vs "
+               f"{s_upd['plain_ms']:.4f} ms")
+
+    # Kζ and Kγ in collect mode: the recorded level-0 apply of an update
+    # batch (of_t 16384, new_w 32) through the kernels and through every
+    # plain version, on copies of its pre-apply state
+    c_adj, c_deg, c_a, c_cand, c_kw = u_rec.apply_in
+    ak, dk = c_adj.clone(), c_deg.clone()
+    ux, uxn = h.vectors, h.vn  # the grown table the update index holds
+    ek, tk = revconn.apply_insert(ak, dk, ux, uxn, c_a, c_cand, **c_kw)
+    kernel_fns = {k_: getattr(revconn, k_) for k_ in (
+        "rng_prune", "kv_sort", "rev_append", "overflow_rows", "write_rows")}
+    plain_fns = dict(
+        rng_prune=lambda *a_, m_max=None, **k_: heuristic.rng_prune_plain(
+            *a_, **k_),
+        kv_sort=revconn.kv_sort_plain, rev_append=revconn.rev_append_plain,
+        overflow_rows=revconn.overflow_rows_plain,
+        write_rows=revconn.write_rows_plain)
+    ap_, dp_ = c_adj.clone(), c_deg.clone()
+    for k_, v_ in plain_fns.items():
+        setattr(revconn, k_, v_)
+    try:
+        ep, tp = revconn.apply_insert(ap_, dp_, ux, uxn, c_a, c_cand,
+                                      **c_kw)
+    finally:
+        for k_, v_ in kernel_fns.items():
+            setattr(revconn, k_, v_)
+
+    def collect_ms(reps: int = 2) -> float:
+        """One whole collect-mode apply on a fresh copy of the recorded
+        state each time (CUDA events around the call alone)."""
+        tot = 0.0
+        for rep in range(reps + 1):
+            a_, d_ = c_adj.clone(), c_deg.clone()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            revconn.apply_insert(a_, d_, ux, uxn, c_a, c_cand, **c_kw)
+            ev[1].record()
+            torch.cuda.synchronize()
+            if rep:  # the first pass warms up
+                tot += ev[0].elapsed_time(ev[1])
+        return tot / reps
+
+    # agreement over the rows either apply wrote (the inserts' and their
+    # targets'); a near-tie in a prune may keep another id, as in Kγ's pairs
+    wrote = ((ak != c_adj) | (ap_ != c_adj)).any(dim=1)
+    same_row = (ak == ap_).all(dim=1)
+    rows_eq = float(same_row[wrote].float().mean())
+    c_rep = dict(
+        rows_written=int(wrote.sum()), rows_equal=rows_eq,
+        degrees_equal=bool(torch.equal(dk[same_row], dp_[same_row])),
+        counters=[int(ek), int(tk)], plain_counters=[int(ep), int(tp)],
+        inserts=len(c_a), of_t=c_kw["of_t"], new_w=c_kw["new_w"],
+        C=ak.shape[1] + c_kw["new_w"], apply_ms=collect_ms())
+    say(f"kernel rev_connect + rng_prune, collect mode: {json.dumps(c_rep)}")
+    check(rows_eq >= 0.99 and c_rep["degrees_equal"]
+          and c_rep["counters"] == c_rep["plain_counters"]
+          and int(tk) <= c_kw["of_t"],
+          f"the collect-mode apply differs from its plain versions: {c_rep}")
+    report["rev_connect"]["shapes"] += (
+        f"; collect mode (of_t {c_kw['of_t']}, new_w {c_kw['new_w']}): one "
+        f"update batch's level-0 apply, {int(ek)} overflow edges into "
+        f"{int(tk)} targets, rows equal {rows_eq:.6f}, {c_rep['apply_ms']:.3f}"
+        " ms for the whole apply")
+
     for name, rep in report.items():
         say(f"kernel {name}: {json.dumps(rep)}")
 
-    # ---- 8. summary --------------------------------------------------------
-    paths = (launch_ins, launch_qs, launch_sz, launch_sq, launch_nnd)
+    # ---- 9. summary --------------------------------------------------------
+    paths = (launch_ins, launch_qs, launch_sz, launch_sq, launch_nnd,
+             launch_upd)
     kernels = [{
         "name": name,
         "route": "cuda",
@@ -1570,8 +2027,10 @@ def main() -> int:
         "plain_ms": round(report[name]["plain_ms"], 4),
         "bound_ms": round(report[name]["bound"][0], 4),
         "bound_by": report[name]["bound"][1],
-        # no single PyTorch call computes any of these functions
-        "library_ms": None,
+        # one PyTorch call computes row_deg's and kv_sort's function; none
+        # computes any of the others
+        "library_ms": None if "library_ms" not in report[name]
+        else round(report[name]["library_ms"], 4),
     } for name in list(ROUTES) + list(MODE_ROUTES)]
     for kern in kernels:
         check(kern["launches"] > 0, f"{kern['name']} was never launched on "
@@ -1601,6 +2060,7 @@ def main() -> int:
                 "convert_s": round(t_conv2, 2),
                 "index_size": idx2.index_size(), "slim": slim_nnd,
                 "launches": launch_nnd},
+        "updates": dict(upd_summary, launches=launch_upd),
         "nq": NQ, "wall_s": round(time.perf_counter() - t_start, 1)}))
     say(card)
     say(json.dumps({"kernels": kernels}))

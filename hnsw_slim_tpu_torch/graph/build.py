@@ -7,7 +7,10 @@ each point's level (kernel Kε), an ef_construction beam at and below it
 (kernel Kβ) — then each level applies all of the batch's forward and reverse
 connections at once (``revconn.apply_insert``: Kγ + Kζ). Adjacency and
 degrees stay on the device for the whole build; the host mirror is pulled
-once at the end.
+once at the end. ``collect`` mode (``HnswIndex.add_points``) records which
+rows each level's apply wrote; ``_insert_batch`` is the host-planned form
+for ids that are not consecutive (``HnswIndex.replace_points``), which also
+keeps a host mirror of the adjacency in step.
 
 NN-descent: kNN lists -> heuristic prune (Kγ) + mutual union at level 0;
 exact kNN (Kα, self masked) + the same prune and union at the small upper
@@ -319,6 +322,12 @@ def _append_or_replace(rows: np.ndarray, i: int, gid: int) -> None:
     rows[i, empty[0] if len(empty) else -1] = gid
 
 
+def _compact_rows(a: np.ndarray) -> np.ndarray:
+    """Left-compact the -1 holes of each row, order kept."""
+    order = np.argsort(a < 0, axis=1, kind="stable")
+    return np.take_along_axis(a, order, axis=1)
+
+
 def _to_dev(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     """A host array on ``dev``: from pinned memory without blocking on the
     card (a pageable copy would wait for the queued kernels)."""
@@ -467,15 +476,15 @@ class HnswBuilder:
         return graph, levels
 
     def _insert_range(self, start, n, levels, entry, cur_maxlevel, vecs,
-                      vn, adj_dev, deg_dev, spans, verbose):
+                      vn, adj_dev, deg_dev, spans, verbose, collect=None):
         """Insert ids [start, n) batch by batch; returns the final (entry,
-        cur_maxlevel)."""
+        cur_maxlevel). ``collect``: see _insert_batch_bulk."""
         done = start
         while done < n:
             bsz = min(self._batch_size(done), n - done)
             ids = np.arange(done, done + bsz)
             self._insert_batch_bulk(ids, levels, entry, cur_maxlevel, vecs,
-                                    vn, adj_dev, deg_dev, spans)
+                                    vn, adj_dev, deg_dev, spans, collect)
             # entry-point update (hnswalg.h:1369-1374), in insertion order
             for j in np.nonzero(levels[ids] > cur_maxlevel)[0]:
                 if levels[ids[j]] > cur_maxlevel:
@@ -489,20 +498,18 @@ class HnswBuilder:
     def _batch_size(self, cur: int) -> int:
         return max(1, min(cur, self.max_batch))
 
-    def _insert_batch_bulk(self, ids, levels, entry, cur_maxlevel, vecs, vn,
-                           adj_dev, deg_dev, spans):
-        """Search the batch ids (consecutive) against the pre-batch graph,
-        then apply its connections per level. Levels above cur_maxlevel
-        hold no edge yet, so the searches start there (the JAX program's
-        extra levels are no-ops)."""
+    def _search_batch(self, q, lp_eff, entry, cur_maxlevel, vecs, vn,
+                      adj_dev, spans):
+        """Both candidate searches of one batch (queries q, effective levels
+        lp_eff) against the pre-batch graph. Levels above cur_maxlevel hold
+        no edge yet, so the searches start there (the JAX program's extra
+        levels are no-ops). Returns (i0 i32[B, efc] level-0 candidates, up
+        the batch positions of the upper-level inserts, cand_up
+        i32[L+1, len(up), efc] their per-level candidates or None)."""
         cfg = self.cfg
         dev = vecs.device
         efc = cfg.ef_construction
         max_iters = 2 * efc + 64
-        lp_eff = np.minimum(levels[ids], cur_maxlevel).astype(np.int32)
-        a_all = torch.arange(int(ids[0]), int(ids[-1]) + 1,
-                             dtype=torch.int32, device=dev)
-        q = vecs[int(ids[0]):int(ids[-1]) + 1]
         t0 = spans.stamp()
         _, i0 = _build_search0(
             adj_dev, entry, vecs, vn, q, _to_dev(lp_eff == 0, dev),
@@ -521,11 +528,37 @@ class HnswBuilder:
             # upper-level inserts take their level-0 candidates from their
             # own per-level search
             i0[up_dev] = cand_up[0]
+        spans.add("search_up", t1, spans.stamp())
+        return i0, up, cand_up
+
+    def _insert_batch_bulk(self, ids, levels, entry, cur_maxlevel, vecs, vn,
+                           adj_dev, deg_dev, spans, collect=None):
+        """Search the batch ids (consecutive) against the pre-batch graph,
+        then apply its connections per level.
+
+        ``collect`` (a dict, level -> list of id arrays) is how the update
+        flow learns which rows each level's apply wrote: the inserted ids,
+        and the reverse-connect targets, which are the values of the
+        inserted nodes' post-apply rows (their forward selection; candidates
+        come from the frozen pre-batch graph, so they are disjoint from the
+        batch). That read costs one device sync per level. Collect mode also
+        widens the overflow re-prune: an update inserts into a mature graph
+        whose rows sit at the cap, so nearly every reverse append
+        overflows."""
+        cfg = self.cfg
+        dev = vecs.device
+        lp_eff = np.minimum(levels[ids], cur_maxlevel).astype(np.int32)
+        a_all = torch.arange(int(ids[0]), int(ids[-1]) + 1,
+                             dtype=torch.int32, device=dev)
+        q = vecs[int(ids[0]):int(ids[-1]) + 1]
+        i0, up, cand_up = self._search_batch(q, lp_eff, entry, cur_maxlevel,
+                                             vecs, vn, adj_dev, spans)
         t2 = spans.stamp()
-        spans.add("search_up", t1, t2)
         for l in range(int(lp_eff.max(initial=0)), -1, -1):
             cap_l = cfg.maxM0 if l == 0 else cfg.maxM
             of_t, new_w = (4096, 64) if l == 0 else (1024, 32)
+            if collect is not None:
+                of_t, new_w = (16384, 32) if l == 0 else (2048, 32)
             if l == 0:
                 a_ids, cand = a_all, i0
             else:
@@ -538,7 +571,90 @@ class HnswBuilder:
                 adj_dev[l], deg_dev[l], vecs, vn, a_ids, cand, M=cfg.M,
                 cap=cap_l, metric=cfg.metric, of_t=of_t, new_w=new_w)
             self._of_monitor.append((l, of_e, of_tc, of_t, new_w))
+            if collect is not None:
+                rows = adj_dev[l][a_ids.long()].cpu().numpy()
+                collect.setdefault(l, []).extend((
+                    a_ids.cpu().numpy().astype(np.int64),
+                    np.unique(rows[rows >= 0]).astype(np.int64)))
         spans.add("apply", t2, spans.stamp())
+
+    def _insert_batch(self, ids, levels, entry, cur_maxlevel, vecs, vn,
+                      adj_np, adj_dev, spans):
+        """The host-planned insert batch, for ids in any order (reused
+        slots): the same searches, then per level the forward prune (Kγ)
+        and scatter on the device and the reverse connections planned on the
+        host against the mirror ``adj_np``. Device rows and mirror rows are
+        written together. Returns the ids of every row written."""
+        cfg = self.cfg
+        dev = vecs.device
+        lp_eff = np.minimum(levels[ids], cur_maxlevel).astype(np.int32)
+        q = vecs[_to_dev(ids.astype(np.int64), dev)]
+        i0, up, cand_up = self._search_batch(q, lp_eff, entry, cur_maxlevel,
+                                             vecs, vn, adj_dev, spans)
+        t2 = spans.stamp()
+        touched = []
+        for l in range(int(lp_eff.max(initial=0)), -1, -1):
+            cap_l = cfg.maxM0 if l == 0 else cfg.maxM
+            aidx = np.nonzero(lp_eff >= l)[0]
+            a_ids = ids[aidx]
+            if l == 0:
+                cand = i0
+            else:
+                pos = np.searchsorted(up, aidx)
+                cand = cand_up[l][_to_dev(pos.astype(np.int64), dev)]
+            a_dev = _to_dev(a_ids.astype(np.int32), dev)
+            # forward selection: heuristic to M with the under-M early-out
+            sel, _ = prune_batch(vecs, vn, a_dev, cand, cand >= 0, M=cfg.M,
+                                 keep_all_under_m=True, metric=cfg.metric)
+            fwd = torch.nn.functional.pad(sel, (0, cap_l - cfg.M), value=-1)
+            adj_dev[l][a_dev.long()] = fwd
+            targets, rows = self._reverse_connect(
+                a_dev, sel, adj_np[l], cap_l, vecs, vn)
+            if len(targets):
+                adj_dev[l][_to_dev(targets, dev)] = _to_dev(rows, dev)
+            adj_np[l][a_ids] = fwd.cpu().numpy()
+            adj_np[l][targets] = rows
+            touched += [a_ids.astype(np.int64), targets]
+        spans.add("apply", t2, spans.stamp())
+        return np.unique(np.concatenate(touched))
+
+    def _reverse_connect(self, a_dev, sel, adj_l, cap_l, vecs, vn):
+        """Reverse edges u -> p for each forward edge p -> u of ``sel``
+        (hnswalg.h:618-687), planned on the host against the mirror rows
+        ``adj_l``: the edge list stably sorted by target (Kι), appended in
+        that order while the target's row has room, else {row ∪ the first
+        64 new edges in arrival order} re-pruned to the cap (Kγ). Returns
+        (targets int64[U] ascending, their new rows i32[U, cap_l])."""
+        us, ps = revconn.reverse_edges(a_dev, sel)
+        us, ps = us.cpu().numpy(), ps.cpu().numpy()
+        ps = ps[us < revconn.BIG]
+        us = us[us < revconn.BIG]
+        if not len(us):
+            return np.zeros(0, np.int64), np.zeros((0, cap_l), np.int32)
+        uniq, starts, counts = np.unique(us, return_index=True,
+                                         return_counts=True)
+        col = np.arange(len(us)) - np.repeat(starts, counts)
+        row = np.repeat(np.arange(len(uniq)), counts)
+        existing = adj_l[uniq]
+        ne = (existing >= 0).sum(axis=1)
+        out = existing.copy()
+        fits = ne + counts <= cap_l
+        pf = fits[row]
+        out[row[pf], ne[row[pf]] + col[pf]] = ps[pf]
+        of = np.nonzero(~fits)[0]
+        if len(of):
+            dev = vecs.device
+            new = np.full((len(uniq), 64), -1, np.int32)
+            first = col < 64
+            new[row[first], col[first]] = ps[first]
+            cand = _to_dev(np.concatenate([existing[of], new[of]], axis=1),
+                           dev)
+            osel, _ = prune_batch(
+                vecs, vn, _to_dev(uniq[of].astype(np.int32), dev), cand,
+                cand >= 0, M=cap_l, keep_all_under_m=False,
+                metric=self.cfg.metric, out_width=cap_l)
+            out[of] = osel.cpu().numpy()
+        return uniq.astype(np.int64), out
 
     def _check_overflow_monitor(self, verbose: bool) -> None:
         """Read the per-apply overflow counters (one transfer) into

@@ -371,11 +371,25 @@ def convert_to_slimzero(lg: LevelGraph, vectors: torch.Tensor,
     )
 
 
+def _pad_to_len(a: np.ndarray, size: int, fill: int) -> np.ndarray:
+    """``a`` extended along axis 0 to ``size`` rows of ``fill``."""
+    if a.shape[0] >= size:
+        return a
+    pad = np.full((size - a.shape[0],) + a.shape[1:], fill, a.dtype)
+    return np.concatenate([a, pad])
+
+
 def pack_chal_arrays(per_level_rows: list[np.ndarray], levels: np.ndarray,
                      entry: int, max_level: int, threshold_level: int,
-                     cap0: int, cap: int, device) -> ChalGraph:
+                     cap0: int, cap: int, device, return_host: bool = False):
     """CHAL packing: flat neighbor ids grouped per node, per level, with
-    absolute prefix offsets (native single pass, numpy fallback)."""
+    absolute prefix offsets (native single pass, numpy fallback).
+
+    ``device=None`` uploads nothing: the ChalGraph then holds CPU tensors
+    over the host arrays, for a serving stack that reads only the dense
+    layouts and keeps the flat CHAL for patches and persistence.
+    ``return_host=True`` also returns the host numpy dict {nbr, lvl_off,
+    level}, so that patch and persist consumers never pull the arrays back."""
     n = len(levels)
     lcnt = max_level + 1
     packed = native.chal_pack(per_level_rows, levels)
@@ -402,8 +416,13 @@ def pack_chal_arrays(per_level_rows: list[np.ndarray], levels: np.ndarray,
     e_pad = max(1024, _next_pow2(total))
     flat = np.full(e_pad, -1, np.int32)
     flat[:total] = nbr[:total]
-    return ChalGraph.from_numpy(
-        flat, lvl_off, levels, entry=entry, max_level=max_level,
-        threshold_level=threshold_level, cap0=cap0, cap=cap, device=device,
+    host = dict(nbr=flat, lvl_off=np.ascontiguousarray(lvl_off, np.int32),
+                level=np.ascontiguousarray(levels, np.int32))
+    graph = ChalGraph.from_numpy(
+        host["nbr"], host["lvl_off"], host["level"], entry=entry,
+        max_level=max_level, threshold_level=threshold_level, cap0=cap0,
+        cap=cap, device="cpu" if device is None else device,
+        # level -1 marks capacity-padding rows: the logical count has none
         n_real=int((levels >= 0).sum()),
     )
+    return (graph, host) if return_host else graph

@@ -7,11 +7,12 @@ at one level, in the JAX program's order:
    (kernel Kγ);
 2. forward scatter of those rows and their degrees;
 3. the reverse edges u -> p, stably sorted by target u, so that a target's
-   new edges come in ascending inserter order (``torch.sort(stable=True)``,
-   glue: a hand sort is still to port);
+   new edges come in ascending inserter order (kernel Kι);
 4. fitting appends at column deg[u] + rank within the target's run, and the
    degree update (kernel Kζ);
-5. the first ``of_t`` overflow targets in ascending id order re-pruned over
+5. the overflow edges sorted by target again and the first-of-run targets
+   sorted alone (Kι twice more), then the first ``of_t`` overflow targets
+   in ascending id order re-pruned over
    {row ∪ their first ``new_w`` new edges} down to the cap: Kζ assembles the
    candidate rows, Kγ prunes them, Kζ writes them back.
 
@@ -133,6 +134,40 @@ def write_rows(adj, deg, ut, osel, ocnt):
                     entry="rev_write_rows")
 
 
+def kv_sort_plain(keys, payload=None):
+    """Plain PyTorch Kι: keys i32[E] ascending, equal keys in input order,
+    with payload i32[E] (or None) carried along. Returns (keys, payload)."""
+    out, order = torch.sort(keys, stable=True)
+    return out, None if payload is None else payload[order]
+
+
+SORT_TILE = 4096  # words per shared-memory tile of csrc/kv_sort.cu
+
+
+def kv_sort(keys, payload=None):
+    """Kι (csrc/kv_sort.cu): stable ascending sort of keys i32[E] carrying
+    payload i32[E] (None: keys only). CPU tensors run ``kv_sort_plain``.
+    Returns new contiguous (keys, payload); nothing is read back."""
+    if not keys.is_cuda:
+        return kv_sort_plain(keys, payload)
+    e = keys.shape[0]
+    cuda.require(keys, torch.int32, "keys", (e,))
+    if payload is not None:
+        cuda.require(payload, torch.int32, "payload", (e,))
+    if e > BIG:
+        raise ValueError(f"kv_sort: {e} keys (> 2^30)")
+    out_k = torch.empty_like(keys)
+    out_p = None if payload is None else torch.empty_like(payload)
+    if e:
+        e_pad = max(SORT_TILE, 1 << (e - 1).bit_length())
+        scratch = torch.empty((e_pad,), dtype=torch.int64, device=keys.device)
+        cuda.launch("kv_sort", keys.data_ptr(),
+                    None if payload is None else payload.data_ptr(), e, e_pad,
+                    scratch.data_ptr(), out_k.data_ptr(),
+                    None if payload is None else out_p.data_ptr())
+    return out_k, out_p
+
+
 def reverse_edges(a_ids, sel):
     """The reverse-edge list of forward rows sel i32[P, M] (-1 padded) of
     inserted nodes a_ids i32[P], stably sorted by target: (us i32[E],
@@ -140,8 +175,7 @@ def reverse_edges(a_ids, sel):
     p_rows, m = sel.shape
     u = torch.where(sel >= 0, sel, BIG).reshape(-1)
     p = a_ids[:, None].expand(p_rows, m).reshape(-1)
-    us, order = torch.sort(u, stable=True)
-    return us.contiguous(), p[order].contiguous()
+    return kv_sort(u.contiguous(), p.contiguous())
 
 
 def overflow_targets(us, ps, ovf, of_t: int):
@@ -149,15 +183,14 @@ def overflow_targets(us, ps, ovf, of_t: int):
     ascending id order (padding 2^30). Returns (of_u, of_p, ut, of_edges,
     of_targets) — the last two are device scalars."""
     of_edges = ovf.sum(dtype=torch.int32)
-    of_u, order = torch.sort(torch.where(ovf, us, BIG), stable=True)
-    of_p = ps[order].contiguous()
+    of_u, of_p = kv_sort(torch.where(ovf, us, BIG), ps)
     valid = of_u < BIG
     first = valid.clone()
     first[1:] &= of_u[1:] != of_u[:-1]
     of_targets = first.sum(dtype=torch.int32)
     t = min(of_t, us.shape[0])
-    ut = torch.sort(torch.where(first, of_u, BIG)).values[:t].contiguous()
-    return of_u.contiguous(), of_p, ut, of_edges, of_targets
+    ut = kv_sort(torch.where(first, of_u, BIG))[0][:t].contiguous()
+    return of_u, of_p, ut, of_edges, of_targets
 
 
 def apply_insert(adj, deg, vecs, vn, a_ids, cand, *, M: int, cap: int,

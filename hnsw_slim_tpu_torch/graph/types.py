@@ -56,6 +56,25 @@ class ChalGraph:
                    + 4 * total_nbrs)
 
 
+def pad_chal_nodes(chal: ChalGraph, multiple: int = 65536) -> ChalGraph:
+    """Pad the node dimension to a multiple, so that serving arrays keep
+    their size across updates. Padding rows: level -1 and saturated (empty)
+    offset slices, unreachable by any traversal."""
+    logical = chal.n
+    n = chal.level.shape[0]
+    n_pad = -(-n // multiple) * multiple
+    if n_pad == n:
+        return chal if chal.n_real else dataclasses.replace(chal, n_real=n)
+    lvl_off = torch.cat([
+        chal.lvl_off,
+        chal.lvl_off[-1, -1].expand(n_pad - n, chal.lvl_off.shape[1])])
+    level = torch.cat([
+        chal.level, torch.full((n_pad - n,), -1, dtype=torch.int32,
+                               device=chal.level.device)])
+    return dataclasses.replace(chal, lvl_off=lvl_off, level=level,
+                               n_real=logical)
+
+
 @dataclasses.dataclass(frozen=True)
 class LevelGraph:
     """Unpruned build-time HNSW adjacency: one dense padded array per level,

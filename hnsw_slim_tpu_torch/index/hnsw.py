@@ -5,12 +5,20 @@ The index holds dense per-level adjacency (LevelGraph) and the vectors on
 its device. Builds by insertion rounds (``HnswBuilder``: Kε, Kβ, Kγ, Kζ) or
 by NN-descent; searches by greedy descent (Kε) and the level-0 beam (Kβ),
 filtered in the kernel when the caller passes ``filter_mask``.
-The update flows (``add_points``, ``replace_points``) are not ported yet.
+
+Updates: ``add_points`` appends a batch through the same insert machinery
+into capacity-bucketed arrays, in place; ``replace_points`` reuses deleted
+slots (sever, overwrite, re-insert). Both keep the host mirror
+(``host_adj``) in step and return the ids of every row they wrote: the
+working set of the incremental Slim re-prune (graph/incremental.py). The
+arrays of the pre-update ``graph`` object are the ones updated, so that
+object must not be used afterwards.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -18,7 +26,9 @@ import torch
 from ..config import HnswConfig, SearchConfig
 
 from ..graph import search as gs
-from ..graph.build import HnswBuilder
+from ..graph.build import (HnswBuilder, _compact_rows, _Spans, _to_dev,
+                           sample_levels)
+from ..graph.prune import _pad_to_len
 from ..graph.types import LevelGraph
 from ..ops import cuda
 from ..ops.distance import sq_norms
@@ -42,6 +52,25 @@ def filter_iters(max_iters: int, mask: np.ndarray) -> int:
     allowed share (floored at 5%), as in the JAX package."""
     density = max(float(np.mean(mask)), 0.05)
     return int(max_iters / density) + 8
+
+
+def row_deg_plain(a: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch Kθ: per row of a i32[N, cap], the count of ids >= 0."""
+    return (a >= 0).sum(1, dtype=torch.int32)
+
+
+def _row_deg(a: torch.Tensor) -> torch.Tensor:
+    """Kθ (csrc/row_deg.cu): row occupancy i32[N] of an adjacency
+    i32[N, cap]. Every writer keeps rows left-packed, so this is the degree
+    the insert apply appends against. CPU tensors run ``row_deg_plain``."""
+    if not a.is_cuda:
+        return row_deg_plain(a)
+    n, cap = a.shape
+    cuda.require(a, torch.int32, "a", (n, cap))
+    deg = torch.empty((n,), dtype=torch.int32, device=a.device)
+    if n:
+        cuda.launch("row_deg", a.data_ptr(), n, cap, deg.data_ptr())
+    return deg
 
 
 def _check(ok, msg: str) -> None:
@@ -74,6 +103,9 @@ class HnswIndex:
         self.last_stats: dict = {}
         # insertion build: phase seconds and overflow counters (HnswBuilder)
         self.build_stats: dict = {}
+        # the last add_points / replace_points: seconds by step, the device
+        # spans of its batches, overflow counters, rows touched
+        self.last_update_stats: dict = {}
 
     def build(self, vectors: np.ndarray, verbose: bool = False) -> None:
         if self.cfg.store_dtype != "float32":
@@ -100,10 +132,183 @@ class HnswIndex:
         else:
             raise ValueError(f"unknown build strategy {strategy!r}")
 
+    def _marks(self):
+        """A stopwatch for the update flows: mark(name) stores the host
+        seconds since the last mark, the card's queued work included."""
+        marks: dict = {}
+        t = [time.perf_counter()]
+
+        def mark(name: str) -> None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize()
+            now = time.perf_counter()
+            marks[name] = marks.get(name, 0.0) + now - t[0]
+            t[0] = now
+
+        return marks, mark
+
+    def _grow_capacity(self, n_new: int, lmax_new: int, bucket: int = 16384):
+        """Grow vectors, adjacency and levels to a capacity that is a
+        multiple of ``bucket`` and holds n_new points, and the adjacency to
+        lmax_new levels. A batch then costs no copy of the vectors until the
+        bucket is full. Padding rows carry level -1 and no edges, so no
+        traversal reaches them; the logical count is the graph's ``n_real``.
+        Returns (host mirror, device adjacency), both lists by level; the
+        existing device arrays are kept where they already fit."""
+        dev = self.device
+        cap_cur = int(self.vectors.shape[0])
+        cap_new = -(-max(n_new, cap_cur) // bucket) * bucket
+        adj_np = self.host_adj()
+        lmax_old = self.graph.max_level
+        lmax = max(lmax_new, lmax_old)
+        caps = [self.cfg.maxM0] + [self.cfg.maxM] * lmax
+        self.levels = np.asarray(self.levels, np.int32)
+        if cap_new > cap_cur:
+            self.vectors = torch.cat([
+                self.vectors,
+                torch.zeros((cap_new - cap_cur, self.vectors.shape[1]),
+                            dtype=self.vectors.dtype, device=dev)])
+            adj_np = [_pad_to_len(a, cap_new, -1) for a in adj_np]
+        self.levels = _pad_to_len(self.levels, cap_new, -1)
+        adj_dev = []
+        for l in range(lmax + 1):
+            if l <= lmax_old:
+                d = self.graph.adjs[l]
+                if d.shape[0] < cap_new:
+                    d = torch.cat([d, torch.full(
+                        (cap_new - d.shape[0], d.shape[1]), -1,
+                        dtype=torch.int32, device=dev)])
+            else:
+                d = torch.full((cap_new, caps[l]), -1, dtype=torch.int32,
+                               device=dev)
+                adj_np.append(np.full((cap_new, caps[l]), -1, np.int32))
+            adj_dev.append(d)
+        self._adj_np = adj_np
+        return adj_np, adj_dev
+
+    def add_points(self, new_vectors: np.ndarray,
+                   verbose: bool = False) -> np.ndarray:
+        """Insert a batch into the existing graph (the reference's addPoint
+        loop), in place on capacity-bucketed arrays: only the batch goes up
+        to the device. Levels are drawn from ``seed + n`` of before the
+        batch. Returns the ids of every vanilla row the insert wrote (the
+        new nodes and their reverse-connect targets), and sets
+        ``last_update_stats``."""
+        marks, mark = self._marks()
+        new_np = np.asarray(new_vectors, np.float32)
+        b = len(new_np)
+        n_old = self.graph.n
+        n_new = n_old + b
+        new_levels = sample_levels(b, self.cfg.mult, self.cfg.seed + n_old)
+        lmax_old = self.graph.max_level
+        lmax = max(lmax_old, int(new_levels.max(initial=0)))
+        adj_np, adj_dev = self._grow_capacity(n_new, lmax)
+        mark("grow")
+        self.levels = self.levels.copy()
+        self.levels[n_old:n_new] = new_levels
+        self.vectors[n_old:n_new] = torch.as_tensor(new_np,
+                                                    device=self.device)
+        self.vn = sq_norms(self.vectors)
+        mark("vectors")
+        # rows are left-packed, so occupancy is the count of ids
+        deg_dev = [_row_deg(a) for a in adj_dev]
+        ins = HnswBuilder(self.cfg, self.max_batch)
+        spans = _Spans(self.device)
+        collect: dict = {}
+        entry, _ = ins._insert_range(
+            n_old, n_new, self.levels, int(self.graph.entry), lmax_old,
+            self.vectors, self.vn, adj_dev, deg_dev, spans, verbose,
+            collect=collect)
+        ins._check_overflow_monitor(verbose)
+        mark("insert_batches")
+        # one host-mirror sync per level over every touched row
+        touched = [np.zeros(0, np.int64)]
+        for l, parts in collect.items():
+            rows = np.unique(np.concatenate(parts))
+            touched.append(rows)
+            adj_np[l][rows] = adj_dev[l][_to_dev(rows, self.device)] \
+                .cpu().numpy()
+        self.graph = LevelGraph(
+            adjs=tuple(adj_dev),
+            level=torch.as_tensor(self.levels, device=self.device),
+            entry=entry, max_level=lmax, n_real=n_new)
+        mark("mirror_sync")
+        out = np.unique(np.concatenate(touched))
+        self.last_update_stats = {
+            "seconds": marks, "phase_s": spans.totals(),
+            "overflow": ins.overflow, "touched": len(out)}
+        return out
+
+    def replace_points(self, slots: np.ndarray, new_vectors: np.ndarray):
+        """Reuse deleted slots for new vectors (the reference's
+        replace_deleted path): sever every edge from and to a slot,
+        overwrite its vector, draw it a fresh level (clamped to the graph's
+        max_level, so that a reused slot never adds a level), and re-insert
+        it through the host-planned insert batch. Returns (touched row ids,
+        ids whose level changed), and sets ``last_update_stats``."""
+        marks, mark = self._marks()
+        dev = self.device
+        slots = np.asarray(slots, np.int64)
+        if len(slots) != len(new_vectors):
+            raise ValueError("replace_points: one vector per slot")
+        slots_dev = _to_dev(slots, dev)
+        self.vectors[slots_dev] = torch.as_tensor(
+            np.asarray(new_vectors, np.float32), device=dev)
+        levels_arr = np.asarray(self.levels, np.int32).copy()
+        is_slot = torch.zeros(self.vectors.shape[0], dtype=torch.bool,
+                              device=dev)
+        is_slot[slots_dev] = True
+        touched = [slots]
+        adj_np = self.host_adj()
+        adj_dev = list(self.graph.adjs)
+        for l, a in enumerate(adj_dev):
+            # rows holding an edge to a slot; only those and the slots' own
+            # rows change, so only they are compacted and shipped
+            hit = is_slot[a.clamp(min=0).long()] & (a >= 0)
+            in_rows = hit.any(dim=1).nonzero()[:, 0]
+            touched.append(in_rows.cpu().numpy())
+            upd = torch.unique(torch.cat([slots_dev, in_rows]))
+            rows = torch.where(hit[upd], -1, a[upd])
+            rows[is_slot[upd]] = -1
+            rows_np = _compact_rows(rows.cpu().numpy())
+            a[upd] = _to_dev(rows_np, dev)
+            adj_np[l][upd.cpu().numpy()] = rows_np
+        mark("sever")
+        old_levels = levels_arr[slots].copy()
+        lmax = self.graph.max_level
+        levels_arr[slots] = np.minimum(sample_levels(
+            len(slots), self.cfg.mult, self.cfg.seed + int(slots[0])), lmax)
+        level_changed = slots[levels_arr[slots] != old_levels]
+        self.vn = sq_norms(self.vectors)
+        entry = int(self.graph.entry)
+        cur_maxlevel = lmax
+        if bool(is_slot[entry]):  # the entry point was replaced: promote
+            entry = int(np.nonzero(levels_arr == levels_arr.max())[0][0])
+            cur_maxlevel = int(levels_arr[entry])
+        ins = HnswBuilder(self.cfg, self.max_batch)
+        spans = _Spans(dev)
+        for s in range(0, len(slots), self.max_batch):
+            touched.append(ins._insert_batch(
+                slots[s:s + self.max_batch], levels_arr, entry, cur_maxlevel,
+                self.vectors, self.vn, adj_np, adj_dev, spans))
+        mark("insert_batches")
+        self.levels = levels_arr
+        self.graph = LevelGraph(
+            adjs=tuple(adj_dev),
+            level=torch.as_tensor(levels_arr, device=dev), entry=entry,
+            max_level=lmax, n_real=self.graph.n)
+        out = np.unique(np.concatenate(touched))
+        self.last_update_stats = {"seconds": marks,
+                                  "phase_s": spans.totals(),
+                                  "touched": len(out)}
+        return out, level_changed
+
     def host_adj(self) -> list[np.ndarray]:
-        """Host mirror of the per-level adjacency (pulled once, lazily)."""
+        """Host mirror of the per-level adjacency: pulled once, lazily, then
+        kept in step by add_points and replace_points."""
         if self._adj_np is None:
-            self._adj_np = [a.cpu().numpy() for a in self.graph.adjs]
+            self._adj_np = [a.cpu().numpy() if a.is_cuda else a.numpy().copy()
+                            for a in self.graph.adjs]
         return self._adj_np
 
     def set_ef(self, ef: int) -> None:

@@ -316,7 +316,7 @@ class HnswSlimIndex:
             if l != g.threshold_level:
                 _check((levels[ids] == l).all(), f"membership rule @{l}")
             total_edges += int(sizes.sum())
-        return {"edges": total_edges, "bytes": g.chal_bytes()}
+        return {"edges": total_edges, "bytes": self.index_size()}
 
 
 def _timed_call(search_fn, queries, k) -> float:

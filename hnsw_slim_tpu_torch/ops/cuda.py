@@ -33,7 +33,8 @@ PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("topk_dist.cu", "beam_search.cu", "rng_prune.cu", "cand_merge.cu",
-           "greedy_descent.cu", "rev_connect.cu", "fht_rotate.cu")
+           "greedy_descent.cu", "rev_connect.cu", "fht_rotate.cu",
+           "row_deg.cu", "kv_sort.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -41,7 +42,8 @@ NVCC_FLAGS = (
 )
 
 KERNELS = ("topk_dist", "beam_search", "rng_prune", "cand_merge",
-           "greedy_descent", "rev_connect", "fht_rotate")
+           "greedy_descent", "rev_connect", "fht_rotate", "row_deg",
+           "kv_sort")
 MODES = ("topk_dist.strata", "beam_search.chal", "beam_search.rank",
          "beam_search.filtered", "greedy_descent.chal", "greedy_descent.rank",
          "rng_prune.guarded", "topk_dist.estimate", "beam_search.quant",
@@ -108,6 +110,10 @@ _SIGNATURES = {
     "hs_rev_overflow_rows": [P, I32, P, P, I32, P, I32, I32, P, P, P],
     # adj, deg, cap, ut, T, osel, ocnt, stream
     "hs_rev_write_rows": [P, P, I32, P, I32, P, P, P],
+    # a, N, cap, deg, stream
+    "hs_row_deg": [P, I32, I32, P, P],
+    # keys, payload, E, E_pad, scratch, keys_out, payload_out, stream
+    "hs_kv_sort": [P, P, I32, I32, P, P, P, P],
 }
 
 _LIB = None

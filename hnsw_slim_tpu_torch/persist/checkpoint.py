@@ -14,7 +14,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..config import HnswConfig, SearchConfig
+from ..config import HnswConfig, SearchConfig, SlimConfig
 
 from ..graph.types import ChalGraph, LevelGraph
 from ..ops.distance import sq_norms
@@ -143,9 +143,40 @@ def load_hnsw(path: str | Path, device=None):
             max_level=meta["max_level"], device=idx.device,
         )
         idx.levels = np.asarray(z["level"])
+        # the host adjacency mirror comes from the file, not from the device
+        idx._adj_np = [np.array(a, np.int32) for a in adjs]
         idx.vectors = torch.as_tensor(z["vectors"], device=idx.device)
         idx.vn = sq_norms(idx.vectors)
     return idx
+
+
+def incremental_from_state(state: dict, cfg: SlimConfig, *, zero: bool = False,
+                           metric: str = "l2",
+                           count_level0_hubs: bool = False, device=None):
+    """An ``IncrementalSlim`` (``zero=True``: ``IncrementalSlimZero``) over
+    the state arrays of another engine's object, given as numpy: ``thr``,
+    ``budgets``, ``final``, ``levels``, ``entry``, ``lmax``, ``caps`` and,
+    for Slim, ``stage2``, ``keys``, ``out_ws``, ``repair_keys`` (lists by
+    level where the state is per level). Everything is copied. Returns
+    (object, its ChalGraph packed onto ``device``), so that ``full`` can run
+    in one engine and ``update`` in the other."""
+    from ..graph import incremental as inc
+    from ..ops.cuda import resolve_device
+
+    cls = inc.IncrementalSlimZero if zero else inc.IncrementalSlim
+    obj = cls(cfg, metric=metric, count_level0_hubs=count_level0_hubs)
+    obj.thr = np.array(state["thr"], np.int64)
+    obj.levels = np.array(state["levels"], np.int32)
+    obj.entry, obj.lmax = int(state["entry"]), int(state["lmax"])
+    obj.caps = [int(c) for c in state["caps"]]
+    obj.budgets = [np.array(b, np.int32) for b in state["budgets"]]
+    obj.final = [np.array(f, np.int32) for f in state["final"]]
+    if not zero:
+        obj.stage2 = [np.array(a, np.int32) for a in state["stage2"]]
+        obj.keys = [np.array(k, np.int64) for k in state["keys"]]
+        obj.out_ws = [int(w) for w in state["out_ws"]]
+        obj.repair_keys = np.array(state["repair_keys"], np.int64)
+    return obj, inc._pack(obj, resolve_device(device))
 
 
 def save_hnsw(path: str | Path, index) -> None:

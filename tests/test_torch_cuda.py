@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (Kα–Kη, and their fetch-form, filtered, strata,
-guarded, quantized-scorer and rerank-track modes) against their plain
+"""The port's CUDA kernels (Kα–Kι, and their fetch-form, filtered, strata,
+guarded, quantized-scorer, rerank-track and collect modes) against their plain
 PyTorch versions on the card. Marked ``cuda``; each test skips when no CUDA device is present.
 The machine with the card has no JAX, so run these without the suite's
 conftest (which imports JAX):
@@ -638,3 +638,178 @@ def test_slimq_search_on_card(data, slimq_index):
                           search_cfg=dataclasses.replace(idx.scfg))
     back.set_dataset(xs)
     assert (back.search(qs, 10)[1] == outs[(0, True)]).all()
+
+
+# ---- the update path: Kθ row_deg, Kι kv_sort, collect-mode applies
+
+
+@pytest.mark.parametrize("n,cap", [(0, 60), (1, 60), (1000, 30), (4097, 60),
+                                   (20000, 7), (3, 100)])
+def test_row_deg_kernel_matches_plain(n, cap):
+    """Kθ against (a >= 0).sum(1): integers, exactly equal; rows with
+    holes, empty rows, widths below and above a warp."""
+    from hnsw_slim_tpu_torch.index import hnsw as thnsw
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(n + cap)
+    a = torch.randint(-1, 1000, (n, cap), generator=g, device="cuda",
+                      dtype=torch.int32)
+    a[torch.rand((n, cap), generator=g, device="cuda") < 0.3] = -1
+    if n > 1:
+        a[0], a[1] = -1, 5
+    got = thnsw._row_deg(a)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32
+    assert torch.equal(got, thnsw.row_deg_plain(a))
+
+
+@pytest.mark.parametrize("e", [0, 1, 2, 777, 4096, 4097, 30000, 122880,
+                               300001])
+@pytest.mark.parametrize("keys", ["ties", "equal", "padding", "spread",
+                                  "negative"])
+def test_kv_sort_kernel_matches_plain(e, keys):
+    """Kι against torch.sort(stable=True): keys and payload exactly equal
+    for sizes that are 0, 1, a tile, not a power of two and beyond one
+    tile, with many ties, all keys equal, all keys the 2^30 padding, keys
+    spread over [0, 2^30] and negative keys; and the key-only form."""
+    from hnsw_slim_tpu_torch.graph import revconn
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(e)
+    hi = {"ties": 40, "spread": revconn.BIG + 1}.get(keys, 2)
+    u = torch.randint(0, hi, (e,), generator=g, device="cuda",
+                      dtype=torch.int32)
+    if keys == "ties":
+        u[torch.rand((e,), generator=g, device="cuda") < 0.25] = revconn.BIG
+    elif keys == "equal":
+        u.fill_(7)
+    elif keys == "padding":
+        u.fill_(revconn.BIG)
+    elif keys == "negative":
+        u = u * -2000000000 + torch.randint(-5, 5, (e,), generator=g,
+                                            device="cuda", dtype=torch.int32)
+    p = torch.randint(0, 10**6, (e,), generator=g, device="cuda",
+                      dtype=torch.int32)
+    ku, kp = revconn.kv_sort(u, p)
+    k_only, none = revconn.kv_sort(u)
+    torch.cuda.synchronize()
+    pu, pp = revconn.kv_sort_plain(u, p)
+    assert torch.equal(ku, pu) and torch.equal(kp, pp)
+    assert torch.equal(k_only, pu) and none is None
+
+
+def test_collect_mode_apply_matches_plain(data, insert_index):
+    """One level-0 apply in collect mode (of_t 16384, new_w 32) into the
+    20k graph, its reverse edges crowded onto 2000 targets so that their
+    rows overflow: Kζ and Kγ
+    through apply_insert against the plain versions on copies of the same
+    state: adjacency, degrees and both counters exactly equal."""
+    from hnsw_slim_tpu_torch.graph import heuristic, revconn
+    from hnsw_slim_tpu_torch.index import bruteforce as bf
+    from hnsw_slim_tpu_torch.index.hnsw import _row_deg
+
+    x, xn, _ = data
+    h, _ = insert_index
+    n = h.graph.n
+    a_ids = torch.arange(n - 1000, n, dtype=torch.int32, device="cuda")
+    # candidates among 2000 nodes only, so that their rows overflow
+    _, cand = bf.topk_dist(x[n - 1000:], x[:2000].contiguous(),
+                           xn[:2000].contiguous(), 64)
+    cand = cand.to(torch.int32).contiguous()
+    kw = dict(M=h.cfg.M, cap=h.cfg.maxM0, metric="l2", of_t=16384, new_w=32)
+    adj_k = h.graph.adjs[0].clone()
+    adj_k[n - 1000:] = -1
+    adj_k[(adj_k >= n - 1000)] = -1
+    from hnsw_slim_tpu_torch.graph.build import _compact_rows
+    adj_k = torch.as_tensor(_compact_rows(adj_k.cpu().numpy()), device="cuda")
+    adj_p = adj_k.clone()
+    deg_k, deg_p = _row_deg(adj_k), _row_deg(adj_p)
+    ek, tk = revconn.apply_insert(adj_k, deg_k, x, xn, a_ids, cand, **kw)
+    names = ("rng_prune", "kv_sort", "rev_append", "overflow_rows",
+             "write_rows")
+    real = {k: getattr(revconn, k) for k in names}
+    plain = dict(
+        rng_prune=lambda *a, m_max=None, **k: heuristic.rng_prune_plain(
+            *a, **k),
+        kv_sort=revconn.kv_sort_plain, rev_append=revconn.rev_append_plain,
+        overflow_rows=revconn.overflow_rows_plain,
+        write_rows=revconn.write_rows_plain)
+    try:
+        for k, v in plain.items():
+            setattr(revconn, k, v)
+        ep, tp = revconn.apply_insert(adj_p, deg_p, x, xn, a_ids, cand, **kw)
+    finally:
+        for k, v in real.items():
+            setattr(revconn, k, v)
+    assert int(ek) > 0 and int(tk) > 100
+    assert (int(ek), int(tk)) == (int(ep), int(tp))
+    same = (adj_k == adj_p).all(dim=1)
+    assert same.float().mean() >= 0.999  # a near-tie may keep another id
+    assert torch.equal(deg_k[same], deg_p[same])
+    assert torch.equal(deg_k, _row_deg(adj_k))
+
+
+def test_add_points_and_update_round_on_card(data):
+    """One add_points + IncrementalSlim.update round at 20k points on the
+    card: the update path launches Kθ, Kι, Kζ, Kγ, Kβ and Kε, the mirror
+    equals the device graph, the incremental graph equals a fresh
+    convert_to_slim, the patch applies onto a client copy, and the new
+    points are found."""
+    from hnsw_slim_tpu_torch.config import (HnswConfig, SearchConfig,
+                                            SlimConfig)
+    from hnsw_slim_tpu_torch.graph.incremental import IncrementalSlim
+    from hnsw_slim_tpu_torch.graph.prune import convert_to_slim
+    from hnsw_slim_tpu_torch.index.hnsw import HnswIndex
+    from hnsw_slim_tpu_torch.index.slim import HnswSlimIndex
+    from hnsw_slim_tpu_torch.ops import cuda
+    from hnsw_slim_tpu_torch.persist import patch as tpatch
+
+    x, _, _ = data
+    base = x.cpu().numpy()
+    h = HnswIndex(HnswConfig(M=16, ef_construction=64), strategy="insert",
+                  device="cuda")
+    h.build(base[:19000])
+    scfg = SlimConfig.from_ratios()
+    inc = IncrementalSlim(scfg)
+
+    def args():
+        return (h.host_adj(), h.levels, int(h.graph.entry), h.vectors, h.vn)
+
+    g0 = inc.full(*args())
+    cuda.reset_launches()
+    touched = h.add_points(base[19000:])
+    g1, changed = inc.update(*args(), touched=touched)
+    torch.cuda.synchronize()
+    for name in ("row_deg", "kv_sort", "rev_connect", "rng_prune",
+                 "beam_search", "greedy_descent"):
+        assert cuda.launches[name] > 0, name
+    assert h.graph.n == 20000 and h.graph.level.shape[0] == 32768
+    for m, dv in zip(h.host_adj(), h.graph.adjs):
+        assert np.array_equal(m, dv.cpu().numpy())
+    h.check_integrity()
+    assert h.last_update_stats["overflow"]["truncated_applies"] == 0
+    fresh = convert_to_slim(h.graph, h.vectors, h.vn, scfg)
+    cf, ci = tpatch.to_np(fresh), inc.host_chal
+    for l in range(fresh.max_level + 1):
+        cap_l = fresh.cap0 if l == 0 else fresh.cap
+        a = tpatch._level_rows(cf, l, 20000, cap_l)
+        b = tpatch._level_rows(ci, l, 20000, cap_l)
+        assert (a == b).all(axis=1).mean() >= 0.999, l
+    old = [int(v) for v in changed if v < 19000]
+    w = tpatch.PatchWriter(g1, old, list(range(19000, 20000)), vectors=base,
+                           host_chal=inc.host_chal)
+    blob, finished = w.next_chunk()
+    client, vecs = tpatch.apply_patch(g0, blob, base[:19000].copy())
+    assert finished and client.n == 20000 and np.array_equal(vecs, base)
+    cc = tpatch.to_np(client)
+    for l in range(g1.max_level + 1):
+        cap_l = g1.cap0 if l == 0 else g1.cap
+        assert np.array_equal(tpatch._level_rows(cc, l, 20000, cap_l),
+                              tpatch._level_rows(ci, l, 20000, cap_l))
+    s = HnswSlimIndex(search_cfg=SearchConfig(ef=64, pop_width=8,
+                                              seed_width=32), device="cuda")
+    s.graph, s.vectors, s.vn, s.host_chal = g1, h.vectors, h.vn, ci
+    _, ids = s.search(base[19000:], 1)
+    assert (ids[:, 0] == np.arange(19000, 20000)).mean() >= 0.9

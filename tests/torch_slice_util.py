@@ -251,3 +251,202 @@ def jax_insert_dir(tmp_path_factory):
         np.savez(d / "capture.tmp.npz", **rec)
         os.replace(d / "capture.tmp.npz", d / "capture.npz")
     return d
+
+
+# ---- the update path (test_torch_updates.py, test_torch_incremental.py,
+# ---- test_torch_patch.py)
+
+UPD_CFG = HnswConfig(M=8, ef_construction=48, branching_factor="8", seed=5)
+UPD_SLIM = SlimConfig(top_M0=10, low_m0=4, top_M=6, low_m=3)
+UPD_BATCH = 512  # max_batch of the JAX build
+UPD_ADD, UPD_REP = 120, 60  # points per add batch, reused slots
+UPD_STEPS = 4  # three add batches, then one replace batch
+UPD_EF = 48
+INC_KEYS = ("budgets", "stage2", "keys", "final")  # per-level state lists
+
+
+def replay_padding_fault(monkeypatch):
+    """Replays the JAX insert batch's padding fault in the port (ROADMAP
+    queue 3): the first upper-level insert of a batch gets only the entry
+    point as its level-0 candidates. It lives in the bulk insert batch
+    (builds, add_points), not in the host-planned one (replace_points).
+    Returns the port's unpatched _build_search."""
+    from hnsw_slim_tpu_torch.graph import build as tb
+
+    real = tb._build_search
+
+    def faulty(adjs, entry, vectors, vn, q, lp_eff, **kw):
+        d, ids = real(adjs, entry, vectors, vn, q, lp_eff, **kw)
+        d, ids = d.clone(), ids.clone()
+        ids[0, 0] = -1
+        ids[0, 0, 0] = entry
+        d[0, 0] = float("inf")
+        return d, ids
+
+    monkeypatch.setattr(tb, "_build_search", faulty)
+    return real
+
+
+def update_dataset():
+    """(base f32[2500, 24], three add batches f32[3, 120, 24], reused slots
+    int64[60], their vectors f32[60, 24], queries f32[64, 24]): normal
+    draws, seed 3, as tests/test_incremental.py draws its data."""
+    rng = np.random.default_rng(3)
+    base = rng.standard_normal((2500, 24)).astype(np.float32)
+    adds = rng.standard_normal((3, UPD_ADD, 24)).astype(np.float32)
+    slots = np.sort(rng.choice(2500, size=UPD_REP, replace=False))
+    rep = rng.standard_normal((UPD_REP, 24)).astype(np.float32)
+    queries = rng.standard_normal((64, 24)).astype(np.float32)
+    return base, adds, slots.astype(np.int64), rep, queries
+
+
+def inc_state(inc, zero=False) -> dict:
+    """The state arrays of an IncrementalSlim / IncrementalSlimZero of
+    either engine, as a flat dict of numpy arrays (copies: the objects
+    update their arrays in place)."""
+    out = dict(thr=np.array(inc.thr), levels=np.array(inc.levels),
+               entry=np.int64(inc.entry), lmax=np.int64(inc.lmax),
+               caps=np.array(inc.caps))
+    if not zero:
+        out.update(out_ws=np.array(inc.out_ws),
+                   repair_keys=np.array(inc.repair_keys))
+    for key in ("budgets", "final") if zero else INC_KEYS:
+        for l, a in enumerate(getattr(inc, key)):
+            out[f"{key}_{l}"] = np.array(a)
+    out.update({f"chal_{k}": np.array(v)
+                for k, v in inc.host_chal.items()})
+    return out
+
+
+def state_lists(flat: dict, zero=False) -> dict:
+    """inc_state's flat dict back into per-level lists (the argument of
+    the port's incremental_from_state)."""
+    out = {k: flat[k] for k in ("thr", "levels", "entry", "lmax", "caps")}
+    if not zero:
+        out.update(out_ws=flat["out_ws"], repair_keys=flat["repair_keys"])
+    for key in ("budgets", "final") if zero else INC_KEYS:
+        out[key] = [flat[f"{key}_{l}"] for l in range(int(flat["lmax"]) + 1)]
+    return out
+
+
+def take(z: dict, prefix: str) -> dict:
+    """The entries of a flat record under ``prefix``, prefix removed."""
+    return {k[len(prefix):]: v for k, v in z.items() if k.startswith(prefix)}
+
+
+def patch_chunks(writer, limit: int) -> list:
+    chunks, finished = [], False
+    while not finished:
+        blob, finished = writer.next_chunk(limit)
+        chunks.append(blob)
+    return chunks
+
+
+def server_patch_sets(changed, prev_count: int, n_now: int, reused):
+    """(changed_old, changed_new) as the JAX server classes them: reused
+    slots ship their new vectors, so they count as new."""
+    reused_set = set(int(v) for v in reused)
+    old = sorted(int(v) for v in changed
+                 if v < prev_count and int(v) not in reused_set)
+    new = sorted(set(range(prev_count, n_now)) | reused_set)
+    return old, new
+
+
+def jax_update_dir(tmp_path_factory):
+    """Directory holding the JAX package's run of the update path on
+    update_dataset(): an insertion build with UPD_CFG (hnsw0.npz), three
+    add_points batches and one replace_points batch (hnsw{1..4}.npz through
+    save_hnsw), and rec.npz with, for step s = 1..4, the inputs the JAX
+    IncrementalSlim / IncrementalSlimZero update saw (s{s}_adj{l},
+    s{s}_levels, s{s}_entry, s{s}_touched, s{s}_level_changed), the states
+    after full (i0_*, z0_*) and after each update (i{s}_*, z{s}_*) with the
+    changed ids, the patch chunks of steps 1 and 4 (with and without
+    vectors, limit 3000 B and one chunk), compute_diff of step 1, and the
+    final Slim search (ef UPD_EF, k 10). Built once per test run under a
+    file lock, as jax_graph_dir."""
+    import jax.numpy as jnp
+
+    from hnsw_slim_tpu.graph.incremental import (IncrementalSlim,
+                                                  IncrementalSlimZero)
+    from hnsw_slim_tpu.index.hnsw import HnswIndex
+    from hnsw_slim_tpu.index.slim import HnswSlimIndex
+    from hnsw_slim_tpu.persist import patch as jpatch
+    from hnsw_slim_tpu.persist.checkpoint import save_hnsw
+
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    d = root / "torch_parity_update"
+    d.mkdir(exist_ok=True)
+    with open(d / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if (d / "rec.npz").exists():
+            return d
+        base, adds, slots, rep, queries = update_dataset()
+        rec: dict = {}
+        h = HnswIndex(UPD_CFG, strategy="insert", max_batch=UPD_BATCH)
+        h.build(base)
+        save_hnsw(d / "hnsw0.npz", h)
+        inc = IncrementalSlim(UPD_SLIM, metric="l2")
+        zinc = IncrementalSlimZero(UPD_SLIM, metric="l2")
+
+        def args():
+            return (h.host_adj(), np.asarray(h.levels),
+                    int(np.asarray(h.graph.entry)), h.vectors, h.vn)
+
+        g_prev = inc.full(*args())
+        zinc.full(*args())
+        rec.update({f"i0_{k}": v for k, v in inc_state(inc).items()})
+        rec.update({f"z0_{k}": v for k, v in inc_state(zinc, True).items()})
+        vec_np = base.copy()
+        for s in range(1, UPD_STEPS + 1):
+            prev_count = h.graph.n
+            lc = np.zeros(0, np.int64)
+            reused = np.zeros(0, np.int64)
+            if s <= 3:
+                touched = h.add_points(adds[s - 1])
+                vec_np = np.concatenate([vec_np, adds[s - 1]])
+            else:
+                touched, lc = h.replace_points(slots, rep)
+                vec_np[slots] = rep
+                reused = slots
+            save_hnsw(d / f"hnsw{s}.npz", h)
+            adj, lv, entry, _, _ = args()
+            for l, a in enumerate(adj):
+                rec[f"s{s}_adj{l}"] = np.array(a)
+            rec.update({f"s{s}_levels": np.array(lv), f"s{s}_entry": entry,
+                        f"s{s}_touched": touched, f"s{s}_level_changed": lc,
+                        f"s{s}_vectors": np.array(h.vectors)})
+            g_new, changed = inc.update(*args(), touched=touched,
+                                        level_changed=lc)
+            _, zchanged = zinc.update(*args(), touched=touched,
+                                      level_changed=lc)
+            rec.update({f"i{s}_{k}": v for k, v in inc_state(inc).items()})
+            rec.update({f"z{s}_{k}": v
+                        for k, v in inc_state(zinc, True).items()})
+            rec[f"i{s}_changed"], rec[f"z{s}_changed"] = changed, zchanged
+            if s in (1, 4):
+                old, new = server_patch_sets(changed, prev_count, h.graph.n,
+                                             reused)
+                for tag, vecs in (("v", vec_np), ("n", None)):
+                    for lim in (3000, 1 << 30):
+                        w = jpatch.PatchWriter(g_new, old, new, vectors=vecs,
+                                               host_chal=inc.host_chal)
+                        chunks = patch_chunks(w, lim)
+                        rec[f"p{s}{tag}{lim}_len"] = np.array(
+                            [len(c) for c in chunks])
+                        rec[f"p{s}{tag}{lim}"] = np.frombuffer(
+                            b"".join(chunks), np.uint8)
+                rec[f"p{s}_vectors"] = vec_np.copy()
+            if s == 1:
+                d_old, d_new = jpatch.compute_diff(g_prev, g_new)
+                rec["diff_old"], rec["diff_new"] = (np.asarray(d_old),
+                                                    np.asarray(d_new))
+            g_prev = g_new
+        slim = HnswSlimIndex(metric="l2")
+        slim.graph, slim.vectors, slim.vn = g_prev, h.vectors, h.vn
+        slim.set_ef(UPD_EF)
+        rec["search_d"], rec["search_i"] = slim.search(queries, 10)
+        np.savez(d / "rec.tmp.npz", **rec)
+        os.replace(d / "rec.tmp.npz", d / "rec.npz")
+    return d
