@@ -73,7 +73,25 @@ Phases (one line each on stdout, the kernel table second to last):
      level-0 adjacency, Kι kv_sort on a build batch's and an update
      batch's edge list (beside torch.sort(stable=True)), and Kζ + Kγ on one
      recorded collect-mode apply, against their plain versions;
-  9. output checks (finite, in range, true distances, recall sanity, the
+  9. union and sharded serving, with its own launch counts, on phase 2's
+     data and ground truth: 4 round-robin shards of N / 4 points (the
+     insertion path's HnswConfig and SlimConfig.from_ratios(); build and
+     conversion seconds of each) served as a FlatUnionIndex with dense
+     level 0 at seed_width 32 and 32 x 4 (ef 32..256, beside the single
+     index of phase 2) and at seed_width 0 (ef 64/128: each query once per
+     shard, merged by K19), and as a one-card ShardedSlimIndex with and
+     without dense layouts: sharded equal to the host merge of each shard's
+     own search and to the union with seed_width 0 (slots equal but for
+     near-ties, hops and dcomp the per-shard sums); the same shards as a
+     bf16 union (vector bytes exactly half, recall beside the fp32 union);
+     shard 0 again with a bf16 store (graph from the fp32 rows, conversion
+     over bf16 rows: Kγ's bf16 mode; vanilla and Slim at ef 64 beside the
+     fp32 shard); then K19 on the sharded search's [4, 4096, 10] lists
+     (beside torch.sort(stable=True) + gather), K1 on the 4096 queries'
+     entry distances from both stores (beside the gather + torch.bmm), and
+     Kα (strata and exact), Kβ, Kε, Kγ in their bf16 modes, each against
+     its plain version;
+ 10. output checks (finite, in range, true distances, recall sanity, the
      insertion-built Slim index above the NND-built one at ef=320, SlimZero
      within 0.02 of the Slim index there; SlimQ: ids in range, reranked
      distances the true ones, reranked recall not below the estimate-only
@@ -112,6 +130,10 @@ ROUTES = {  # kernel: (source, the JAX program it replaces)
                 "hnsw_slim_tpu/index/hnsw.py:39"),
     "kv_sort": ("hnsw_slim_tpu_torch/csrc/kv_sort.cu",
                 "hnsw_slim_tpu/graph/revconn.py:90"),
+    "point_dist": ("hnsw_slim_tpu_torch/csrc/point_dist.cu",
+                   "hnsw_slim_tpu/ops/distance.py:63"),
+    "shard_merge": ("hnsw_slim_tpu_torch/csrc/shard_merge.cu",
+                    "hnsw_slim_tpu/parallel/sharded.py:287"),
 }
 MODE_ROUTES = {  # kernel mode: (kernel, the JAX code that mode replaces)
     "topk_dist.strata": ("topk_dist", "hnsw_slim_tpu/graph/search.py:800"),
@@ -133,6 +155,13 @@ MODE_ROUTES = {  # kernel mode: (kernel, the JAX code that mode replaces)
                              "hnsw_slim_tpu/index/slimq.py:166"),
     "fht_rotate.g_tables": ("fht_rotate",
                             "hnsw_slim_tpu/quant/estimator.py:79"),
+    # bfloat16 store rows: the JAX package upcasts them inside its einsum
+    "topk_dist.bf16": ("topk_dist", "hnsw_slim_tpu/ops/distance.py:76"),
+    "beam_search.bf16": ("beam_search", "hnsw_slim_tpu/ops/distance.py:76"),
+    "greedy_descent.bf16": ("greedy_descent",
+                            "hnsw_slim_tpu/ops/distance.py:76"),
+    "rng_prune.bf16": ("rng_prune", "hnsw_slim_tpu/ops/distance.py:76"),
+    "point_dist.bf16": ("point_dist", "hnsw_slim_tpu/ops/distance.py:76"),
 }
 INSERT_PATH = ("topk_dist", "beam_search", "rng_prune", "greedy_descent",
                "rev_connect", "kv_sort")
@@ -150,6 +179,13 @@ SLIMQ_PATH = ("fht_rotate", "fht_rotate.g_tables", "topk_dist",
               "beam_search.quant_ex", "beam_search.rerank",
               "greedy_descent.quant", "greedy_descent.rank", "beam_search",
               "greedy_descent", "rng_prune", "rev_connect")
+SHARDS = 4  # round-robin shards of phase 9 (4 x 250,000 at 1M)
+SHARD_PATH = ("topk_dist", "topk_dist.strata", "beam_search",
+              "beam_search.chal", "greedy_descent", "greedy_descent.chal",
+              "greedy_descent.rank", "rng_prune", "rev_connect", "kv_sort",
+              "point_dist", "shard_merge", "topk_dist.bf16",
+              "beam_search.bf16", "greedy_descent.bf16", "rng_prune.bf16",
+              "point_dist.bf16")
 KM_PAIR = "topk_dist k=1 (KMeans assignment)"
 SLIMQ_EFS = (32, 64, 128, 256)
 EFS = (32, 64, 128, 256, 320)
@@ -348,6 +384,438 @@ def serve_sweep(idx, queries, gt, base, make_cfg, label: str) -> list:
     return rows
 
 
+def same_slots(ids_a, d_a, ids_b, d_b, tol: float = 1e-5) -> float:
+    """Share of result slots on which two searches agree: the same distance
+    within tol * (1 + |d|) (both missing counts as the same). Where the ids
+    differ on such a slot, it is a near-tie the two ordered differently."""
+    import numpy as np
+
+    near = np.abs(d_a - d_b) <= tol * (1 + np.abs(d_b))
+    gone = np.isinf(d_a) & np.isinf(d_b) & (ids_a == ids_b)
+    return float((near | gone).mean())
+
+
+def shard_phase(base, queries, gt, slim_ins, report, dev) -> tuple:
+    """Phase 9: union and sharded serving of SHARDS round-robin shards of
+    the base set, with its own launch counts; then K19, K1 and the bf16
+    modes of Kα / Kβ / Kε / Kγ against their plain versions on this phase's
+    inputs (into ``report``). Returns (summary, the path's launch counts)."""
+    import numpy as np
+    import torch
+
+    from hnsw_slim_tpu_torch.config import (HnswConfig, SearchConfig,
+                                            SlimConfig)
+    from hnsw_slim_tpu_torch.graph import heuristic, prune
+    from hnsw_slim_tpu_torch.graph import search as gs
+    from hnsw_slim_tpu_torch.index import bruteforce as bf
+    from hnsw_slim_tpu_torch.index.hnsw import (HnswIndex,
+                                                resolve_build_strategy)
+    from hnsw_slim_tpu_torch.index.slim import HnswSlimIndex
+    from hnsw_slim_tpu_torch.ops import cuda
+    from hnsw_slim_tpu_torch.ops import distance as dist
+    from hnsw_slim_tpu_torch.parallel import merge
+    from hnsw_slim_tpu_torch.parallel.flat_union import FlatUnionIndex
+    from hnsw_slim_tpu_torch.parallel.sharded import (ShardedSlimIndex,
+                                                      make_mesh)
+
+    n, d = base.shape
+    s, k = SHARDS, 10
+    n_per = -(-n // s)
+    hcfg = HnswConfig(M=30, ef_construction=128)
+    strategy = "auto" if resolve_build_strategy("auto", n_per) == "insert" \
+        else "insert"
+    if strategy != "auto":
+        say(f"CUT: shards built with strategy='insert' (auto picks "
+            f"NN-descent at {n_per} points)")
+    slim_at = {r["ef"]: r for r in slim_ins}
+    qall = torch.as_tensor(queries, device=dev)
+    qn_all = (qall * qall).sum(1)
+    cuda.reset_launches()
+    t_phase = time.perf_counter()
+
+    def build_shard(local, cfg):
+        """HnswIndex.build and the Slim conversion of one shard, timed."""
+        t0 = time.perf_counter()
+        hs_ = HnswIndex(cfg, device=dev, strategy=strategy)
+        hs_.build(local)
+        torch.cuda.synchronize()
+        t_b = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sl = HnswSlimIndex.from_hnsw(hs_, SlimConfig.from_ratios())
+        torch.cuda.synchronize()
+        return hs_, sl, t_b, time.perf_counter() - t0
+
+    def checked(row, label, store=torch.float32):
+        """Pop a serve_line row's results; ids in range, and the distances
+        those of the rows as the store holds them."""
+        dd, ids = row.pop("d"), row.pop("ids")
+        check(((ids >= 0) & (ids < n)).all(), f"{label}: id range")
+        rows = torch.as_tensor(base[ids]).to(store).float().numpy()
+        true_d = ((queries[:, None, :] - rows) ** 2).sum(-1)
+        check(np.allclose(dd, true_d, rtol=1e-3, atol=1e-3),
+              f"{label}: returned distances are not the true ones")
+        return dd, ids
+
+    # S round-robin shards (global id g on shard g % S), a short shard
+    # padded with copies of its row 0 (gid -1), as ShardedSlimIndex.build
+    shards, shard_rows = [], []
+    for si in range(s):
+        gids = np.arange(si, n, s, dtype=np.int32)
+        local = base[gids]
+        if len(gids) < n_per:
+            pad = n_per - len(gids)
+            local = np.concatenate([local, np.repeat(local[:1], pad, 0)])
+            gids = np.concatenate([gids, np.full(pad, -1, np.int32)])
+        hs_, sl, t_b, t_c = build_shard(local, hcfg)
+        if si == 0:
+            h0, local0 = hs_, local
+        shards.append((sl, gids))
+        row = {"shard": si, "n": int((gids >= 0).sum()),
+               "build_s": round(t_b, 3), "convert_s": round(t_c, 3),
+               "max_level": sl.graph.max_level,
+               "index_size": sl.index_size()}
+        shard_rows.append(row)
+        say(f"shard {json.dumps(row)}")
+
+    # the union, seeded: seed_width 32 (32 / S seeds a shard) and 32 * S
+    t0 = time.perf_counter()
+    u = FlatUnionIndex.from_indexes(shards, device=dev)
+    u.densify_level0()
+    torch.cuda.synchronize()
+    say(f"union: from_indexes + densify_level0 {time.perf_counter() - t0:.2f}"
+        f" s, index_size {u.index_size()} B, hbm_bytes {u.hbm_bytes()} B, "
+        f"max_level {u.graph.max_level}, {len(u._slim.up_ids)} seed-table "
+        f"rows")
+    union_rows = {}
+    for sw in (32, 32 * s):
+        for ef in (32, 64, 128, 256):
+            u.scfg = SearchConfig(ef=ef, pop_width=8, seed_width=sw)
+            label = f"union seed_width={sw} ef={ef}"
+            row = serve_line(u, queries, gt, label)
+            checked(row, label)
+            row["single_slim"] = {k_: slim_at[ef][k_]
+                                  for k_ in ("recall@10", "qps")}
+            say(f"  beside the single {n}-point Slim index of phase 2 at "
+                f"ef={ef}: {json.dumps(row['single_slim'])}")
+            union_rows[label] = row
+
+    # seed_width 0: the union (each query once per shard, K19 merge), the
+    # host merge of each shard's own search, and the one-card sharded index
+    lmax = max(sl.graph.max_level for sl, _ in shards)
+    t0 = time.perf_counter()
+    sh = ShardedSlimIndex.from_indexes(make_mesh(s), shards, device=dev)
+    torch.cuda.synchronize()
+    say(f"sharded: from_indexes {time.perf_counter() - t0:.2f} s, "
+        f"index_size {sh.index_size()} B")
+    par_rows, ref = {}, {}
+    for ef in (64, 128):
+        cfg0 = SearchConfig(ef=ef, pop_width=8, seed_width=0)
+        u.scfg = cfg0
+        label = f"union seed_width=0 ef={ef}"
+        ur = serve_line(u, queries, gt, label)
+        ud, ui = checked(ur, label)
+        par_rows[label] = ur
+        cat_d, cat_i, hops, dcomp = [], [], 0, 0
+        for sl, gids in shards:
+            sl.scfg = cfg0
+            a_, b_ = sl.search(queries, k)
+            cat_d.append(a_)
+            cat_i.append(np.where(b_ >= 0, gids[np.maximum(b_, 0)], -1))
+            # the stacked layout walks every level up to the largest
+            # max_level: one hop for each empty level above the shard's own
+            hops += (sl.last_stats["hops"]
+                     + (lmax - sl.graph.max_level) * len(queries))
+            dcomp += sl.last_stats["distance_computations"]
+        cat_d, cat_i = np.concatenate(cat_d, 1), np.concatenate(cat_i, 1)
+        cat_d = np.where(cat_i >= 0, cat_d, np.inf)
+        o = np.argsort(cat_d, axis=1, kind="stable")[:, :k]
+        ref[ef] = (np.take_along_axis(cat_d, o, 1),
+                   np.take_along_axis(cat_i, o, 1), hops, dcomp, ud, ui, ur)
+    for lay in ("chal", "dense"):
+        if lay == "dense":
+            sh.densify_level0()
+            sh.densify_upper()
+        for ef in (64, 128):
+            hd, hi, hops, dcomp, ud, ui, ur = ref[ef]
+            sh.scfg = SearchConfig(ef=ef, pop_width=8, seed_width=0)
+            label = f"sharded [{lay}] ef={ef}"
+            sr = serve_line(sh, queries, gt, label)
+            sd_, si_ = checked(sr, label)
+            agree = {"host_merge": same_slots(si_, sd_, hi, hd),
+                     "host_merge_ids": float((si_ == hi).mean()),
+                     "union_sw0": same_slots(si_, sd_, ui, ud),
+                     "union_sw0_ids": float((si_ == ui).mean()),
+                     "host_hops": hops, "host_dcomp": dcomp}
+            sr["agree"] = agree
+            par_rows[label] = sr
+            say(f"  {label}: {json.dumps(agree)}")
+            check(agree["host_merge"] == 1.0 and agree["union_sw0"] == 1.0,
+                  f"{label}: differs from the host merge of the per-shard "
+                  f"searches or from the union with seed_width 0: {agree}")
+            check(sr["hops"] == hops and sr["dcomp"] == dcomp
+                  and ur["hops"] == hops and ur["dcomp"] == dcomp,
+                  f"{label}: hops / dcomp are not the per-shard sums: "
+                  f"{sr['hops']} {sr['dcomp']} {ur['hops']} {ur['dcomp']} "
+                  f"{agree}")
+
+    # the bf16 union: the same shards, half the vector bytes
+    t0 = time.perf_counter()
+    ub = FlatUnionIndex.from_indexes(shards, store_dtype="bfloat16",
+                                     device=dev)
+    ub.densify_level0()
+    torch.cuda.synchronize()
+    vb = [x_.vectors.numel() * x_.vectors.element_size() for x_ in (u, ub)]
+    say(f"bf16 union: from_indexes + densify_level0 "
+        f"{time.perf_counter() - t0:.2f} s, vector bytes {vb[1]} against "
+        f"{vb[0]} (fp32), hbm_bytes {ub.hbm_bytes()} against {u.hbm_bytes()}")
+    check(2 * vb[1] == vb[0], f"the bf16 union's vectors are not half the "
+                              f"bytes: {vb}")
+    for sw, ef in ((32, 64), (32, 128), (0, 64)):
+        ub.scfg = SearchConfig(ef=ef, pop_width=8, seed_width=sw)
+        label = f"bf16 union seed_width={sw} ef={ef}"
+        row = serve_line(ub, queries, gt, label)
+        checked(row, label, torch.bfloat16)
+        fp = (union_rows.get(f"union seed_width={sw} ef={ef}")
+              or par_rows[f"union seed_width=0 ef={ef}"])["recall@10"]
+        row["fp32_union_recall@10"] = fp
+        say(f"  beside the fp32 union: recall@10 {fp}")
+        check(row["recall@10"] >= fp - 0.02, f"{label}: recall "
+              f"{row['recall@10']} more than 0.02 under the fp32 union's {fp}")
+        union_rows[label] = row
+
+    # shard 0 again with a bf16 store: the graph from the fp32 rows, the
+    # conversion over bf16 rows (Kγ's bf16 mode), vanilla and Slim at ef 64
+    h0b, s0b, t_b, t_c = build_shard(
+        local0, dataclasses.replace(hcfg, store_dtype="bfloat16"))
+    rows_eq = min(float((a_ == b_).all(1).float().mean())
+                  for a_, b_ in zip(h0b.graph.adjs, h0.graph.adjs))
+    s0 = shards[0][0]
+    for sl in (s0, s0b):
+        sl.densify_level0()
+    _, gt0 = bf.BruteForceIndex(local0, device=dev).search(queries, k=k)
+    bf16_rows = {"build_s": round(t_b, 3), "convert_s": round(t_c, 3),
+                 "graph_rows_equal_fp32": rows_eq,
+                 "store_bytes": [h0.vectors.nbytes, h0b.vectors.nbytes]}
+    for eng, label, scfg in (
+            (h0, "fp32 shard 0 vanilla", SearchConfig(ef=64, pop_width=4)),
+            (h0b, "bf16 shard 0 vanilla", SearchConfig(ef=64, pop_width=4)),
+            (s0, "fp32 shard 0 slim", SearchConfig(ef=64, pop_width=8,
+                                                   seed_width=32)),
+            (s0b, "bf16 shard 0 slim", SearchConfig(ef=64, pop_width=8,
+                                                    seed_width=32))):
+        eng.scfg = scfg
+        row = serve_line(eng, queries, gt0, label)
+        row.pop("d"), row.pop("ids")
+        bf16_rows[label] = row
+    say(f"bf16 shard 0: {json.dumps(bf16_rows)}")
+    check(rows_eq >= 0.99, f"the bf16 shard's graph differs from the fp32 "
+                           f"build's on more than 1% of rows: {rows_eq}")
+    for what in ("vanilla", "slim"):
+        a_, b_ = (bf16_rows[f"{t} shard 0 {what}"]["recall@10"]
+                  for t in ("bf16", "fp32"))
+        check(a_ >= b_ - 0.02, f"bf16 shard 0 {what}: recall {a_} more than "
+                               f"0.02 under the fp32 shard's {b_}")
+    launch_par = dict(cuda.launches)
+    say(f"shard-path launches: {launch_par}")
+    for name in SHARD_PATH:
+        check(launch_par[name] > 0, f"{name} never launched on the union / "
+                                    "sharded path")
+    summary = {"shards": shard_rows, "union": union_rows,
+               "sharded": par_rows, "bf16_shard0": bf16_rows,
+               "phase_s": round(time.perf_counter() - t_phase, 1)}
+
+    # ---- K19, K1 and the bf16 modes against their plain versions ---------
+    # K19: the sharded search's per-shard results at ef 64, [S, NQ, 10]
+    sh.scfg = SearchConfig(ef=64, pop_width=8)
+    parts = sh._local_search(qall, k)
+    margs = (parts[0], parts[1], sh._gid_all, parts[2], parts[3])
+    kout, pout = merge.merge_topk(*margs), merge.merge_topk_plain(*margs)
+    m_eq = all(torch.equal(a_, b_) for a_, b_ in zip(kout, pout))
+    gi = merge._global_ids(parts[1], sh._gid_all)
+    cat_d = torch.where(gi >= 0, parts[0], float("inf")).permute(
+        1, 0, 2).reshape(NQ, s * k).contiguous()
+    cat_i = gi.permute(1, 0, 2).reshape(NQ, s * k).contiguous()
+
+    def lib_merge():
+        sd_, o_ = torch.sort(cat_d, dim=1, stable=True)
+        return sd_[:, :k], torch.gather(cat_i, 1, o_[:, :k])
+
+    n_ent = parts[0].numel()
+    report["shard_merge"] = dict(
+        agree=float(m_eq), max_abs_err=float(torch.nan_to_num(
+            kout[0] - pout[0], nan=0.0).abs().max()),
+        ms=cuda_ms(lambda: merge.merge_topk(*margs), 20),
+        plain_ms=cuda_ms(lambda: merge.merge_topk_plain(*margs), 20),
+        library_ms=cuda_ms(lib_merge, 20),
+        bound=bound(n_ent * 12 + s * NQ * 8 + NQ * k * 8 + NQ * 8, 0),
+        shapes=f"[{s}, {NQ}, {k}] per-shard lists of the sharded search at "
+               f"ef 64 -> [{NQ}, {k}]; d, global ids, hops and dcomp equal "
+               "to the plain version; library: torch.sort(stable=True) + "
+               "gather over the gid-mapped concatenation")
+    check(m_eq, f"shard_merge differs from its plain version: "
+                f"{report['shard_merge']}")
+
+    # K1: the entry distances of the 4096 queries (query b from shard b % S's
+    # entry point), from the fp32 and the bf16 union store
+    ent = torch.as_tensor(u.entries[np.arange(NQ) % s], dtype=torch.int32,
+                          device=dev)[:, None].contiguous()
+    for name, uu in (("point_dist", u), ("point_dist.bf16", ub)):
+        x_, vn_ = uu.vectors, uu.vn
+        kd = dist.gathered_dist(qall, x_, qn=qn_all, vn=vn_, ids=ent)
+        pd = dist.gathered_dist_plain(qall, x_, qn=qn_all, vn=vn_, ids=ent)
+
+        def lib_k1(x_=x_):
+            rows = x_[ent[:, 0].long()][:, None, :].float()
+            return torch.bmm(rows, qall[:, :, None])
+
+        report[name] = dict(
+            agree=1.0, max_abs_err=float((kd - pd).abs().max()),
+            ms=cuda_ms(lambda: dist.gathered_dist(qall, x_, qn=qn_all,
+                                                  vn=vn_, ids=ent), 20),
+            plain_ms=cuda_ms(lambda: dist.gathered_dist_plain(
+                qall, x_, qn=qn_all, vn=vn_, ids=ent), 20),
+            library_ms=cuda_ms(lib_k1, 20),
+            bound=bound(NQ * (d * x_.element_size() + 12 + d * 4 + 4),
+                        2 * NQ * d),
+            shapes=f"{NQ} queries x 1 entry row each of the {x_.dtype} union "
+                   "store, by id; library: the row gather + torch.bmm")
+        check(report[name]["max_abs_err"]
+              <= 1e-4 * (1 + float(pd.abs().max())),
+              f"{name} disagrees with its plain version: {report[name]}")
+
+    # Kα bf16: the strata seed block of the bf16 union (32 seeds, S
+    # segments), all 4096 queries; and the exact seed block (k=32) of the
+    # bf16 shard 0
+    up16 = ub._slim._seed_table()
+    st = (qall, up16[0], up16[1], up16[2], 32, s)
+    ksd, ksi = bf.topk_dist_strata(*st)
+    psd, psi = bf.topk_dist_strata_plain(*st)
+    fin = torch.isfinite(psd)
+    s0_up = s0b._seed_table()
+    kxd, kxi = bf.topk_dist(qall, s0_up[0], s0_up[1], 32, row_ids=s0_up[2])
+    pxd, pxi = bf.topk_dist_plain(qall, s0_up[0], s0_up[1], 33,
+                                  row_ids=s0_up[2])
+    agree_x = tie_ok(kxi.cpu().numpy(), pxi.cpu().numpy(), pxd.cpu().numpy(),
+                     32)
+    rows_up = up16[0].shape[0]
+    x_ms = cuda_ms(lambda: bf.topk_dist(qall, s0_up[0], s0_up[1], 32,
+                                        row_ids=s0_up[2]))
+    report["topk_dist.bf16"] = dict(
+        agree=min(float((ksi == psi).float().mean()), agree_x),
+        max_abs_err=max(float((ksd - psd)[fin].abs().max()),
+                        float((kxd - pxd[:, :32]).abs().max())),
+        ms=cuda_ms(lambda: bf.topk_dist_strata(*st)),
+        plain_ms=cuda_ms(lambda: bf.topk_dist_strata_plain(*st), 1),
+        bound=bound(rows_up * (d * 2 + 8) + NQ * d * 4 + NQ * 32 * 8,
+                    2 * NQ * rows_up * d),
+        shapes=f"strata: {NQ} x {rows_up} bf16 rows of the union's seed "
+               f"table, {s} segments x {32 // s} seeds; exact: {NQ} x "
+               f"{s0_up[0].shape[0]} rows of the bf16 shard 0, k=32 (agree "
+               f"{agree_x:.4f}, kernel {x_ms:.3f} ms)")
+    check(report["topk_dist.bf16"]["agree"] >= 0.99
+          and bool(torch.equal(torch.isfinite(ksd), fin)),
+          f"topk_dist (bf16) disagrees with its plain version: "
+          f"{report['topk_dist.bf16']}")
+
+    # Kβ bf16: the seeded ef=64 beam of the bf16 shard 0 Slim index, 512
+    # queries over its dense level-0 rows
+    x16, vn16 = s0b.vectors, s0b.vn
+    q512, qn512 = qall[:512].contiguous(), qn_all[:512].contiguous()
+    sd_, sp_ = bf.topk_dist(q512, *s0_up[:2], 32, row_ids=s0_up[2])
+    si_ = torch.where(sp_ >= 0, s0_up[2][sp_.clamp(min=0).long()], -1)
+    si_ = torch.where(torch.isinf(sd_), -1, si_).to(torch.int32).contiguous()
+    kw_b = dict(P=64, ef_eff=64, pop_width=8,
+                cw=gs.cand_width(64, 8, s0b.dense0.shape[1], 0),
+                max_iters=SearchConfig(ef=64, pop_width=8).iters(), k=k)
+    b_args = (x16, q512, qn512, s0b.dense0, sd_.contiguous(), si_)
+    k_o = gs.beam_search(*b_args, **kw_b)
+    p_o = gs.beam_search_plain(*b_args, **kw_b)
+    same = k_o[1] == p_o[1]
+    hops_, dc_ = int(k_o[2].sum()), int(k_o[3].sum())
+    report["beam_search.bf16"] = dict(
+        agree=float(same.float().mean()),
+        max_abs_err=float((k_o[0] - p_o[0])[same & torch.isfinite(
+            p_o[0])].abs().max()),
+        ms=cuda_ms(lambda: gs.beam_search(*b_args, **kw_b)),
+        plain_ms=cuda_ms(lambda: gs.beam_search_plain(*b_args, **kw_b), 1),
+        bound=bound(hops_ * s0b.dense0.shape[1] * 4 + dc_ * d * 2
+                    + 512 * d * 4 + 512 * (k * 8 + 8) + 512 * 32 * 8,
+                    dc_ * 4 * d),
+        shapes=f"bf16 shard 0 Slim, dense rows, seeded ef=64: 512 queries, "
+               f"hops {hops_} vs {int(p_o[2].sum())}, dcomp {dc_} vs "
+               f"{int(p_o[3].sum())}")
+    check(report["beam_search.bf16"]["agree"] >= 0.99,
+          f"beam_search (bf16) disagrees with its plain version: "
+          f"{report['beam_search.bf16']}")
+
+    # Kε bf16: the vanilla descent of the bf16 shard 0, levels max..1, all
+    # 4096 queries, each level from the plain state
+    g0b = h0b.graph
+    pc_, pd_ = gs.entry_dist(h0b.vectors, h0b.vn, qall, qn_all, g0b.entry)
+    eq_, tot_, err_, kms, pms, byt, flo = 0, 0, 0.0, 0.0, 0.0, 0, 0
+    for l in range(g0b.max_level, 0, -1):
+        st_ = (h0b.vectors, qall, qn_all, g0b.adjs[l], pc_, pd_)
+        kc_, kd_, kh_, kdc_ = gs.greedy_descent(*st_)
+        kms += cuda_ms(lambda: gs.greedy_descent(*st_))
+        pms += cuda_ms(lambda: gs.greedy_descent_plain(*st_), 1)
+        npc, npd, _, _ = gs.greedy_descent_plain(*st_)
+        same_ = kc_ == npc
+        eq_, tot_ = eq_ + int(same_.sum()), tot_ + len(same_)
+        if same_.any():
+            err_ = max(err_, float((kd_ - npd)[same_].abs().max()))
+        byt += (int(kh_.sum()) * g0b.adjs[l].shape[1] * 4
+                + int(kdc_.sum()) * d * 2 + NQ * d * 4 + NQ * 16)
+        flo += int(kdc_.sum()) * 4 * d
+        pc_, pd_ = npc, npd
+    report["greedy_descent.bf16"] = dict(
+        agree=eq_ / max(1, tot_), max_abs_err=err_, ms=kms, plain_ms=pms,
+        bound=bound(byt, flo),
+        shapes=f"{NQ} queries, levels {g0b.max_level}..1 of the bf16 shard "
+               "0's vanilla graph")
+    check(report["greedy_descent.bf16"]["agree"] >= 0.99,
+          f"greedy_descent (bf16) disagrees with its plain version: "
+          f"{report['greedy_descent.bf16']}")
+
+    # Kγ bf16: stage 2 of the bf16 shard 0's conversion on 4096 of its
+    # level-0 rows (the degree-threshold budgets)
+    cfg_s = SlimConfig.from_ratios()
+    adj_np = h0b.host_adj()
+    thr = prune.degree_thresholds(adj_np, h0b.levels, adj_np[0].shape[1],
+                                  cfg_s)
+    pick = np.random.default_rng(0).choice(n_per, min(4096, n_per),
+                                           replace=False)
+    deg_0 = (adj_np[0][pick] >= 0).sum(1)
+    budget = torch.as_tensor(np.where(deg_0 > thr[0], cfg_s.top_M0,
+                                      cfg_s.low_m0).astype(np.int32),
+                             device=dev)
+    b_ids = torch.as_tensor(pick.astype(np.int32), device=dev)
+    cand = g0b.adjs[0][b_ids.long()].contiguous()
+    kw_g = dict(keep_all_under_m=False, keep_pruned=False,
+                out_width=cfg_s.top_M0)
+    g_args = (h0b.vectors, h0b.vn, b_ids, cand, budget)
+    ks, kc = heuristic.rng_prune(*g_args, **kw_g)
+    ps, pc = heuristic.rng_prune_plain(*g_args, **kw_g)
+    valid = int((cand >= 0).sum())
+    report["rng_prune.bf16"] = dict(
+        rows_agree=float((ks == ps).all(dim=1).float().mean()),
+        counts_agree=float((kc == pc).float().mean()),
+        max_abs_err=float((kc - pc).abs().max()),
+        ms=cuda_ms(lambda: heuristic.rng_prune(*g_args, **kw_g)),
+        plain_ms=cuda_ms(lambda: heuristic.rng_prune_plain(*g_args, **kw_g),
+                         1),
+        bound=bound(cand.numel() * 4 + valid * (d * 2 + 4)
+                    + len(pick) * (d * 2 + 8 + cfg_s.top_M0 * 4),
+                    valid * 2 * d),
+        shapes=f"bf16 shard 0 conversion stage 2: {len(pick)} rows, C "
+               f"{cand.shape[1]}; max_abs_err is the largest kept-count "
+               "difference")
+    check(report["rng_prune.bf16"]["rows_agree"] >= 0.99
+          and report["rng_prune.bf16"]["counts_agree"] >= 0.99,
+          f"rng_prune (bf16) disagrees with its plain version: "
+          f"{report['rng_prune.bf16']}")
+    return summary, launch_par
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -405,16 +873,19 @@ def main() -> int:
             fn = line.split("'")[1] if "'" in line else line
             kernel = next((k for k in ("topk_scan", "topk_merge",
                                        "strata_sort", "beam_kernel", "prune_kernel",
+                                       "shard_merge_kernel",
                                        "merge_kernel", "greedy_kernel",
                                        "append_kernel", "degree_kernel",
                                        "rows_kernel", "write_kernel",
                                        "fht_kernel", "g_tables_kernel",
                                        "row_deg_kernel", "sort_tile_kernel",
                                        "global_step_kernel",
-                                       "merge_tile_kernel")
+                                       "merge_tile_kernel", "point_kernel")
                            if k in fn), "?")
             if "ILb1E" in fn:  # the quantized / estimate instantiation
                 kernel += "<quant>"
+            if "nv_bfloat16" in fn:  # the bfloat16-row instantiation
+                kernel += "<bf16>"
         elif line.startswith("Used"):
             say(f"  ptxas {kernel}: {line}")
 
@@ -2008,12 +2479,16 @@ def main() -> int:
         f"{int(tk)} targets, rows equal {rows_eq:.6f}, {c_rep['apply_ms']:.3f}"
         " ms for the whole apply")
 
+    # ---- 9. union and sharded serving, the bfloat16 store ----------------
+    shard_summary, launch_par = shard_phase(base, queries, gt, slim_ins,
+                                            report, dev)
+
     for name, rep in report.items():
         say(f"kernel {name}: {json.dumps(rep)}")
 
-    # ---- 9. summary --------------------------------------------------------
+    # ---- 10. summary -------------------------------------------------------
     paths = (launch_ins, launch_qs, launch_sz, launch_sq, launch_nnd,
-             launch_upd)
+             launch_upd, launch_par)
     kernels = [{
         "name": name,
         "route": "cuda",
@@ -2027,8 +2502,8 @@ def main() -> int:
         "plain_ms": round(report[name]["plain_ms"], 4),
         "bound_ms": round(report[name]["bound"][0], 4),
         "bound_by": report[name]["bound"][1],
-        # one PyTorch call computes row_deg's and kv_sort's function; none
-        # computes any of the others
+        # one PyTorch call computes row_deg's, kv_sort's, shard_merge's and
+        # point_dist's function; none computes any of the others
         "library_ms": None if "library_ms" not in report[name]
         else round(report[name]["library_ms"], 4),
     } for name in list(ROUTES) + list(MODE_ROUTES)]
@@ -2061,6 +2536,7 @@ def main() -> int:
                 "index_size": idx2.index_size(), "slim": slim_nnd,
                 "launches": launch_nnd},
         "updates": dict(upd_summary, launches=launch_upd),
+        "shards": dict(shard_summary, launches=launch_par),
         "nq": NQ, "wall_s": round(time.perf_counter() - t_start, 1)}))
     say(card)
     say(json.dumps({"kernels": kernels}))

@@ -9,11 +9,14 @@ plain PyTorch version when handed CPU tensors, and the kernel when handed
 CUDA tensors. Entry points default to the CUDA card and raise without one;
 pass ``device="cpu"`` to run on the CPU.
 
-    from hnsw_slim_tpu_torch.index.hnsw import HnswIndex
-    from hnsw_slim_tpu_torch.index.slim import HnswSlimIndex
-    from hnsw_slim_tpu_torch.index.slimzero import HnswSlimZeroIndex
-    from hnsw_slim_tpu_torch.index.slimq import HnswSlimQIndex
-    from hnsw_slim_tpu_torch.index.bruteforce import BruteForceIndex
+    from hnsw_slim_tpu_torch import (
+        HnswConfig, SlimConfig, SearchConfig, QuantConfig,
+        HnswIndex, HnswSlimIndex, HnswSlimZeroIndex, HnswSlimQIndex,
+        BruteForceIndex, ShardedSlimIndex,
+    )
+
+The index classes resolve lazily, so importing the package loads no index
+module. ``FlatUnionIndex`` lives in ``parallel/flat_union.py``.
 
 ``config.py``, ``utils/data.py`` and ``utils/native.py`` are byte-equal
 copies of the JAX package's jax-free modules (a test holds them equal), so
@@ -21,7 +24,28 @@ the port never imports the JAX package.
 """
 
 from .config import HnswConfig, QuantConfig, SearchConfig, SlimConfig
-from .index.slimq import HnswSlimQIndex
 
-__all__ = ["HnswConfig", "SlimConfig", "SearchConfig", "QuantConfig",
-           "HnswSlimQIndex"]
+__all__ = [
+    "HnswConfig", "SlimConfig", "SearchConfig", "QuantConfig",
+    "HnswIndex", "HnswSlimIndex", "HnswSlimZeroIndex", "HnswSlimQIndex",
+    "BruteForceIndex", "ShardedSlimIndex",
+]
+
+# name -> (module, attribute), imported on first use
+_LAZY = {
+    "HnswIndex": (".index.hnsw", "HnswIndex"),
+    "HnswSlimIndex": (".index.slim", "HnswSlimIndex"),
+    "HnswSlimZeroIndex": (".index.slimzero", "HnswSlimZeroIndex"),
+    "HnswSlimQIndex": (".index.slimq", "HnswSlimQIndex"),
+    "BruteForceIndex": (".index.bruteforce", "BruteForceIndex"),
+    "ShardedSlimIndex": (".parallel.sharded", "ShardedSlimIndex"),
+}
+
+
+def __getattr__(name):
+    if name not in _LAZY:
+        raise AttributeError(name)
+    import importlib
+
+    module, attr = _LAZY[name]
+    return getattr(importlib.import_module(module, __name__), attr)

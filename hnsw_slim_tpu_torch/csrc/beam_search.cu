@@ -55,6 +55,11 @@
 // distance, pops in pop order, as the reference's stable sort by distance
 // alone. Rerank distances are not counted in dcomp. The track adds
 // 16 kk + 4 D bytes of shared memory (under 1 KB at kk = 16, D = 128).
+//
+// bfloat16 store (hs_beam_search_bf16; HnswConfig.store_dtype): step 3 reads
+// a candidate with one 8-byte load a lane (256 B at d=128 instead of 512 B)
+// and widens it to fp32 in registers (common.cuh load4); the query, the
+// norms and the sums stay fp32, so every rule above is unchanged.
 #include <climits>
 
 #include "common.cuh"
@@ -65,9 +70,9 @@ constexpr int THREADS = 256;
 constexpr int NW = THREADS / 32;
 constexpr int MAX_POP = 64;
 
-template <bool QUANT>
+template <bool QUANT, class T>
 __global__ void __launch_bounds__(THREADS)
-beam_kernel(const float* __restrict__ vec, int D, const hs::Fetch f,
+beam_kernel(const T* __restrict__ vec, int D, const hs::Fetch f,
             const hs::Quant z, const hs::PopTrack t, int Cp, int Drp, int KKp,
             const float* __restrict__ q, const float* __restrict__ qn,
             const float* __restrict__ seed_d, const int* __restrict__ seed_id,
@@ -117,11 +122,11 @@ beam_kernel(const float* __restrict__ vec, int D, const hs::Fetch f,
 
   const int b = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const bool vec4 = (D & 3) == 0;
+  const bool vec4 = hs::can_vec4(vec, D);
   const bool track = QUANT && t.data != nullptr;
   const float qnv = QUANT ? z.sumq[b] : qn[b];  // quantized: sum(q_rot)
   const float qnr = (track && !metric) ? t.qn_raw[b] : 0.f;
-  const bool rvec4 = (t.D & 3) == 0;
+  const bool rvec4 = hs::can_vec4(t.data, t.D);
   const float* qsrc = QUANT ? z.q_rot : q;
   for (int i = tid; i < D; i += THREADS) qs[i] = qsrc[(size_t)b * D + i];
   if (QUANT)
@@ -350,8 +355,8 @@ beam_kernel(const float* __restrict__ vec, int D, const hs::Fetch f,
   }
 }
 
-template <bool QUANT>
-int launch_beam(const float* vec, int D, const hs::Fetch& f,
+template <bool QUANT, class T>
+int launch_beam(const T* vec, int D, const hs::Fetch& f,
                 const hs::Quant& z, const hs::PopTrack& t, const float* q,
                 const float* qn, const float* seed_d, const int* seed_id,
                 int B, int S, int P, int ef_eff, int E, int cw, int max_iters,
@@ -373,10 +378,11 @@ int launch_beam(const float* vec, int D, const hs::Fetch& f,
   if (allowed)
     smem += 4 * sizeof(int) * P + sizeof(int) * Pp + 3 * sizeof(int) * CWp;
   cudaError_t err = cudaFuncSetAttribute(
-      beam_kernel<QUANT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      beam_kernel<QUANT, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  beam_kernel<QUANT><<<B, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  beam_kernel<QUANT, T><<<B, THREADS, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
       vec, D, f, z, t, Cp, Drp, KKp, q, qn, seed_d, seed_id, S, P, ef_eff, E,
       cw, max_iters, k, metric, Dp, EWp, Pp, CWp, allowed, trk_d_in,
       trk_id_in, out_d, out_id, hops, dcomp, trk_d_out, trk_id_out);
@@ -404,6 +410,23 @@ extern "C" int hs_beam_search(const float* vec, int D, const int* rows,
                             trk_id_out, stream);
 }
 
+// the same over a bfloat16 store (rows widened to fp32 in registers)
+extern "C" int hs_beam_search_bf16(
+    const __nv_bfloat16* vec, int D, const int* rows, const int* aux,
+    int mode, int W, int level, int stride, const float* q, const float* qn,
+    const float* seed_d, const int* seed_id, int B, int S, int P, int ef_eff,
+    int E, int cw, int max_iters, int k, int metric,
+    const unsigned char* allowed, const float* trk_d_in,
+    const int* trk_id_in, float* out_d, int* out_id, int* hops, int* dcomp,
+    float* trk_d_out, int* trk_id_out, void* stream) {
+  const hs::Fetch f{rows, aux, mode, W, level, stride};
+  return launch_beam<false>(vec, D, f, hs::Quant{}, hs::PopTrack{}, q, qn,
+                            seed_d, seed_id, B, S, P, ef_eff, E, cw,
+                            max_iters, k, metric, allowed, trk_d_in,
+                            trk_id_in, out_d, out_id, hops, dcomp, trk_d_out,
+                            trk_id_out, stream);
+}
+
 // Kβ on estimates: the scorer (arguments as in hs_greedy_descent_quant)
 // takes the place of the vectors; data != nullptr adds the rerank track
 // (dataset f32[N, Dr], raw queries and their squared norms, kk, the track in
@@ -422,7 +445,8 @@ extern "C" int hs_beam_search_quant(
                     C};
   const hs::PopTrack t{data, Dr, kk, q_raw, qn_raw, rr_d_in, rr_id_in,
                        rr_d_out, rr_id_out};
-  return launch_beam<true>(nullptr, nb * 32, f, z, t, nullptr, nullptr,
+  return launch_beam<true>(static_cast<const float*>(nullptr), nb * 32, f, z,
+                           t, nullptr, nullptr,
                            seed_d, seed_id, B, S, P, ef_eff, E, cw, max_iters,
                            k, metric, nullptr, nullptr, nullptr, out_d,
                            out_id, hops, dcomp, nullptr, nullptr, stream);

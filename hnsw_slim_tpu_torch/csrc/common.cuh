@@ -5,6 +5,7 @@
 // caller syncs once between writing the input and calling.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <math_constants.h>
@@ -34,16 +35,51 @@ __device__ __forceinline__ bool pair_less(float da, int ia, float db, int ib) {
   return da < db || (da == db && ia < ib);
 }
 
-// This lane's share of dot(a, b) and of |b|^2 over d floats (lanes of one
-// warp split the row; warp_sum completes both). b may be a global row, a is
-// in shared memory. vec4 needs d % 4 == 0 and 16-byte aligned rows.
-__device__ __forceinline__ void partial_dot(const float* a, const float* b,
+// Row element types of the vector store (HnswConfig.store_dtype): float, or
+// __nv_bfloat16 for a bfloat16 store. A kernel that reads store rows is a
+// template over the type; queries, norms and every sum stay fp32. A bf16
+// element widens to fp32 exactly (its 16 bits are the high half of the
+// float: the same value __bfloat162float gives), in registers, so the store
+// is never copied to fp32.
+__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
+  const unsigned short u = __ldg(reinterpret_cast<const unsigned short*>(p));
+  return __uint_as_float(static_cast<unsigned>(u) << 16);
+}
+
+// four consecutive elements as fp32: one 16-byte load (fp32) or one 8-byte
+// load (bf16; element 0 is the low half of the first word)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+// whether rows of d elements starting at base can take load4: d % 4 == 0
+// and the base aligned to four elements
+template <class T>
+__host__ __device__ __forceinline__ bool can_vec4(const T* base, int d) {
+  return (d & 3) == 0 &&
+         (reinterpret_cast<uintptr_t>(base) & (4 * sizeof(T) - 1)) == 0;
+}
+
+// This lane's share of dot(a, b) and of |b|^2 over d elements (lanes of one
+// warp split the row; warp_sum completes both). b may be a global row of
+// either row type, a is fp32 in shared memory. vec4 needs can_vec4 of the
+// rows' base (a's rows are padded to four floats).
+template <class T>
+__device__ __forceinline__ void partial_dot(const float* a, const T* b,
                                             int d, bool vec4, float& s,
                                             float& n) {
   const int lane = threadIdx.x & 31;
   if (vec4) {
     for (int e = lane * 4; e < d; e += 128) {
-      const float4 x = __ldg(reinterpret_cast<const float4*>(b + e));
+      const float4 x = load4(b + e);
       const float4 y = *reinterpret_cast<const float4*>(a + e);
       s = fmaf(x.x, y.x, s); s = fmaf(x.y, y.y, s);
       s = fmaf(x.z, y.z, s); s = fmaf(x.w, y.w, s);
@@ -52,17 +88,18 @@ __device__ __forceinline__ void partial_dot(const float* a, const float* b,
     }
   } else {
     for (int e = lane; e < d; e += 32) {
-      const float x = __ldg(b + e);
+      const float x = load1(b + e);
       s = fmaf(x, a[e], s);
       n = fmaf(x, x, n);
     }
   }
 }
 
-// dot(a, b) over d floats by one warp (every lane gets the sum), and |b|^2
-// into *nrm when nrm is given; operands as for partial_dot.
-__device__ __forceinline__ float warp_dot(const float* a, const float* b,
-                                          int d, bool vec4, float* nrm) {
+// dot(a, b) over d elements by one warp (every lane gets the sum), and
+// |b|^2 into *nrm when nrm is given; operands as for partial_dot.
+template <class T>
+__device__ __forceinline__ float warp_dot(const float* a, const T* b, int d,
+                                          bool vec4, float* nrm) {
   float s = 0.f, n = 0.f;
   partial_dot(a, b, d, vec4, s, n);
   if (nrm) *nrm = warp_sum(n);

@@ -24,6 +24,9 @@
 // |x|^2 from the gathered row (or 1 - q.x), the argmin takes the smallest id
 // among equal minima, and the query moves only on a strict improvement.
 // Queries whose active flag is 0 keep their (cur, curdist) and count 0.
+// Over a bfloat16 store (hs_greedy_descent_bf16; HnswConfig.store_dtype) a
+// neighbor is one 8-byte load a lane (256 B at d=128), widened to fp32 in
+// registers (common.cuh load4); the arithmetic and the rules are the same.
 //
 // Quantized scorer (QUANT, JAX greedy_level_scored with the SlimQ estimate
 // scorer of index/slimq.py _slimq_search_jit): the distance of a neighbor is
@@ -41,9 +44,9 @@ constexpr int THREADS = 256;
 constexpr int NW = THREADS / 32;
 constexpr int GROUP = 4;
 
-template <bool QUANT>
+template <bool QUANT, class T>
 __global__ void __launch_bounds__(THREADS)
-greedy_kernel(const float* __restrict__ vec, int D, const hs::Fetch f,
+greedy_kernel(const T* __restrict__ vec, int D, const hs::Fetch f,
               const hs::Quant z, const float* __restrict__ q,
               const float* __restrict__ qn,
               const unsigned char* __restrict__ active, int B, int metric,
@@ -63,7 +66,7 @@ greedy_kernel(const float* __restrict__ vec, int D, const hs::Fetch f,
     for (int i = lane; i < z.C; i += 32) ga[i] = z.g_add[(size_t)b * z.C + i];
   __syncwarp();
 
-  const bool vec4 = (D & 3) == 0;
+  const bool vec4 = hs::can_vec4(vec, D);
   const float qnv = QUANT ? z.sumq[b] : qn[b];  // quantized: sum(q_rot)
   int c = cur[b];
   float cd = (QUANT && score_cur) ? hs::quant_score(z, qs, ga, qnv, c)
@@ -131,8 +134,8 @@ greedy_kernel(const float* __restrict__ vec, int D, const hs::Fetch f,
   }
 }
 
-template <bool QUANT>
-int launch_greedy(const float* vec, int D, const hs::Fetch& f,
+template <bool QUANT, class T>
+int launch_greedy(const T* vec, int D, const hs::Fetch& f,
                   const hs::Quant& z, const float* q, const float* qn,
                   const unsigned char* active, int B, int metric,
                   int score_cur, int* cur, float* curdist, int* hops,
@@ -140,12 +143,12 @@ int launch_greedy(const float* vec, int D, const hs::Fetch& f,
   const int Dp = (D + 3) / 4 * 4;
   const size_t smem = sizeof(float) * (Dp + (QUANT ? z.C : 0)) * NW;
   cudaError_t err = cudaFuncSetAttribute(
-      greedy_kernel<QUANT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      greedy_kernel<QUANT, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (B + NW - 1) / NW;
-  greedy_kernel<QUANT><<<grid, THREADS, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  greedy_kernel<QUANT, T><<<grid, THREADS, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
       vec, D, f, z, q, qn, active, B, metric, Dp, score_cur, cur, curdist,
       hops, dcomp);
   return static_cast<int>(cudaGetLastError());
@@ -164,6 +167,19 @@ extern "C" int hs_greedy_descent(const float* vec, int D, const int* rows,
                               metric, 0, cur, curdist, hops, dcomp, stream);
 }
 
+// the same over a bfloat16 store (rows widened to fp32 in registers)
+extern "C" int hs_greedy_descent_bf16(const __nv_bfloat16* vec, int D,
+                                      const int* rows, const int* aux,
+                                      int mode, int W, int level, int stride,
+                                      const float* q, const float* qn,
+                                      const unsigned char* active, int B,
+                                      int metric, int* cur, float* curdist,
+                                      int* hops, int* dcomp, void* stream) {
+  const hs::Fetch f{rows, aux, mode, W, level, stride};
+  return launch_greedy<false>(vec, D, f, hs::Quant{}, q, qn, active, B,
+                              metric, 0, cur, curdist, hops, dcomp, stream);
+}
+
 // Kε on estimates: the scorer (packed rows, row stride in words, nb,
 // ex_bits, use_ex, q_rot, sumq, g_add, C) takes the place of the vectors;
 // score_cur: curdist comes in unset and starts as the estimate of cur
@@ -176,7 +192,8 @@ extern "C" int hs_greedy_descent_quant(
   const hs::Fetch f{rows, aux, mode, W, level, stride};
   const hs::Quant z{qrows, qstride, nb, ex_bits, use_ex, q_rot, sumq, g_add,
                     C};
-  return launch_greedy<true>(nullptr, nb * 32, f, z, nullptr, nullptr, active,
+  return launch_greedy<true>(static_cast<const float*>(nullptr), nb * 32, f,
+                             z, nullptr, nullptr, active,
                              B, 0, score_cur, cur, curdist, hops, dcomp,
                              stream);
 }

@@ -32,6 +32,11 @@
 // ALL kept rows, guarded ones farther away included. The walk then visits
 // the unguarded candidates in ascending distance while fewer than m rows
 // are kept. No early-out and no backfill in this mode.
+//
+// bfloat16 store (hs_rng_prune_bf16; HnswConfig.store_dtype): base and
+// candidate rows are read as bf16 (half the gather bytes) and widened to
+// fp32 as they are read, so the staged kept rows in shared memory, the norms
+// (vn, computed from the bf16 store) and every sum are fp32 as above.
 #include <climits>
 
 #include "common.cuh"
@@ -41,8 +46,9 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int NW = THREADS / 32;
 
+template <class T>
 __global__ void __launch_bounds__(THREADS)
-prune_kernel(const float* __restrict__ vec, const float* __restrict__ vn,
+prune_kernel(const T* __restrict__ vec, const float* __restrict__ vn,
              int D, const int* __restrict__ base_ids,
              const int* __restrict__ cand, const int* __restrict__ m_per_row,
              int C, int Cp, int Dp, int m_slots, int keep_all_under_m,
@@ -65,8 +71,9 @@ prune_kernel(const float* __restrict__ vec, const float* __restrict__ vn,
   const int base = base_ids[b];
   const float bn = vn[base];
   const int m = m_per_row[b];  // kept rows never exceed min(m, C) <= m_slots
-  const bool vec4 = (D & 3) == 0;
-  for (int i = tid; i < D; i += THREADS) bvec[i] = vec[(size_t)base * D + i];
+  const bool vec4 = hs::can_vec4(vec, D);
+  for (int i = tid; i < D; i += THREADS)
+    bvec[i] = hs::load1(vec + (size_t)base * D + i);
   for (int c = tid; c < Cp; c += THREADS) {
     kflag[c] = 0;
     if (c >= C) { sd[c] = HS_INF; sp[c] = INT_MAX; }
@@ -109,7 +116,7 @@ prune_kernel(const float* __restrict__ vec, const float* __restrict__ vn,
       const int i = kid[j];
       const int id = crow[sp[i]];
       for (int e = lane; e < D; e += 32)
-        kvec[(size_t)j * Dp + e] = vec[(size_t)id * D + e];
+        kvec[(size_t)j * Dp + e] = hs::load1(vec + (size_t)id * D + e);
       if (lane == 0) { kn[j] = vn[id]; kflag[i] = 1; }
     }
     __syncthreads();
@@ -119,7 +126,8 @@ prune_kernel(const float* __restrict__ vec, const float* __restrict__ vn,
       const int id = crow[sp[i]];
       const float di = sd[i];
       float* cv = kvec + (size_t)cnt * Dp;
-      for (int e = tid; e < D; e += THREADS) cv[e] = vec[(size_t)id * D + e];
+      for (int e = tid; e < D; e += THREADS)
+        cv[e] = hs::load1(vec + (size_t)id * D + e);
       const float cn = vn[id];
       __syncthreads();
       bool conflict = false;
@@ -141,7 +149,8 @@ prune_kernel(const float* __restrict__ vec, const float* __restrict__ vn,
       const int id = crow[sp[i]];
       const float di = sd[i];
       float* cv = kvec + (size_t)cnt * Dp;
-      for (int e = tid; e < D; e += THREADS) cv[e] = vec[(size_t)id * D + e];
+      for (int e = tid; e < D; e += THREADS)
+        cv[e] = hs::load1(vec + (size_t)id * D + e);
       const float cn = vn[id];
       __syncthreads();
       bool conflict = false;
@@ -195,6 +204,27 @@ prune_kernel(const float* __restrict__ vec, const float* __restrict__ vn,
   if (tid == 0) cnt_out[b] = cnt;
 }
 
+template <class T>
+int launch_prune(const T* vec, const float* vn, int D, const int* base_ids,
+                 const int* cand, const int* m_per_row, int B, int C,
+                 int m_max, int keep_all_under_m, int keep_pruned,
+                 int out_width, int metric, const unsigned char* guard,
+                 int* out, int* cnt, void* stream) {
+  const int Dp = (D + 3) / 4 * 4;
+  const int Cp = hs::next_pow2(C < 1 ? 1 : C);
+  const int m_slots = m_max < 1 ? 1 : m_max;
+  const size_t smem = sizeof(float) * Dp * (1 + (size_t)m_slots) +
+                      2 * sizeof(int) * Cp + 2 * sizeof(int) * m_slots + Cp;
+  cudaError_t err = cudaFuncSetAttribute(
+      prune_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  prune_kernel<T><<<B, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      vec, vn, D, base_ids, cand, m_per_row, C, Cp, Dp, m_slots,
+      keep_all_under_m, keep_pruned, out_width, metric, guard, out, cnt);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int hs_rng_prune(const float* vec, const float* vn, int D,
@@ -204,17 +234,20 @@ extern "C" int hs_rng_prune(const float* vec, const float* vn, int D,
                             int out_width, int metric,
                             const unsigned char* guard, int* out, int* cnt,
                             void* stream) {
-  const int Dp = (D + 3) / 4 * 4;
-  const int Cp = hs::next_pow2(C < 1 ? 1 : C);
-  const int m_slots = m_max < 1 ? 1 : m_max;
-  const size_t smem = sizeof(float) * Dp * (1 + (size_t)m_slots) +
-                      2 * sizeof(int) * Cp + 2 * sizeof(int) * m_slots + Cp;
-  cudaError_t err = cudaFuncSetAttribute(
-      prune_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  prune_kernel<<<B, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      vec, vn, D, base_ids, cand, m_per_row, C, Cp, Dp, m_slots,
-      keep_all_under_m, keep_pruned, out_width, metric, guard, out, cnt);
-  return static_cast<int>(cudaGetLastError());
+  return launch_prune(vec, vn, D, base_ids, cand, m_per_row, B, C, m_max,
+                      keep_all_under_m, keep_pruned, out_width, metric, guard,
+                      out, cnt, stream);
+}
+
+// the same over a bfloat16 store (rows widened to fp32 as they are read)
+extern "C" int hs_rng_prune_bf16(const __nv_bfloat16* vec, const float* vn,
+                                 int D, const int* base_ids, const int* cand,
+                                 const int* m_per_row, int B, int C,
+                                 int m_max, int keep_all_under_m,
+                                 int keep_pruned, int out_width, int metric,
+                                 const unsigned char* guard, int* out,
+                                 int* cnt, void* stream) {
+  return launch_prune(vec, vn, D, base_ids, cand, m_per_row, B, C, m_max,
+                      keep_all_under_m, keep_pruned, out_width, metric, guard,
+                      out, cnt, stream);
 }

@@ -36,6 +36,12 @@
 // (<q_rot, bits> - sumq / 2) from the row's own factors — always the 1-bit
 // pair — and the same running top-k takes it. Neither the unpacked planes
 // nor the [B, rows] estimates reach device memory.
+//
+// bfloat16 rows (hs_topk_dist_bf16, hs_topk_strata_bf16: a bf16 store, or
+// the seed table gathered from one, as the JAX union's seed table is): the
+// x tile is loaded from bf16 and widened to fp32 as it enters shared
+// memory, so the micro-tiles, norms and lists are as above and the scan
+// streams half the bytes.
 #include "common.cuh"
 
 namespace {
@@ -92,10 +98,10 @@ __device__ __forceinline__ void list_offer(float (&ld)[2], int (&li)[2],
   }
 }
 
-template <bool EST>
+template <bool EST, class T>
 __global__ void __launch_bounds__(THREADS)
 topk_scan(const float* __restrict__ q, const float* __restrict__ qn,
-          const float* __restrict__ x, const float* __restrict__ xn,
+          const T* __restrict__ x, const float* __restrict__ xn,
           const hs::Quant z, const int* __restrict__ row_ids, int B, int N,
           int D, int n_valid, int self_offset, int k, int metric,
           int rows_per_split, float* __restrict__ out_d,
@@ -137,7 +143,8 @@ topk_scan(const float* __restrict__ q, const float* __restrict__ qn,
                          : 0u;
           xs[a][c] = static_cast<float>((word >> c) & 1u);
         } else {
-          xs[a][c] = (gr < r_end && gc < D) ? x[(size_t)gr * D + gc] : 0.f;
+          xs[a][c] =
+              (gr < r_end && gc < D) ? hs::load1(x + (size_t)gr * D + gc) : 0.f;
         }
       }
       __syncthreads();
@@ -268,25 +275,22 @@ strata_sort(const float* __restrict__ part_d, const int* __restrict__ part_i,
   }
 }
 
-}  // namespace
-
-extern "C" int hs_topk_dist(const float* q, const float* qn, const float* x,
-                            const float* xn, const int* row_ids, int B, int N,
-                            int D, int n_valid, int self_offset, int k,
-                            int metric, int splits, float* part_d,
-                            int* part_i, float* out_d, int* out_i,
-                            void* stream) {
+template <class T>
+int launch_topk(const float* q, const float* qn, const T* x, const float* xn,
+                const int* row_ids, int B, int N, int D, int n_valid,
+                int self_offset, int k, int metric, int splits, float* part_d,
+                int* part_i, float* out_d, int* out_i, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int per = (N + splits - 1) / splits;
   const int rows_per_split = (per + BN - 1) / BN * BN;
   const dim3 grid((B + BQ - 1) / BQ, splits);
   const hs::Quant z{};
   if (splits == 1) {
-    topk_scan<false><<<grid, THREADS, 0, st>>>(
+    topk_scan<false, T><<<grid, THREADS, 0, st>>>(
         q, qn, x, xn, z, row_ids, B, N, D, n_valid, self_offset, k, metric,
         rows_per_split, out_d, out_i);
   } else {
-    topk_scan<false><<<grid, THREADS, 0, st>>>(
+    topk_scan<false, T><<<grid, THREADS, 0, st>>>(
         q, qn, x, xn, z, row_ids, B, N, D, n_valid, self_offset, k, metric,
         rows_per_split, part_d, part_i);
     topk_merge<<<(B + 7) / 8, 256, 0, st>>>(part_d, part_i, splits, B, k,
@@ -295,23 +299,66 @@ extern "C" int hs_topk_dist(const float* q, const float* qn, const float* x,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int hs_topk_strata(const float* q, const float* qn, const float* x,
-                              const float* xn, const int* row_ids, int B,
-                              int N, int D, int sps, int strata, int metric,
-                              float* part_d, int* part_i, float* out_d,
-                              int* out_id, void* stream) {
+template <class T>
+int launch_strata(const float* q, const float* qn, const T* x,
+                  const float* xn, const int* row_ids, int B, int N, int D,
+                  int sps, int strata, int metric, float* part_d, int* part_i,
+                  float* out_d, int* out_id, void* stream) {
   if (strata < 1 || N % strata || sps < 1 || sps > 64 ||
       strata * sps > MAX_SEEDS)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((B + BQ - 1) / BQ, strata);
-  topk_scan<false><<<grid, THREADS, 0, st>>>(q, qn, x, xn, hs::Quant{},
-                                             row_ids, B, N, D, N, -1, sps,
-                                             metric, N / strata, part_d,
-                                             part_i);
+  topk_scan<false, T><<<grid, THREADS, 0, st>>>(
+      q, qn, x, xn, hs::Quant{}, row_ids, B, N, D, N, -1, sps, metric,
+      N / strata, part_d, part_i);
   strata_sort<<<B, 256, 0, st>>>(part_d, part_i, row_ids, strata, B, sps,
                                  out_d, out_id);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int hs_topk_dist(const float* q, const float* qn, const float* x,
+                            const float* xn, const int* row_ids, int B, int N,
+                            int D, int n_valid, int self_offset, int k,
+                            int metric, int splits, float* part_d,
+                            int* part_i, float* out_d, int* out_i,
+                            void* stream) {
+  return launch_topk(q, qn, x, xn, row_ids, B, N, D, n_valid, self_offset, k,
+                     metric, splits, part_d, part_i, out_d, out_i, stream);
+}
+
+// the same over bfloat16 rows (a bf16 store or a gather of one)
+extern "C" int hs_topk_dist_bf16(const float* q, const float* qn,
+                                 const __nv_bfloat16* x, const float* xn,
+                                 const int* row_ids, int B, int N, int D,
+                                 int n_valid, int self_offset, int k,
+                                 int metric, int splits, float* part_d,
+                                 int* part_i, float* out_d, int* out_i,
+                                 void* stream) {
+  return launch_topk(q, qn, x, xn, row_ids, B, N, D, n_valid, self_offset, k,
+                     metric, splits, part_d, part_i, out_d, out_i, stream);
+}
+
+extern "C" int hs_topk_strata(const float* q, const float* qn, const float* x,
+                              const float* xn, const int* row_ids, int B,
+                              int N, int D, int sps, int strata, int metric,
+                              float* part_d, int* part_i, float* out_d,
+                              int* out_id, void* stream) {
+  return launch_strata(q, qn, x, xn, row_ids, B, N, D, sps, strata, metric,
+                       part_d, part_i, out_d, out_id, stream);
+}
+
+// the seed table of a bfloat16 store (a gather of that store's rows)
+extern "C" int hs_topk_strata_bf16(const float* q, const float* qn,
+                                   const __nv_bfloat16* x, const float* xn,
+                                   const int* row_ids, int B, int N, int D,
+                                   int sps, int strata, int metric,
+                                   float* part_d, int* part_i, float* out_d,
+                                   int* out_id, void* stream) {
+  return launch_strata(q, qn, x, xn, row_ids, B, N, D, sps, strata, metric,
+                       part_d, part_i, out_d, out_id, stream);
 }
 
 // Kα in estimate mode: top-k rows of the packed table (N rows; scorer
@@ -328,7 +375,7 @@ extern "C" int hs_topk_estimate(const uint32_t* qrows, int qstride, int nb,
   const int per = (N + splits - 1) / splits;
   const int rows_per_split = (per + BN - 1) / BN * BN;
   const dim3 grid((B + BQ - 1) / BQ, splits);
-  topk_scan<true><<<grid, THREADS, 0, st>>>(
+  topk_scan<true, float><<<grid, THREADS, 0, st>>>(
       q_rot, nullptr, nullptr, nullptr, z, row_ids, B, N, nb * 32, N, -1, k,
       0, rows_per_split, splits == 1 ? out_d : part_d,
       splits == 1 ? out_i : part_i);

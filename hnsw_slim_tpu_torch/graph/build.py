@@ -86,10 +86,10 @@ def mutual_union(sel: torch.Tensor, d_sel: torch.Tensor, *, w_union: int):
 
 
 def _edge_dists(q, qn, vectors, vn, sel, metric):
-    """Exact distances q[i] -> vectors[sel[i, j]]; inf where sel < 0."""
-    safe = sel.clamp(min=0).long()
-    d = gathered_dist(q, vectors[safe], metric, qn=qn, vn=vn[safe])
-    return torch.where(sel >= 0, d, INF)
+    """Exact distances q[i] -> vectors[sel[i, j]]; inf where sel < 0 (K1,
+    which reads the rows by id)."""
+    return gathered_dist(q, vectors, metric, qn=qn, vn=vn,
+                         ids=sel.to(torch.int32).contiguous())
 
 
 def level0_candidates(knn_ids: np.ndarray, hop2: int = 0,
@@ -550,7 +550,9 @@ class HnswBuilder:
         lp_eff = np.minimum(levels[ids], cur_maxlevel).astype(np.int32)
         a_all = torch.arange(int(ids[0]), int(ids[-1]) + 1,
                              dtype=torch.int32, device=dev)
-        q = vecs[int(ids[0]):int(ids[-1]) + 1]
+        # the batch's own rows are its queries, fp32 (a bfloat16 store's rows
+        # widen exactly, as the JAX distances upcast them)
+        q = vecs[int(ids[0]):int(ids[-1]) + 1].float()
         i0, up, cand_up = self._search_batch(q, lp_eff, entry, cur_maxlevel,
                                              vecs, vn, adj_dev, spans)
         t2 = spans.stamp()
@@ -588,7 +590,7 @@ class HnswBuilder:
         cfg = self.cfg
         dev = vecs.device
         lp_eff = np.minimum(levels[ids], cur_maxlevel).astype(np.int32)
-        q = vecs[_to_dev(ids.astype(np.int64), dev)]
+        q = vecs[_to_dev(ids.astype(np.int64), dev)].float()
         i0, up, cand_up = self._search_batch(q, lp_eff, entry, cur_maxlevel,
                                              vecs, vn, adj_dev, spans)
         t2 = spans.stamp()

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import cuda
-from ..ops.distance import gathered_dist
+from ..ops.distance import gathered_dist_plain
 
 INF = float("inf")
 
@@ -27,8 +27,8 @@ def _prune_rows_plain(vectors, vn, base_ids, cand_ids, m, keep_all_under_m,
     dev = cand_ids.device
     safe = cand_ids.clamp(min=0).long()
     base = base_ids.long()
-    cand_d = gathered_dist(vectors[base], vectors[safe], metric,
-                           qn=vn[base], vn=vn[safe])
+    cand_d = gathered_dist_plain(vectors[base], vectors[safe], metric,
+                                 qn=vn[base], vn=vn[safe])
     valid = (cand_ids >= 0) & (cand_ids != base_ids[:, None])
     masked = torch.where(valid, cand_d, INF)
     perm = torch.sort(masked, dim=1, stable=True).indices
@@ -127,7 +127,7 @@ def rng_prune(vectors, vn, base_ids, cand_ids, m_per_row, *,
             out_width=out_width, metric=metric, guard=guard)
     b, c = cand_ids.shape
     d = vectors.shape[1]
-    cuda.require(vectors, torch.float32, "vectors", (-1, d))
+    cuda.require(vectors, cuda.ROW_TYPES, "vectors", (-1, d))
     cuda.require(vn, torch.float32, "vn", (vectors.shape[0],))
     cuda.require(base_ids, torch.int32, "base_ids", (b,))
     cuda.require(cand_ids, torch.int32, "cand_ids", (b, c))
@@ -150,13 +150,14 @@ def rng_prune(vectors, vn, base_ids, cand_ids, m_per_row, *,
     if smem > 227 * 1024:
         raise ValueError(f"rng_prune: C={c} with m={m_slots} needs {smem} B "
                          "of shared memory (> 227 KB)")
+    entry, modes = cuda.row_type(vectors, "rng_prune",
+                                 () if guard is None else ("guarded",))
     cuda.launch(
         "rng_prune", vectors.data_ptr(), vn.data_ptr(), d, base_ids.data_ptr(),
         cand_ids.data_ptr(), m_per_row.data_ptr(), b, c, m_slots,
         int(keep_all_under_m), int(keep_pruned), out_width,
         int(metric == "ip"), None if guard is None else guard.data_ptr(),
-        sel.data_ptr(), cnt.data_ptr(),
-        modes=() if guard is None else ("guarded",),
+        sel.data_ptr(), cnt.data_ptr(), entry=entry, modes=modes,
     )
     return sel, cnt
 

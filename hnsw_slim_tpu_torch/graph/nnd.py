@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import cuda
-from ..ops.distance import gathered_dist
+from ..ops.distance import gathered_dist_plain
 
 INF = float("inf")
 BIG = 2**30
@@ -52,8 +52,8 @@ def cand_merge_plain(vectors, vn, ids, dists, newf, cand, chunk: int = 8192,
         valid = (sc >= 0) & ~known & (sc != self_ids)
         safe = sc.clamp(min=0).long()
         rows = torch.arange(row0 + s, row0 + e, device=ids.device)
-        d = gathered_dist(vectors[rows], vectors[safe], metric, qn=vn[rows],
-                          vn=vn[safe])
+        d = gathered_dist_plain(vectors[rows], vectors[safe], metric,
+                                qn=vn[rows], vn=vn[safe])
         d = torch.where(valid, d, INF)
         cat_d = torch.cat([dc, d], dim=1)
         cat_i = torch.cat([idc, torch.where(valid, sc, -1)], dim=1)

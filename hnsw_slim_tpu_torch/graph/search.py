@@ -72,7 +72,7 @@ import torch
 
 from ..index.bruteforce import topk_dist, topk_dist_strata
 from ..ops import cuda
-from ..ops.distance import gathered_dist, sq_norms
+from ..ops.distance import gathered_dist, gathered_dist_plain, sq_norms
 from ..quant.estimator import QuantScorer, packed_estimate_plain
 
 INF = float("inf")
@@ -287,7 +287,7 @@ def beam_search_plain(vectors, q, qn, rows, seed_d, seed_id, *, P: int,
         if scorer is not None:
             d = packed_estimate_plain(scorer, safe)
         else:
-            d = gathered_dist(q, vectors[safe], metric, qn=qn)
+            d = gathered_dist_plain(q, vectors[safe], metric, qn=qn)
         d = torch.where(cand, d, INF)
         hops += selmask.sum(dim=1, dtype=torch.int32)
         dcomp += cand.sum(dim=1, dtype=torch.int32)
@@ -344,7 +344,7 @@ def beam_search(vectors, q, qn, rows, seed_d, seed_id, *, P: int,
         raise ValueError("beam_search: a pop track needs a quantized scorer")
     d = q.shape[1]
     _check_beam_shape(k, P, ef_eff, S, pop_width, W, cw)
-    cuda.require(vectors, torch.float32, "vectors", (-1, d))
+    cuda.require(vectors, cuda.ROW_TYPES, "vectors", (-1, d))
     cuda.require(q, torch.float32, "q", (b, d))
     cuda.require(qn, torch.float32, "qn", (b,))
     fargs = _fetch_args(fetch)
@@ -355,7 +355,9 @@ def beam_search(vectors, q, qn, rows, seed_d, seed_id, *, P: int,
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     hops = torch.empty((b,), dtype=torch.int32, device=dev)
     dcomp = torch.empty((b,), dtype=torch.int32, device=dev)
-    modes = () if fetch.mode == "dense" else (fetch.mode,)
+    entry, modes = cuda.row_type(
+        vectors, "beam_search",
+        () if fetch.mode == "dense" else (fetch.mode,))
     filt = (None,) * 5
     if allowed is not None:
         cuda.require(allowed, torch.bool, "allowed", (vectors.shape[0],))
@@ -372,7 +374,7 @@ def beam_search(vectors, q, qn, rows, seed_d, seed_id, *, P: int,
             qn.data_ptr(), seed_d.data_ptr(), seed_id.data_ptr(), b, S, P,
             ef_eff, pop_width, cw, max_iters, k, int(metric == "ip"),
             *filt[:3], out_d.data_ptr(), out_i.data_ptr(), hops.data_ptr(),
-            dcomp.data_ptr(), *filt[3:], modes=modes,
+            dcomp.data_ptr(), *filt[3:], entry=entry, modes=modes,
         )
     if allowed is not None:
         return out_d, out_i, hops, dcomp, trk_d, trk_i
@@ -465,7 +467,7 @@ def greedy_descent_plain(vectors, q, qn, rows, cur, curdist, active=None,
         if scorer is not None:
             d = packed_estimate_plain(scorer, safe)
         else:
-            d = gathered_dist(q, vectors[safe.long()], metric, qn=qn)
+            d = gathered_dist_plain(q, vectors[safe.long()], metric, qn=qn)
         d = torch.where(valid, d, INF)
         dmin = d.min(dim=1).values
         # smallest id among the lanes at the minimum distance
@@ -496,7 +498,7 @@ def greedy_descent(vectors, q, qn, rows, cur, curdist, active=None,
     b = cur.shape[0]
     if scorer is None:
         d = q.shape[1]
-        cuda.require(vectors, torch.float32, "vectors", (-1, d))
+        cuda.require(vectors, cuda.ROW_TYPES, "vectors", (-1, d))
         cuda.require(q, torch.float32, "q", (b, d))
         cuda.require(qn, torch.float32, "qn", (b,))
     elif scorer.q_rot.shape[0] != b:
@@ -525,11 +527,12 @@ def greedy_descent(vectors, q, qn, rows, cur, curdist, active=None,
             dcomp.data_ptr(), entry="greedy_descent_quant",
             modes=modes + ("quant",))
     elif b:
+        entry, modes = cuda.row_type(vectors, "greedy_descent", modes)
         cuda.launch(
             "greedy_descent", vectors.data_ptr(), d, *fargs, q.data_ptr(),
             qn.data_ptr(), None if active is None else active.data_ptr(), b,
             int(metric == "ip"), cur.data_ptr(), curdist.data_ptr(),
-            hops.data_ptr(), dcomp.data_ptr(), modes=modes,
+            hops.data_ptr(), dcomp.data_ptr(), entry=entry, modes=modes,
         )
     return cur, curdist, hops, dcomp
 
@@ -537,16 +540,15 @@ def greedy_descent(vectors, q, qn, rows, cur, curdist, active=None,
 def entry_dist(vectors, vn, q, qn, entry, metric: str = "l2"):
     """(cur i32[B], curdist f32[B]): every query at its entry point (one int
     for all, or per-query ids [B]), with the distance in the JAX form (the
-    entry's stored norm)."""
+    entry's stored norm); K1 reads the entry rows by id from the store."""
     b = q.shape[0]
     if isinstance(entry, int):
         cur = torch.full((b,), entry, dtype=torch.int32, device=q.device)
     else:
         cur = torch.as_tensor(entry, device=q.device).to(torch.int32)
         cur = cur.broadcast_to((b,)).contiguous()
-    e = cur.long()
-    curdist = gathered_dist(q, vectors[e][:, None, :], metric, qn=qn,
-                            vn=vn[e][:, None])[:, 0]
+    curdist = gathered_dist(q, vectors, metric, qn=qn, vn=vn,
+                            ids=cur[:, None])[:, 0]
     return cur, curdist
 
 

@@ -6,9 +6,11 @@ running ``lax.top_k``), the exact seed block of ``chal_search`` and the
 subset kNN of the NND build. Results are ordered by (distance, position):
 equal distances put the lower row first, as ``lax.top_k`` does.
 ``topk_dist_strata`` is its stratified form, the seed block of
-``chal_search`` with ``seed_strata`` > 1. ``topk_estimate`` is its estimate
-mode, the seed block of the SlimQ search: the same scan and running top-k
-over the 1-bit RaBitQ estimates of a table of packed code rows.
+``chal_search`` with ``seed_strata`` > 1. Both take fp32 or bfloat16 rows
+(a bfloat16 store, or the seed table gathered from one). ``topk_estimate``
+is its estimate mode, the seed block of the SlimQ search: the same scan and
+running top-k over the 1-bit RaBitQ estimates of a table of packed code
+rows.
 """
 
 from __future__ import annotations
@@ -77,7 +79,7 @@ def topk_dist(q, x, xn, k: int, metric: str = "l2", n_valid: int = -1,
     if not 1 <= k <= 64:
         raise ValueError(f"topk_dist: k={k} outside [1, 64]")
     cuda.require(q, torch.float32, "q", (-1, -1))
-    cuda.require(x, torch.float32, "x", (-1, d))
+    cuda.require(x, cuda.ROW_TYPES, "x", (-1, d))
     cuda.require(xn, torch.float32, "xn", (n,))
     if row_ids is not None:
         cuda.require(row_ids, torch.int32, "row_ids", (n,))
@@ -91,11 +93,13 @@ def topk_dist(q, x, xn, k: int, metric: str = "l2", n_valid: int = -1,
     )
     part_d = torch.empty((splits, b, k), dtype=torch.float32, device=q.device)
     part_i = torch.empty((splits, b, k), dtype=torch.int32, device=q.device)
+    entry, modes = cuda.row_type(x, "topk_dist")
     cuda.launch(
         "topk_dist", q.data_ptr(), qn.data_ptr(), x.data_ptr(), xn.data_ptr(),
-        None if row_ids is None else row_ids.data_ptr(), b, n, d, n if n_valid < 0 else n_valid,
-        self_offset, k, int(metric == "ip"), splits, part_d.data_ptr(),
-        part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+        None if row_ids is None else row_ids.data_ptr(), b, n, d,
+        n if n_valid < 0 else n_valid, self_offset, k, int(metric == "ip"),
+        splits, part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
+        out_i.data_ptr(), entry=entry, modes=modes,
     )
     return out_d, out_i
 
@@ -155,7 +159,7 @@ def topk_dist_strata(q, x, xn, row_ids, seed_width: int, strata: int,
         raise ValueError(f"topk_dist_strata: {sps} seeds per segment (max "
                          f"64), {strata * sps} in all (max 1024)")
     cuda.require(q, torch.float32, "q", (-1, -1))
-    cuda.require(x, torch.float32, "x", (-1, d))
+    cuda.require(x, cuda.ROW_TYPES, "x", (-1, d))
     cuda.require(xn, torch.float32, "xn", (n,))
     cuda.require(row_ids, torch.int32, "row_ids", (n,))
     qn = sq_norms(q).contiguous()
@@ -167,11 +171,12 @@ def topk_dist_strata(q, x, xn, row_ids, seed_width: int, strata: int,
     part_d = torch.empty((strata, b, sps), dtype=torch.float32,
                          device=q.device)
     part_i = torch.empty((strata, b, sps), dtype=torch.int32, device=q.device)
+    entry, modes = cuda.row_type(x, "topk_strata", ("strata",))
     cuda.launch(
         "topk_dist", q.data_ptr(), qn.data_ptr(), x.data_ptr(), xn.data_ptr(),
         row_ids.data_ptr(), b, n, d, sps, strata, int(metric == "ip"),
         part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
-        out_i.data_ptr(), entry="topk_strata", modes=("strata",),
+        out_i.data_ptr(), entry=entry, modes=modes,
     )
     return out_d, out_i
 

@@ -2,9 +2,11 @@
 hnsw_slim_tpu/index/hnsw.py).
 
 The index holds dense per-level adjacency (LevelGraph) and the vectors on
-its device. Builds by insertion rounds (``HnswBuilder``: Kε, Kβ, Kγ, Kζ) or
-by NN-descent; searches by greedy descent (Kε) and the level-0 beam (Kβ),
-filtered in the kernel when the caller passes ``filter_mask``.
+its device, as fp32 or (``HnswConfig.store_dtype="bfloat16"``) bfloat16
+rows; every kernel that reads the store takes either row type. Builds by
+insertion rounds (``HnswBuilder``: Kε, Kβ, Kγ, Kζ) or by NN-descent;
+searches by greedy descent (Kε) and the level-0 beam (Kβ), filtered in the
+kernel when the caller passes ``filter_mask``.
 
 Updates: ``add_points`` appends a batch through the same insert machinery
 into capacity-bucketed arrays, in place; ``replace_points`` reuses deleted
@@ -32,6 +34,9 @@ from ..graph.prune import _pad_to_len
 from ..graph.types import LevelGraph
 from ..ops import cuda
 from ..ops.distance import sq_norms
+
+# HnswConfig.store_dtype -> the vector store's torch dtype
+STORE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # NND's exact-kNN candidate sets over-prune on clustered data at scale, so
 # "auto" picks NND only below this size (as the JAX package does)
@@ -108,29 +113,40 @@ class HnswIndex:
         self.last_update_stats: dict = {}
 
     def build(self, vectors: np.ndarray, verbose: bool = False) -> None:
-        if self.cfg.store_dtype != "float32":
-            raise NotImplementedError(
-                f"store_dtype={self.cfg.store_dtype}: ROADMAP queue 1")
+        """Build the graph over ``vectors`` (float32 [N, d]). The graph is
+        built from the fp32 vectors whatever the store's type; a bfloat16
+        store (``cfg.store_dtype``) is then cast from them (round to nearest
+        even) and its norms taken from the bf16 rows, as in the JAX
+        package, so the conversions, updates and searches read bf16 rows."""
+        store = STORE_DTYPES.get(self.cfg.store_dtype)
+        if store is None:
+            raise ValueError(f"store_dtype={self.cfg.store_dtype!r}: expected "
+                             f"one of {sorted(STORE_DTYPES)}")
         strategy = resolve_build_strategy(self.strategy,
                                           int(np.asarray(vectors).shape[0]))
-        self.vectors = torch.as_tensor(np.asarray(vectors, np.float32),
-                                       device=self.device)
-        self.vn = sq_norms(self.vectors)
+        x32 = torch.as_tensor(np.asarray(vectors, np.float32),
+                              device=self.device)
+        vn32 = sq_norms(x32)
         self._adj_np = None
         if strategy == "nnd":
             from ..graph.build import build_by_nnd
 
             self.graph, self.levels = build_by_nnd(
-                self.cfg, self.vectors, self.vn, verbose=verbose,
-                **self.nnd_opts)
+                self.cfg, x32, vn32, verbose=verbose, **self.nnd_opts)
         elif strategy == "insert":
             builder = HnswBuilder(self.cfg, self.max_batch)
-            self.graph, self.levels = builder.build(self.vectors, self.vn,
+            self.graph, self.levels = builder.build(x32, vn32,
                                                     verbose=verbose)
             self.build_stats = {"phase_s": builder.phase_s,
                                 "overflow": builder.overflow}
         else:
             raise ValueError(f"unknown build strategy {strategy!r}")
+        if store == torch.float32:
+            self.vectors, self.vn = x32, vn32
+        else:
+            self.vectors = x32.to(store)
+            del x32, vn32
+            self.vn = sq_norms(self.vectors)
 
     def _marks(self):
         """A stopwatch for the update flows: mark(name) stores the host
@@ -206,8 +222,8 @@ class HnswIndex:
         mark("grow")
         self.levels = self.levels.copy()
         self.levels[n_old:n_new] = new_levels
-        self.vectors[n_old:n_new] = torch.as_tensor(new_np,
-                                                    device=self.device)
+        self.vectors[n_old:n_new] = torch.as_tensor(
+            new_np, device=self.device).to(self.vectors.dtype)
         self.vn = sq_norms(self.vectors)
         mark("vectors")
         # rows are left-packed, so occupancy is the count of ids
@@ -253,7 +269,8 @@ class HnswIndex:
             raise ValueError("replace_points: one vector per slot")
         slots_dev = _to_dev(slots, dev)
         self.vectors[slots_dev] = torch.as_tensor(
-            np.asarray(new_vectors, np.float32), device=dev)
+            np.asarray(new_vectors, np.float32), device=dev).to(
+                self.vectors.dtype)
         levels_arr = np.asarray(self.levels, np.int32).copy()
         is_slot = torch.zeros(self.vectors.shape[0], dtype=torch.bool,
                               device=dev)

@@ -209,9 +209,10 @@ class HnswSlimIndex:
         return autotune_index(self, ef, **kw)
 
     def _seed_table(self):
-        """(up_vecs f32[n_up_pad, d], up_vn f32[n_up_pad], up_ids
-        i32[n_up_pad]) over all level>=1 nodes, padded to a power of two
-        (>= 64) with id -1; rebuilt when the graph object changes."""
+        """(up_vecs [n_up_pad, d] in the store's row type, up_vn
+        f32[n_up_pad], up_ids i32[n_up_pad]) over all level>=1 nodes, padded
+        to a power of two (>= 64) with id -1; rebuilt when the graph object
+        changes."""
         if self.up_ids is None or self._up_for is not self.graph:
             lv = (self.host_chal["level"] if self.host_chal is not None
                   else self.graph.level.cpu().numpy())
@@ -325,6 +326,16 @@ def _timed_call(search_fn, queries, k) -> float:
     return time.perf_counter() - t0
 
 
+def probe_queries(idx, vecs, n: int, sample: int) -> np.ndarray:
+    """autotune_index's deterministic near-manifold probes: blends
+    0.85 * a + 0.15 * b of pairs of stored rows (of any row type)."""
+    idx_a = (np.arange(sample, dtype=np.int64) * 2654435761) % n
+    idx_b = (idx_a * 40503 + 12345) % n
+    va = vecs[idx._dev(idx_a)].float().cpu().numpy()
+    vb = vecs[idx._dev(idx_b)].float().cpu().numpy()
+    return (0.85 * va + 0.15 * vb).astype(np.float32)
+
+
 def autotune_index(idx, ef: int, k: int = 10, sample: int = 256,
                    recall_slack: float = 0.002, queries=None, gt=None,
                    configs=None, verbose: bool = False) -> dict:
@@ -358,12 +369,7 @@ def autotune_index(idx, ef: int, k: int = 10, sample: int = 256,
         vecs = idx._dataset_dev
         vnv = sq_norms(vecs)
     if queries is None:
-        # deterministic near-manifold probes: blend pairs of stored rows
-        idx_a = (np.arange(sample, dtype=np.int64) * 2654435761) % n
-        idx_b = (idx_a * 40503 + 12345) % n
-        va = vecs[idx._dev(idx_a)].cpu().numpy()
-        vb = vecs[idx._dev(idx_b)].cpu().numpy()
-        queries = (0.85 * va + 0.15 * vb).astype(np.float32)
+        queries = probe_queries(idx, vecs, n, sample)
     queries = np.asarray(queries, np.float32)
     if gt is None:
         _, gt = exact_topk(vecs, vnv, idx._dev(queries), k=k,

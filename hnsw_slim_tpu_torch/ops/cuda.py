@@ -12,7 +12,8 @@ Every C entry point returns ``cudaGetLastError()`` after its launches;
 ``check`` raises on a non-zero code. ``launches`` counts, per kernel, the
 wrapper calls that launched it, and per kernel mode (``kernel.mode``: a fetch
 form, the filtered beam, stratified seeds, the guarded prune, the quantized
-scorers and the rerank track of SlimQ) the launches made in that mode:
+scorers and the rerank track of SlimQ, ``bf16`` for rows read from a
+bfloat16 vector store) the launches made in that mode:
 ``reset_launches`` before a run and read the counts after it to show which
 kernels and modes the run went through.
 """
@@ -34,7 +35,7 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("topk_dist.cu", "beam_search.cu", "rng_prune.cu", "cand_merge.cu",
            "greedy_descent.cu", "rev_connect.cu", "fht_rotate.cu",
-           "row_deg.cu", "kv_sort.cu")
+           "row_deg.cu", "kv_sort.cu", "point_dist.cu", "shard_merge.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,15 +44,17 @@ NVCC_FLAGS = (
 
 KERNELS = ("topk_dist", "beam_search", "rng_prune", "cand_merge",
            "greedy_descent", "rev_connect", "fht_rotate", "row_deg",
-           "kv_sort")
+           "kv_sort", "point_dist", "shard_merge")
 MODES = ("topk_dist.strata", "beam_search.chal", "beam_search.rank",
          "beam_search.filtered", "greedy_descent.chal", "greedy_descent.rank",
          "rng_prune.guarded", "topk_dist.estimate", "beam_search.quant",
          "beam_search.quant_ex", "beam_search.rerank", "greedy_descent.quant",
-         "fht_rotate.g_tables")
+         "fht_rotate.g_tables", "topk_dist.bf16", "beam_search.bf16",
+         "greedy_descent.bf16", "rng_prune.bf16", "point_dist.bf16")
 launches = dict.fromkeys(KERNELS + MODES, 0)
 
-P, I32, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I32, I64, F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
 # the quantized scorer (quant/estimator.py QuantScorer.args): packed rows,
 # row stride in words, nb, ex_bits, use_ex, q_rot, sumq, g_add, C
 _SCORER = [P, I32, I32, I32, I32, P, P, P, I32]
@@ -114,7 +117,19 @@ _SIGNATURES = {
     "hs_row_deg": [P, I32, I32, P, P],
     # keys, payload, E, E_pad, scratch, keys_out, payload_out, stream
     "hs_kv_sort": [P, P, I32, I32, P, P, P, P],
+    # q, qn, x, xn, ids, B, W, D, metric, diff, out, stream
+    "hs_point_dist": [P, P, P, P, P, I32, I32, I32, I32, I32, P, P],
+    # d, ids, shard stride, query stride, gid, gid stride, hops, dcomp,
+    # their shard and query strides, S, B, k, out_d, out_id, out_hops,
+    # out_dcomp, stream
+    "hs_shard_merge": [P, P, I64, I64, P, I64, P, P, I64, I64, I32, I32, I32,
+                       P, P, P, P, P],
 }
+# the kernels that read rows of the vector store have a bfloat16 entry
+# point of the same signature (``<name>_bf16``)
+for _name in ("hs_topk_dist", "hs_topk_strata", "hs_beam_search",
+              "hs_rng_prune", "hs_greedy_descent", "hs_point_dist"):
+    _SIGNATURES[_name + "_bf16"] = _SIGNATURES[_name]
 
 _LIB = None
 
@@ -234,13 +249,26 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def require(t: torch.Tensor, dtype: torch.dtype, name: str,
+ROW_TYPES = (torch.float32, torch.bfloat16)  # the vector store's row types
+
+
+def row_type(vectors: torch.Tensor, entry: str, modes: tuple = ()):
+    """(C entry point, modes) of a launch that reads rows of ``vectors``:
+    ``entry`` for an fp32 store, ``entry_bf16`` and the ``bf16`` mode for a
+    bfloat16 one."""
+    if vectors.dtype == torch.bfloat16:
+        return f"{entry}_bf16", modes + ("bf16",)
+    return entry, modes
+
+
+def require(t: torch.Tensor, dtype, name: str,
             shape: tuple | None = None) -> None:
-    """Validate a tensor handed to a kernel: on CUDA, dtype, contiguity and
-    (where given, -1 = any) shape."""
+    """Validate a tensor handed to a kernel: on CUDA, dtype (one dtype, or a
+    tuple of the accepted ones), contiguity and (where given, -1 = any)
+    shape."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")

@@ -2,7 +2,9 @@
 
 The file format is the JAX package's: one ``.npz`` of arrays plus a JSON
 metadata header, read and written with numpy alone. A graph either engine
-saved loads into the other unchanged.
+saved loads into the other unchanged. A bfloat16 store is written as the
+JAX package writes it (its raw 2-byte words, numpy dtype V2) and loads back
+bit for bit; the JAX package's own loaders cannot read such a file back.
 """
 
 from __future__ import annotations
@@ -20,6 +22,25 @@ from ..graph.types import ChalGraph, LevelGraph
 from ..ops.distance import sq_norms
 
 FORMAT_VERSION = 1
+
+
+def vectors_to_np(t: torch.Tensor) -> np.ndarray:
+    """A vector store as the file holds it: fp32 as is; bfloat16 as its raw
+    2-byte words (numpy dtype V2), the bytes the JAX package's ``np.savez``
+    writes for its ml_dtypes bfloat16 store."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
+
+
+def vectors_from_np(a: np.ndarray, device) -> torch.Tensor:
+    """The inverse of vectors_to_np, onto ``device``: 2-byte void words are
+    bfloat16 rows."""
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        words = np.ascontiguousarray(a).view(np.int16)
+        return torch.from_numpy(words).view(torch.bfloat16).to(device)
+    return torch.as_tensor(a, device=device)
 
 
 def _meta(z) -> dict:
@@ -50,7 +71,7 @@ def save_slim(path: str | Path, index) -> None:
         nbr=g.nbr.cpu().numpy(),
         lvl_off=g.lvl_off[:n].cpu().numpy(),
         level=g.level[:n].cpu().numpy(),
-        vectors=index.vectors[:n].cpu().numpy(),
+        vectors=vectors_to_np(index.vectors[:n]),
     )
 
 
@@ -73,7 +94,7 @@ def load_slim(path: str | Path, search_cfg: SearchConfig | None = None,
             threshold_level=meta["threshold_level"], cap0=meta["cap0"],
             cap=meta["cap"], device=idx.device,
         )
-        idx.vectors = torch.as_tensor(z["vectors"], device=idx.device)
+        idx.vectors = vectors_from_np(z["vectors"], idx.device)
         idx.vn = sq_norms(idx.vectors)
     return idx
 
@@ -145,7 +166,7 @@ def load_hnsw(path: str | Path, device=None):
         idx.levels = np.asarray(z["level"])
         # the host adjacency mirror comes from the file, not from the device
         idx._adj_np = [np.array(a, np.int32) for a in adjs]
-        idx.vectors = torch.as_tensor(z["vectors"], device=idx.device)
+        idx.vectors = vectors_from_np(z["vectors"], idx.device)
         idx.vn = sq_norms(idx.vectors)
     return idx
 
@@ -195,6 +216,6 @@ def save_hnsw(path: str | Path, index) -> None:
         path,
         meta=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8),
         level=g.level[:n].cpu().numpy(),
-        vectors=index.vectors[:n].cpu().numpy(),
+        vectors=vectors_to_np(index.vectors[:n]),
         **arrays,
     )

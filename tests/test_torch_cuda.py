@@ -813,3 +813,303 @@ def test_add_points_and_update_round_on_card(data):
     s.graph, s.vectors, s.vn, s.host_chal = g1, h.vectors, h.vn, ci
     _, ids = s.search(base[19000:], 1)
     assert (ids[:, 0] == np.arange(19000, 20000)).mean() >= 0.9
+
+
+# ---- K1, K19, bfloat16 store rows, union and sharded serving
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_point_dist_kernel_matches_plain(data, dtype, metric):
+    """K1 against its plain version: rows by id from the store (a negative
+    id gives +inf), with and without stored norms, rows already gathered,
+    the rowwise difference form, and an odd width (no 4-wide loads); the
+    bf16 mode counts only bf16 launches."""
+    from hnsw_slim_tpu_torch.ops import cuda
+    from hnsw_slim_tpu_torch.ops import distance as dist
+
+    x, _, q = data
+    xs = x.to(getattr(torch, dtype))
+    xn = dist.sq_norms(xs)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    ids = torch.randint(-1, len(x), (len(q), 9), generator=g, device="cuda",
+                        dtype=torch.int32)
+    fin = ids >= 0
+    cuda.reset_launches()
+    for vn in (xn, None):
+        kd = dist.gathered_dist(q, xs, metric, vn=vn, ids=ids)
+        pd = dist.gathered_dist_plain(q, xs, metric, vn=vn, ids=ids)
+        assert torch.equal(torch.isinf(kd), ~fin)
+        assert _close(kd[fin], pd[fin])
+    rows = xs[ids.clamp(min=0).long()]
+    assert _close(dist.gathered_dist(q, rows, metric)[fin],
+                  dist.gathered_dist_plain(q, rows, metric)[fin])
+    b = xs[:len(q)]
+    assert _close(dist.point_dist(q, b, metric),
+                  dist.point_dist_plain(q, b, metric))
+    q98, x98 = q[:, :98].contiguous(), xs[:, :98].contiguous()
+    assert _close(dist.gathered_dist(q98, x98, metric, ids=ids)[fin],
+                  dist.gathered_dist_plain(q98, x98, metric, ids=ids)[fin])
+    assert cuda.launches["point_dist"] == 5
+    assert cuda.launches["point_dist.bf16"] == 5 * (dtype == "bfloat16")
+
+
+@pytest.mark.parametrize("s,k,ties", [(1, 8, True), (4, 10, True),
+                                      (4, 10, False), (16, 5, True),
+                                      (32, 16, False)])
+def test_shard_merge_kernel_matches_plain(s, k, ties):
+    """K19 against its plain version (a stable sort of the shard-major
+    concatenation) on adversarial lists: ties within and across shards, -1
+    ids with +inf tails, padded gids (-1) inside lists, an all-inf row;
+    per-shard gid tables, and one flat table over a [B, S, k] layout
+    permuted without a copy: exactly equal."""
+    from hnsw_slim_tpu_torch.ops import cuda
+    from hnsw_slim_tpu_torch.parallel.merge import merge_topk, merge_topk_plain
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(s * 100 + k)
+    b, n_per = 3000, 500
+    if ties:
+        d = rng.integers(0, 6, (s, b, k)).astype(np.float32) / 4
+    else:
+        d = rng.random((s, b, k)).astype(np.float32)
+    d = np.sort(d, axis=2)
+    ids = rng.integers(0, n_per, (s, b, k)).astype(np.int32)
+    cut = np.where(rng.random((s, b)) < 0.3, rng.integers(0, k, (s, b)), k)
+    tail = np.arange(k)[None, None, :] >= cut[:, :, None]
+    ids[tail], d[tail] = -1, np.inf
+    ids[:, 0], d[:, 0] = -1, np.inf
+    gid = np.arange(s * n_per, dtype=np.int32).reshape(s, n_per)
+    gid[rng.random((s, n_per)) < 0.1] = -1
+    hops = rng.integers(0, 100, (s, b)).astype(np.int32)
+    dcomp = rng.integers(0, 1000, (s, b)).astype(np.int32)
+    dev = [torch.as_tensor(a, device="cuda") for a in (d, ids, gid, hops,
+                                                       dcomp)]
+    cuda.reset_launches()
+    got = merge_topk(*dev)
+    want = merge_topk_plain(*dev)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+    flat = dev[2].reshape(-1)
+    fids = torch.where(dev[1] >= 0, dev[1] + (torch.arange(
+        s, device="cuda", dtype=torch.int32) * n_per)[:, None, None], -1)
+    qd = dev[0].permute(1, 0, 2).contiguous().permute(1, 0, 2)
+    qi = fids.permute(1, 0, 2).contiguous().permute(1, 0, 2)
+    qh = dev[3].T.contiguous().T
+    qc = dev[4].T.contiguous().T
+    got = merge_topk(qd, qi, flat, qh, qc)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+    assert cuda.launches["shard_merge"] == 2
+
+
+@pytest.fixture(scope="module")
+def bf16_index(data):
+    """An insertion-built HnswIndex of the 20k vectors with a bfloat16
+    store, its Slim conversion with both dense layouts, and the launches
+    the conversion made."""
+    from hnsw_slim_tpu_torch.config import HnswConfig, SlimConfig
+    from hnsw_slim_tpu_torch.index.hnsw import HnswIndex
+    from hnsw_slim_tpu_torch.index.slim import HnswSlimIndex
+    from hnsw_slim_tpu_torch.ops import cuda
+
+    x, _, _ = data
+    h = HnswIndex(HnswConfig(M=16, ef_construction=64,
+                             store_dtype="bfloat16"), strategy="insert",
+                  device="cuda")
+    h.build(x.cpu().numpy())
+    cuda.reset_launches()
+    idx = HnswSlimIndex.from_hnsw(h, SlimConfig.from_ratios())
+    torch.cuda.synchronize()
+    launched = dict(cuda.launches)
+    idx.densify_level0()
+    idx.densify_upper()
+    return h, idx, launched
+
+
+def test_bf16_store_serves_on_card(data, insert_index, bf16_index):
+    """The bfloat16 store: rows rounded to nearest even, half the bytes,
+    the vanilla graph equal to the fp32 build's on >= 99% of rows (it is
+    built from the fp32 rows), a conversion through Kγ's bf16 mode, and
+    vanilla and seeded Slim recall@10 at ef=64 within 0.02 of the fp32
+    index's."""
+    from hnsw_slim_tpu_torch.config import SearchConfig
+    from hnsw_slim_tpu_torch.index import bruteforce as bf
+
+    x, xn, q = data
+    hf, _ = insert_index
+    h, idx, launched = bf16_index
+    assert h.vectors.dtype == torch.bfloat16
+    assert torch.equal(h.vectors, x.to(torch.bfloat16))
+    assert 2 * h.vectors.nbytes == hf.vectors.nbytes
+    rows = [(a == b).all(1).float().mean() for a, b in
+            zip(h.graph.adjs, hf.graph.adjs)]
+    assert min(rows) >= 0.99, rows
+    assert launched["rng_prune.bf16"] > 0 and launched["rng_prune"] > 0
+    _, gt = bf.topk_dist_plain(q, x, xn, 10)
+    gt = gt.cpu().numpy()
+    qs = q.cpu().numpy()
+
+    def rec(ids):
+        return sum(len(set(a) & set(b)) for a, b in zip(ids, gt)) / gt.size
+
+    for eng, scfg in ((h, SearchConfig(ef=64, pop_width=4)),
+                      (idx, SearchConfig(ef=64, pop_width=8, seed_width=32))):
+        eng.scfg = scfg
+        r16 = rec(eng.search(qs, 10)[1])
+        hf.scfg = SearchConfig(ef=64, pop_width=4)
+        assert r16 >= rec(hf.search(qs, 10)[1]) - 0.02 and r16 >= 0.9
+
+
+def test_bf16_modes_match_plain(data, bf16_index):
+    """Kα (exact and strata), Kβ (dense and CHAL rows, filtered), Kε (each
+    level) and Kγ (plain and guarded) over bfloat16 store rows against
+    their plain versions: ids equal on >= 99% of slots, distances within
+    1e-4 * (1 + |d|); each launch counted in the kernel's bf16 mode."""
+    from hnsw_slim_tpu_torch.config import SearchConfig
+    from hnsw_slim_tpu_torch.graph import heuristic as th
+    from hnsw_slim_tpu_torch.graph import search as gs
+    from hnsw_slim_tpu_torch.index import bruteforce as bf
+    from hnsw_slim_tpu_torch.ops import cuda
+
+    _, _, q = data
+    h, idx, _ = bf16_index
+    x, xn = h.vectors, h.vn
+    qn = (q * q).sum(1)
+    cuda.reset_launches()
+    kd, ki = bf.topk_dist(q, x, xn, 10)
+    pd, pi = bf.topk_dist_plain(q, x, xn, 10)
+    assert (ki == pi).float().mean() >= 0.99 and _close(kd, pd)
+    up_vecs, up_vn, up_ids = idx._seed_table()
+    assert up_vecs.dtype == torch.bfloat16
+    kd, ki = bf.topk_dist_strata(q, up_vecs, up_vn, up_ids, 32, 4)
+    pd, pi = bf.topk_dist_strata_plain(q, up_vecs, up_vn, up_ids, 32, 4)
+    fin = torch.isfinite(pd)
+    assert (ki == pi).float().mean() >= 0.99
+    assert torch.equal(torch.isfinite(kd), fin) and _close(kd[fin], pd[fin])
+    sd, sp = bf.topk_dist_plain(q, up_vecs, up_vn, 32, row_ids=up_ids)
+    si = torch.where(sp >= 0, up_ids[sp.clamp(min=0).long()], -1)
+    si = si.to(torch.int32).contiguous()
+    kw = dict(P=64, ef_eff=64, pop_width=8,
+              cw=gs.cand_width(64, 8, idx.graph.cap0, 0),
+              max_iters=SearchConfig(ef=64, pop_width=8).iters(), k=10)
+    g = idx.graph
+    for f in (gs.dense_fetch(idx.dense0),
+              gs.chal_fetch(g.nbr, g.lvl_off, 0, g.cap0)):
+        kd, ki, kh, _ = gs.beam_search(x, q, qn, f, sd.contiguous(), si, **kw)
+        pd, pi, ph, _ = gs.beam_search_plain(x, q, qn, f, sd.contiguous(), si,
+                                             **kw)
+        assert (ki == pi).float().mean() >= 0.99
+        assert _close(kd[ki == pi], pd[ki == pi])
+    allowed = torch.rand(len(x), generator=torch.Generator(
+        device="cuda").manual_seed(6), device="cuda") < 0.5
+    trk = gs.filter_track_init(allowed, si[:, 0], sd[:, 0], 64)
+    fkw = dict(kw, allowed=allowed, track_d=trk[0], track_id=trk[1])
+    k_out = gs.beam_search(x, q, qn, idx.dense0, sd.contiguous(), si, **fkw)
+    p_out = gs.beam_search_plain(x, q, qn, idx.dense0, sd.contiguous(), si,
+                                 **fkw)
+    assert (k_out[5] == p_out[5]).float().mean() >= 0.99
+    hg = h.graph
+    pc, pdist = gs.entry_dist(x, xn, q, qn, hg.entry)
+    for l in range(hg.max_level, 0, -1):
+        kc, kdist, kh, _ = gs.greedy_descent(x, q, qn, hg.adjs[l], pc, pdist)
+        pc, pdist, ph, _ = gs.greedy_descent_plain(x, q, qn, hg.adjs[l], pc,
+                                                   pdist)
+        same = kc == pc
+        assert same.float().mean() >= 0.99, l
+        assert _close(kdist[same], pdist[same])
+        assert (kh[same] == ph[same]).all()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    base = torch.randperm(len(x), generator=gen, device="cuda")[:4096]
+    cand = hg.adjs[0][base].contiguous()
+    m = torch.randint(1, 9, (len(base),), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    w = cand.shape[1]
+    b32 = base.to(torch.int32)
+    for guard in (None, torch.rand(cand.shape, generator=gen,
+                                   device="cuda") < 0.3):
+        fl = dict(keep_all_under_m=False, keep_pruned=False, out_width=w,
+                  guard=guard)
+        ks, kc = th.rng_prune(x, xn, b32, cand, m, **fl)
+        ps, pc_ = th.rng_prune_plain(x, xn, b32, cand, m, **fl)
+        assert (ks == ps).all(1).float().mean() >= 0.99
+        assert (kc == pc_).float().mean() >= 0.99
+    for mode in ("topk_dist", "beam_search", "greedy_descent", "rng_prune",
+                 "point_dist"):
+        assert cuda.launches[f"{mode}.bf16"] > 0, mode
+    assert cuda.launches["topk_dist.strata"] == 1
+    assert cuda.launches["rng_prune.guarded"] == 1
+
+
+def test_union_and_sharded_on_card(data):
+    """Four round-robin shards of the 20k vectors served as a FlatUnionIndex
+    (both modes, fp32 and bf16 store) and as a one-card ShardedSlimIndex
+    with and without dense layouts: sharded equal to the host merge of the
+    per-shard searches and to the union with seed_width 0 (ids on every
+    slot but near-ties, effort equal), K19 launched, recall@10 >= 0.9, the
+    bf16 union's vectors half the bytes."""
+    from hnsw_slim_tpu_torch.config import HnswConfig, SearchConfig, SlimConfig
+    from hnsw_slim_tpu_torch.index import bruteforce as bf
+    from hnsw_slim_tpu_torch.index.slim import HnswSlimIndex
+    from hnsw_slim_tpu_torch.ops import cuda
+    from hnsw_slim_tpu_torch.parallel.flat_union import FlatUnionIndex
+    from hnsw_slim_tpu_torch.parallel.merge import merge_topk_plain
+    from hnsw_slim_tpu_torch.parallel.sharded import ShardedSlimIndex, make_mesh
+
+    x, xn, q = data
+    base, qs = x.cpu().numpy(), q.cpu().numpy()
+    s = 4
+    shards = []
+    for si in range(s):
+        gids = np.arange(si, len(base), s, dtype=np.int32)
+        shards.append((HnswSlimIndex.build(
+            base[gids], HnswConfig(M=16, ef_construction=64),
+            SlimConfig.from_ratios(), device="cuda"),
+            gids))
+    _, gt = bf.topk_dist_plain(q, x, xn, 10)
+    gt = gt.cpu().numpy()
+
+    def rec(ids):
+        return sum(len(set(a) & set(b)) for a, b in zip(ids, gt)) / gt.size
+
+    def same(ia, da, ib, db):
+        tie = np.abs(da - db) <= 1e-5 * (1 + np.abs(db))
+        return bool(((ia == ib) | tie).all() and tie.all())
+
+    scfg = SearchConfig(ef=64, pop_width=8, seed_width=0)
+    u = FlatUnionIndex.from_indexes(shards, search_cfg=scfg, device="cuda")
+    u.densify_level0()
+    cuda.reset_launches()
+    ud, ui = u.search(qs, 10)
+    assert cuda.launches["shard_merge"] == 1
+    sh = ShardedSlimIndex.from_indexes(make_mesh(s), shards, search_cfg=scfg,
+                                       device="cuda")
+    sd, si_ = sh.search(qs, 10)
+    assert same(si_, sd, ui, ud) and sh.last_stats == u.last_stats
+    per = []
+    for sub, _ in shards:
+        sub.scfg = scfg
+        per.append(sub.search_async(qs, 10))
+    gid = torch.as_tensor(np.stack([g for _, g in shards]))
+    md, mi, mh, mc = merge_topk_plain(
+        *(torch.stack([p[f] for p in per]).cpu() for f in range(2)), gid,
+        *(torch.stack([p[f] for p in per]).cpu() for f in (2, 3)))
+    assert same(si_, sd, mi.numpy(), md.numpy())
+    assert sh.last_stats == {"hops": int(mh.sum()),
+                             "distance_computations": int(mc.sum())}
+    sh.densify_level0()
+    sh.densify_upper()
+    dd, di = sh.search(qs, 10)
+    assert np.array_equal(di, si_) and rec(di) >= 0.9
+    # 8 exact seeds a shard: the reference's rule, recall under the
+    # greedy merge's (0.85 here at 5000 points a shard)
+    u.scfg = SearchConfig(ef=64, pop_width=8, seed_width=32)
+    assert rec(u.search(qs, 10)[1]) >= 0.8
+    ub = FlatUnionIndex.from_indexes(shards, search_cfg=u.scfg,
+                                     store_dtype="bfloat16", device="cuda")
+    assert 2 * ub.vectors.nbytes == u.vectors.nbytes
+    cuda.reset_launches()
+    assert rec(ub.search(qs, 10)[1]) >= 0.8
+    assert cuda.launches["topk_dist.bf16"] == 1
+    assert cuda.launches["beam_search.bf16"] >= 1

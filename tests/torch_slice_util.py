@@ -450,3 +450,218 @@ def jax_update_dir(tmp_path_factory):
         np.savez(d / "rec.tmp.npz", **rec)
         os.replace(d / "rec.tmp.npz", d / "rec.npz")
     return d
+
+
+# ---- union and sharded serving, the bfloat16 store (test_torch_union.py,
+# ---- test_torch_sharded.py, test_torch_bf16.py)
+
+SHARD_S = 4
+SHARD_CFG = HnswConfig(M=8, ef_construction=32)  # tests/test_sharded.py's
+SHARD_EF, SHARD_K = 32, 5
+UNION_CFG = HnswConfig(M=8, ef_construction=48)  # tests/test_flat_union.py's
+UNION_SLIM = SlimConfig(top_M0=10, low_m0=4, top_M=6, low_m=3)
+UNION_EF, UNION_K, UNION_SW = 48, 5, 16
+BF16_CFG = HnswConfig(M=16, ef_construction=100, ef_search=64,
+                      store_dtype="bfloat16")  # tests/test_build.py's
+BF16_ADD = 120  # points of the add_points batch on the bfloat16 index
+
+
+def shard_dataset():
+    """(base f32[1600, 16], queries f32[64, 16]): tests/test_sharded.py's
+    prebuilt-shards data (clustered, seed 44) with 64 queries."""
+    return clustered(1600, 16, n_queries=64, seed=44)
+
+
+def short_dataset():
+    """(base f32[997, 16], queries f32[32, 16]): the first 997 points of
+    tests/test_sharded.py's save/load data (clustered, seed 43), so the last
+    of 4 shards is padded."""
+    base, q = clustered(1000, 16, n_queries=32, seed=43)
+    return base[:997], q
+
+
+def union_dataset():
+    """(base f32[2400, 24], queries f32[64, 24]): tests/test_flat_union.py's
+    normal draws (seed 4)."""
+    rng = np.random.default_rng(4)
+    base = rng.standard_normal((2400, 24)).astype(np.float32)
+    queries = rng.standard_normal((64, 24)).astype(np.float32)
+    return base, queries
+
+
+def bf16_dataset():
+    """(base f32[3000, 32], queries f32[50, 32], an add batch f32[120, 32]):
+    tests/test_build.py's bfloat16-store data (clustered, seed 13) and a
+    batch drawn around the same centres (seed 14)."""
+    base, queries = clustered(3000, 32, n_queries=50, seed=13)
+    add, _ = clustered(BF16_ADD, 32, seed=14)
+    return base, queries, add
+
+
+def round_robin(n: int, s: int, si: int) -> np.ndarray:
+    return np.arange(si, n, s, dtype=np.int32)
+
+
+def _session_dir(tmp_path_factory, name):
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    d = root / name
+    d.mkdir(exist_ok=True)
+    return d
+
+
+def _search_rec(rec, tag, idx, queries, k):
+    d, i = idx.search(queries, k)
+    rec[f"{tag}_d"], rec[f"{tag}_i"] = np.asarray(d), np.asarray(i)
+    rec[f"{tag}_hops"] = idx.last_stats["hops"]
+    rec[f"{tag}_dcomp"] = idx.last_stats["distance_computations"]
+
+
+def jax_shard_dir(tmp_path_factory):
+    """Directory of the JAX package's sharded serving on its 8-device CPU
+    mesh (make_mesh(8, dp=2): 4 shards): shard{i}.npz (save_slim of the 4
+    round-robin shard indexes of shard_dataset(), SHARD_CFG and
+    SlimConfig.from_ratios()), sharded.npz (ShardedSlimIndex.save of their
+    from_indexes assembly), sharded997.npz (ShardedSlimIndex.build on
+    short_dataset()), port_loaded.npz (what the JAX engine returns for a
+    file the port saved: ported.npz) and rec.npz: the searches (SHARD_EF,
+    k SHARD_K: d, ids, hops, dcomp) of the assembly without and with both
+    dense layouts, of the 997-point index and of the port's file, and
+    index_size. Built once per test run under a file lock."""
+    from hnsw_slim_tpu.config import SearchConfig as JSearchConfig
+    from hnsw_slim_tpu.index.slim import HnswSlimIndex as JSlim
+    from hnsw_slim_tpu.parallel import sharded as jsh
+    from hnsw_slim_tpu.persist.checkpoint import save_slim as jsave
+    from hnsw_slim_tpu_torch.parallel import sharded as psh
+    from hnsw_slim_tpu_torch.persist.checkpoint import load_slim as pload
+
+    d = _session_dir(tmp_path_factory, "torch_parity_sharded")
+    with open(d / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if (d / "rec.npz").exists():
+            return d
+        rec: dict = {}
+        mesh = jsh.make_mesh(8, dp=2)
+        scfg = JSearchConfig(ef=SHARD_EF)
+        base, queries = shard_dataset()
+        shards = []
+        for si in range(SHARD_S):
+            gids = round_robin(len(base), SHARD_S, si)
+            idx = JSlim.build(base[gids], SHARD_CFG, SlimConfig.from_ratios())
+            jsave(d / f"shard{si}.npz", idx)
+            shards.append((idx, gids))
+        sh = jsh.ShardedSlimIndex.from_indexes(mesh, shards, search_cfg=scfg)
+        rec["index_size"] = sh.index_size()
+        _search_rec(rec, "chal", sh, queries, SHARD_K)
+        sh.save(d / "sharded.npz")
+        sh.densify_level0()
+        sh.densify_upper()
+        _search_rec(rec, "dense", sh, queries, SHARD_K)
+        # the port's assembly of the same shards, saved by the port and
+        # served by the JAX engine
+        pm = psh.make_mesh(SHARD_S)
+        ps = psh.ShardedSlimIndex.from_indexes(
+            pm, [(pload(d / f"shard{si}.npz", device="cpu"), g)
+                 for si, (_, g) in enumerate(shards)],
+            search_cfg=scfg, device="cpu")
+        ps.densify_level0()
+        ps.densify_upper()
+        ps.save(d / "ported.npz")
+        _search_rec(rec, "port_file",
+                    jsh.ShardedSlimIndex.load(d / "ported.npz", mesh,
+                                              search_cfg=scfg),
+                    queries, SHARD_K)
+        base2, q2 = short_dataset()
+        s2 = jsh.ShardedSlimIndex(mesh, search_cfg=scfg)
+        s2.build(base2, hnsw_cfg=SHARD_CFG)
+        s2.save(d / "sharded997.npz")
+        _search_rec(rec, "short", s2, q2, SHARD_K)
+        np.savez(d / "rec.tmp.npz", **rec)
+        os.replace(d / "rec.tmp.npz", d / "rec.npz")
+    return d
+
+
+def jax_union_dir(tmp_path_factory):
+    """Directory of the JAX package's FlatUnionIndex over the 4 round-robin
+    shards of union_dataset() (UNION_CFG, UNION_SLIM; shard{i}.npz by
+    save_slim) and rec.npz: its searches (ef UNION_EF, k UNION_K) with
+    seed_width 0 and UNION_SW, on the flat CHAL arrays and with both dense
+    layouts, hbm_bytes before and after them and index_size, and the same
+    searches and sizes of the bfloat16 union (its store's bits as uint16).
+    Built once per test run under a file lock."""
+    from hnsw_slim_tpu.config import SearchConfig as JSearchConfig
+    from hnsw_slim_tpu.index.slim import HnswSlimIndex as JSlim
+    from hnsw_slim_tpu.parallel.flat_union import FlatUnionIndex as JUnion
+    from hnsw_slim_tpu.persist.checkpoint import save_slim as jsave
+
+    d = _session_dir(tmp_path_factory, "torch_parity_union")
+    with open(d / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if (d / "rec.npz").exists():
+            return d
+        rec: dict = {}
+        base, queries = union_dataset()
+        shards = []
+        for si in range(SHARD_S):
+            gids = round_robin(len(base), SHARD_S, si)
+            idx = JSlim.build(base[gids], UNION_CFG, UNION_SLIM)
+            jsave(d / f"shard{si}.npz", idx)
+            shards.append((idx, gids))
+        for dt in ("float32", "bfloat16"):
+            u = JUnion.from_indexes(shards, search_cfg=JSearchConfig(
+                ef=UNION_EF), store_dtype=dt)
+            rec[f"{dt}_bits"] = np.asarray(u.vectors).view(
+                np.uint16 if dt == "bfloat16" else np.uint32)
+            rec[f"{dt}_index_size"] = u.index_size()
+            rec[f"{dt}_hbm_chal"] = u.hbm_bytes()
+            for lay in ("chal", "dense"):
+                if lay == "dense":
+                    u.densify_level0()
+                    u.densify_upper()
+                    rec[f"{dt}_hbm_dense"] = u.hbm_bytes()
+                for sw in (0, UNION_SW):
+                    u.scfg = dataclasses.replace(u.scfg, seed_width=sw)
+                    _search_rec(rec, f"{dt}_{lay}_sw{sw}", u, queries,
+                                UNION_K)
+        np.savez(d / "rec.tmp.npz", **rec)
+        os.replace(d / "rec.tmp.npz", d / "rec.npz")
+    return d
+
+
+def jax_bf16_dir(tmp_path_factory):
+    """Directory of the JAX package's bfloat16-store HnswIndex on
+    bf16_dataset() (BF16_CFG, max_batch 512, NN-descent): hnsw.npz
+    (save_hnsw: the store as raw bf16 words), slim.npz (save_slim of its
+    SlimConfig.from_ratios() conversion), hnsw_add.npz (save_hnsw after
+    one add_points batch of BF16_ADD points) and rec.npz: the store's bits
+    (uint16), the vanilla search (ef 64, k 10), the seeded Slim search
+    (SearchConfig(ef=64, pop_width=8, seed_width=32), k 10), and the
+    add_points result (touched ids). Built once per test run under a file
+    lock."""
+    from hnsw_slim_tpu.config import SearchConfig as JSearchConfig
+    from hnsw_slim_tpu.index.hnsw import HnswIndex as JHnsw
+    from hnsw_slim_tpu.index.slim import HnswSlimIndex as JSlim
+    from hnsw_slim_tpu.persist.checkpoint import save_hnsw, save_slim
+
+    d = _session_dir(tmp_path_factory, "torch_parity_bf16")
+    with open(d / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if (d / "rec.npz").exists():
+            return d
+        rec: dict = {}
+        base, queries, add = bf16_dataset()
+        h = JHnsw(BF16_CFG, max_batch=512)
+        h.build(base)
+        rec["bits"] = np.asarray(h.vectors).view(np.uint16)
+        save_hnsw(d / "hnsw.npz", h)
+        _search_rec(rec, "vanilla", h, queries, 10)
+        s = JSlim.from_hnsw(h, SlimConfig.from_ratios(), search_cfg=JSearchConfig(
+            ef=64, pop_width=8, seed_width=32))
+        save_slim(d / "slim.npz", s)
+        _search_rec(rec, "slim", s, queries, 10)
+        rec["touched"] = h.add_points(add)
+        save_hnsw(d / "hnsw_add.npz", h)
+        np.savez(d / "rec.tmp.npz", **rec)
+        os.replace(d / "rec.tmp.npz", d / "rec.npz")
+    return d
