@@ -38,8 +38,23 @@ Phases (one line each on stdout, the kernel table second to last):
      its time split (rotate, seeds, beam), the same at ef 64/128 with
      use_ex, with rerank=False, with seed_width=0, and a save_slimq ->
      load_slimq round trip;
-  6. the NN-descent path (strategy "nnd") -> conversion -> seeded sweep,
-     with its own launch counts;
+  6. the HTTP server on an NN-descent-built index, with its own launch
+     counts: SlimServer(base, build_strategy="nnd") (the NND build on Kν,
+     Kκ, Kλ both modes, Kμ both modes, Kδ, the mutual union on Kκ + Kμ +
+     Kθ, Kγ, Kα, K1; IncrementalSlim.full; both dense layouts), integrity,
+     the seeded sweep on server.slim, then over HTTP /setEf, /stats, /query
+     from 1 and 64 client threads (latency p50 / p99, QPS, the batches the
+     _Batcher formed, recall@10 at ef 64, the ids of one batched search),
+     /getIndex, a cold and a warm 1000-vector /updateIndex (zlib),
+     /getLastBatch chunks and sync_patches onto the bootstrapped copy (equal
+     to the server's graph and vectors), /markDelete of 1000 labels (none
+     served after), /getIndex and /getVectors again; then, outside the
+     path's counts, the NND build at min(N, 100000) with the kernels equal
+     row for row to the build with every plain twin swapped in, Kκ / Kλ /
+     Kμ / Kν against their plain versions on inputs recorded from the 1M
+     build (round 2, the warm start, the level-0 union; Kκ beside
+     torch.sort(stable=True)), and the build once more under
+     torch.profiler (device time by kernel group, host the rest);
   7. each kernel and each kernel mode against its plain PyTorch version on
      the card: Kε, Kβ in build mode, Kγ and Kζ on one 4096-insert batch
      recorded during the insertion build (its pre-batch graph and inputs),
@@ -55,17 +70,17 @@ Phases (one line each on stdout, the kernel table second to last):
      agreement, and the least time the card could take (bytes over
      3.35 TB/s or fp32 flops over 67 TFLOP/s, the larger);
   8. incremental updates on the insertion index, with their own launch
-     counts, as the JAX server's update_index runs them (1000-vector
-     batches into 1M points, the paper's Table 4 deployment):
+     counts, through SlimServer(h).update_index without HTTP (1000-vector
+     batches into 1M points, the paper's Table 4 deployment): the server's
      IncrementalSlim.full (equal to the conversion of phase 2), three
-     add_points batches drawn around the base's cluster centres, each
-     followed by IncrementalSlim.update, the in-place refresh of both dense
-     serving layouts (against a fresh densify), PatchWriter -> apply_patch
-     onto a client copy (equal to the server's graph), integrity of both
-     indexes, recall@10 at ef=64 against fresh ground truth over the grown
-     set and self-hit@1 of the inserted vectors; then 1000 deletes served
-     through filter_mask, their slots reused by replace_points, and the
-     same round; the incremental graph against convert_to_slim of the
+     add batches drawn around the base's cluster centres (add_points,
+     IncrementalSlim.update, the in-place refresh of both dense serving
+     layouts, checked against a fresh densify, and the PatchWriter), the
+     chunks applied onto a client copy (equal to the server's graph),
+     integrity of both indexes, recall@10 at ef=64 against fresh ground
+     truth over the grown set and self-hit@1 of the inserted vectors; then
+     1000 labels marked deleted and served through filter_mask, their slots
+     reused by the next batch (replace_points), and the same round; the incremental graph against convert_to_slim of the
      updated vanilla graph, equal on every row after the add batches with
      nothing repaired and after the replace batch, whose update re-runs the
      connectivity repair; IncrementalSlimZero.full and one update with
@@ -109,6 +124,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import threading
 import time
 
 ROUTES = {  # kernel: (source, the JAX program it replaces)
@@ -134,6 +150,14 @@ ROUTES = {  # kernel: (source, the JAX program it replaces)
                    "hnsw_slim_tpu/ops/distance.py:63"),
     "shard_merge": ("hnsw_slim_tpu_torch/csrc/shard_merge.cu",
                     "hnsw_slim_tpu/parallel/sharded.py:287"),
+    "radix_sort": ("hnsw_slim_tpu_torch/csrc/radix_sort.cu",
+                   "hnsw_slim_tpu/graph/nnd.py:171"),
+    "run_scatter": ("hnsw_slim_tpu_torch/csrc/run_scatter.cu",
+                    "hnsw_slim_tpu/graph/nnd.py:33"),
+    "nnd_cand": ("hnsw_slim_tpu_torch/csrc/nnd_cand.cu",
+                 "hnsw_slim_tpu/graph/nnd.py:152"),
+    "rp_window": ("hnsw_slim_tpu_torch/csrc/rp_window.cu",
+                  "hnsw_slim_tpu/graph/nnd.py:117"),
 }
 MODE_ROUTES = {  # kernel mode: (kernel, the JAX code that mode replaces)
     "topk_dist.strata": ("topk_dist", "hnsw_slim_tpu/graph/search.py:800"),
@@ -162,13 +186,19 @@ MODE_ROUTES = {  # kernel mode: (kernel, the JAX code that mode replaces)
                             "hnsw_slim_tpu/ops/distance.py:76"),
     "rng_prune.bf16": ("rng_prune", "hnsw_slim_tpu/ops/distance.py:76"),
     "point_dist.bf16": ("point_dist", "hnsw_slim_tpu/ops/distance.py:76"),
+    "run_scatter.dedup": ("run_scatter", "hnsw_slim_tpu/graph/build.py:233"),
+    "nnd_cand.join": ("nnd_cand", "hnsw_slim_tpu/graph/nnd.py:179"),
 }
 INSERT_PATH = ("topk_dist", "beam_search", "rng_prune", "greedy_descent",
                "rev_connect", "kv_sort")
 UPDATE_PATH = ("row_deg", "kv_sort", "rev_connect", "rng_prune",
                "beam_search", "greedy_descent", "topk_dist")
 UPD_BATCH = 1000  # vectors per update batch (the paper's Table 4)
-NND_PATH = ("topk_dist", "beam_search", "rng_prune", "cand_merge")
+SERVER_PATH = ("radix_sort", "run_scatter", "run_scatter.dedup", "nnd_cand",
+               "nnd_cand.join", "rp_window", "cand_merge", "rng_prune",
+               "topk_dist", "point_dist", "row_deg", "beam_search",
+               "beam_search.filtered", "greedy_descent", "kv_sort",
+               "rev_connect")
 QUERY_PATH = ("topk_dist", "beam_search", "greedy_descent", "rng_prune",
               "topk_dist.strata", "beam_search.chal", "beam_search.rank",
               "beam_search.filtered", "greedy_descent.chal",
@@ -180,6 +210,7 @@ SLIMQ_PATH = ("fht_rotate", "fht_rotate.g_tables", "topk_dist",
               "greedy_descent.quant", "greedy_descent.rank", "beam_search",
               "greedy_descent", "rng_prune", "rev_connect")
 SHARDS = 4  # round-robin shards of phase 9 (4 x 250,000 at 1M)
+HTTP_PROCS = 4  # client processes of the 64-thread /query run
 SHARD_PATH = ("topk_dist", "topk_dist.strata", "beam_search",
               "beam_search.chal", "greedy_descent", "greedy_descent.chal",
               "greedy_descent.rank", "rng_prune", "rev_connect", "kv_sort",
@@ -816,6 +847,593 @@ def shard_phase(base, queries, gt, slim_ins, report, dev) -> tuple:
     return summary, launch_par
 
 
+def same_graph(a_np, n_a, b_np, n_b) -> bool:
+    """Two flat CHAL mirrors hold the same logical graph (rows are packed in
+    canonical order, so the arrays themselves compare)."""
+    import numpy as np
+
+    if n_a != n_b:
+        return False
+    ea, eb = int(a_np["lvl_off"][n_a - 1, -1]), int(b_np["lvl_off"][n_b - 1,
+                                                                     -1])
+    return (ea == eb
+            and np.array_equal(a_np["level"][:n_a], b_np["level"][:n_b])
+            and np.array_equal(a_np["lvl_off"][:n_a], b_np["lvl_off"][:n_b])
+            and np.array_equal(a_np["nbr"][:ea], b_np["nbr"][:eb]))
+
+
+class NndRecorder:
+    """Records, during an NN-descent build, the kernel inputs of the warm
+    start (nnd.rp_candidates), of the second round's candidate generation
+    (nnd._nnd_candidates) and of the level-0 mutual union (the first
+    build.mutual_union call over all n nodes), and times HnswIndex.build.
+    The wrapped calls run unchanged."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self.rounds = 0
+        self.rec: dict = {}
+        self.build_s = None
+
+    @contextlib.contextmanager
+    def installed(self):
+        import torch
+
+        from hnsw_slim_tpu_torch.graph import build as tb
+        from hnsw_slim_tpu_torch.graph import nnd
+        from hnsw_slim_tpu_torch.index.hnsw import HnswIndex
+
+        rp, cands, union = nnd.rp_candidates, nnd._nnd_candidates, \
+            tb.mutual_union
+        build = HnswIndex.build
+
+        def rp_w(proj, n_valid, w, rnd):
+            if "rp" not in self.rec:
+                self.rec["rp"] = (proj.clone(), n_valid, w, rnd.clone())
+            return rp(proj, n_valid, w, rnd)
+
+        def cands_w(ids, newf, n_valid, *, s_fwd, r_rev, draws):
+            self.rounds += 1
+            if self.rounds == 2:
+                self.rec["round"] = (ids.clone(), newf.clone(), n_valid,
+                                     s_fwd, r_rev,
+                                     tuple(a.clone() for a in draws))
+            return cands(ids, newf, n_valid, s_fwd=s_fwd, r_rev=r_rev,
+                         draws=draws)
+
+        def union_w(sel, d_sel, *, w_union):
+            if "union" not in self.rec and sel.shape[0] == self.n:
+                self.rec["union"] = (sel.clone(), d_sel.clone(), w_union)
+            return union(sel, d_sel, w_union=w_union)
+
+        def build_w(index, vectors, verbose=False):
+            t0 = time.perf_counter()
+            build(index, vectors, verbose=verbose)
+            torch.cuda.synchronize()
+            self.build_s = time.perf_counter() - t0
+
+        nnd.rp_candidates, nnd._nnd_candidates = rp_w, cands_w
+        tb.mutual_union, HnswIndex.build = union_w, build_w
+        try:
+            yield self
+        finally:
+            nnd.rp_candidates, nnd._nnd_candidates = rp, cands
+            tb.mutual_union, HnswIndex.build = union, build
+
+
+@contextlib.contextmanager
+def plain_nnd_twins():
+    """Swap every NN-descent sort kernel's wrapper for its plain version
+    (Kκ, Kλ both modes, Kμ both modes, Kν), as the CPU route runs them."""
+    from hnsw_slim_tpu_torch.graph import build as tb
+    from hnsw_slim_tpu_torch.graph import nnd
+    from hnsw_slim_tpu_torch.ops import sort
+
+    swaps = [(sort, "kv_radix_sort", sort.kv_radix_sort_plain),
+             (nnd, "kv_radix_sort", sort.kv_radix_sort_plain),
+             (nnd, "run_scatter", sort.run_scatter_plain),
+             (tb, "run_scatter", sort.run_scatter_plain),
+             (tb, "dedup_pairs", sort.dedup_pairs_plain),
+             (nnd, "rp_window", nnd.rp_window_plain),
+             (nnd, "nnd_pivot", nnd.nnd_pivot_plain),
+             (nnd, "nnd_join", nnd.nnd_join_plain)]
+    saved = [(m, a, getattr(m, a)) for m, a, _ in swaps]
+    for m, a, f in swaps:
+        setattr(m, a, f)
+    try:
+        yield
+    finally:
+        for m, a, f in saved:
+            setattr(m, a, f)
+
+
+PROFILE_GROUPS = (  # (group, regex over a kernel's demangled name)
+    ("sorts: Kκ radix_sort", r"hist_kernel|scan_kernel\(|scatter_kernel\(unsigned"),
+    ("sorts: Kμ run_scatter", r"scatter_kernel\(int|dedup_kernel"),
+    ("sorts: Kλ nnd_cand", r"pivot_kernel|join_kernel"),
+    ("sorts: Kν rp_window", r"window_kernel"),
+    ("Kδ cand_merge", r"(?<![a-z_])merge_kernel"),
+    ("Kγ rng_prune", r"prune_kernel"),
+    ("Kα topk_dist", r"topk_|strata_sort"),
+    ("K1 point_dist", r"point_kernel"),
+    ("Kθ row_deg", r"row_deg_kernel"),
+)
+
+
+def profile_nnd_build(base, hcfg, dev) -> dict:
+    """One more NN-descent build of ``base`` under torch.profiler: wall
+    seconds and device seconds by kernel group (PROFILE_GROUPS; the rest of
+    the device events, PyTorch's own kernels, copies and sets, as
+    "other device"); host = wall - device busy."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hnsw_slim_tpu_torch.index.hnsw import HnswIndex
+
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    h = HnswIndex(hcfg, strategy="nnd", device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        h.build(base)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def self_dev_us(evt) -> float:
+        for name in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(evt, name):
+                return float(getattr(evt, name))
+        return 0.0
+
+    groups = {g: 0.0 for g, _ in PROFILE_GROUPS}
+    groups["other device"] = 0.0
+    for e in prof.key_averages():
+        us = self_dev_us(e)
+        if us <= 0 or "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        g = next((g for g, rx in PROFILE_GROUPS if re.search(rx, e.key)),
+                 "other device")
+        groups[g] += us / 1e6
+    busy = sum(groups.values())
+    out = {"wall_s": round(wall, 3), "device_busy_s": round(busy, 3),
+           "host_s": round(wall - busy, 3)}
+    out.update({g: round(v, 4) for g, v in groups.items()})
+    return out
+
+
+def http_client_proc(port, qs, rows, threads, go, conn) -> None:
+    """One HTTP client process of server_phase: imports the client, says
+    "ready", waits for ``go``, then ``threads`` threads send qs (strided)
+    to /query, each request on its own connection, as SlimClient sends it.
+    Sends (rows, latency s, labels i64[len(qs), 10], error strings)."""
+    import numpy as np
+
+    from hnsw_slim_tpu_torch.serve.client import SlimClient
+
+    labels = np.full((len(qs), 10), -1, np.int64)
+    lat = np.zeros(len(qs))
+    errors = []
+
+    def worker(t):
+        c = SlimClient(port=port)
+        try:
+            for i in range(t, len(qs), threads):
+                t0 = time.perf_counter()
+                dd, ll = c.query(qs[i], k=10)
+                lat[i] = time.perf_counter() - t0
+                labels[i, :len(ll)] = ll
+                if len(ll) != 10 or np.any(np.diff(dd) < 0):
+                    errors.append(f"/query {i}: a short or unsorted answer")
+        except Exception as e:  # reported to the parent
+            errors.append(repr(e))
+
+    conn.send("ready")
+    go.wait()
+    ts = [threading.Thread(target=worker, args=(t,)) for t in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    conn.send((rows, lat, labels, errors))
+    conn.close()
+
+
+def server_phase(base, queries, gt, hcfg, make_cfg, report, dev) -> tuple:
+    """Phase 6: the HTTP server on an NN-descent-built index, with its own
+    launch counts: SlimServer(base, build_strategy="nnd") (the NND build on
+    Kν, Kκ, Kλ, Kμ, Kδ, the mutual union on Kκ + Kμ + Kθ, Kγ, Kα, K1),
+    integrity, the seeded sweep on server.slim, then over HTTP /setEf, /stats,
+    /query from 1 and 64 client threads (latency, QPS, the batches the
+    _Batcher formed, recall@10 at ef 64), /getIndex, a cold and a warm
+    1000-vector /updateIndex (zlib), /getLastBatch chunks and sync_patches
+    onto the bootstrapped client copy (equal to the server's graph and
+    vectors), /markDelete of 1000 labels (none served after), /getIndex and
+    /getVectors again. Then, outside the path's counts: at min(n, 100000)
+    points the NN-descent build with the kernels against the build with
+    every plain twin, row for row; the new kernels against their plain
+    versions on the inputs recorded from the server's build (into
+    ``report``); and the build once more under torch.profiler. Returns
+    (summary, the path's launch counts, the seeded sweep's rows, the NND
+    index as it was built: vectors, vn, graph, levels)."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from hnsw_slim_tpu_torch.graph import build as tb
+    from hnsw_slim_tpu_torch.graph import nnd
+    from hnsw_slim_tpu_torch.index.hnsw import HnswIndex
+    from hnsw_slim_tpu_torch.ops import cuda, sort
+    from hnsw_slim_tpu_torch.persist import patch as patchlib
+    from hnsw_slim_tpu_torch.serve.client import SlimClient
+    from hnsw_slim_tpu_torch.serve.server import SlimServer
+    from hnsw_slim_tpu_torch.utils.data import clustered
+
+    n = len(base)
+    rec = NndRecorder(n)
+    cuda.reset_launches()
+    t_phase = time.perf_counter()
+    with rec.installed():
+        server = SlimServer(base, hnsw_cfg=hcfg, build_strategy="nnd",
+                            host="127.0.0.1", port=0,
+                            patch_chunk_bytes=1 << 20, device=dev)
+    torch.cuda.synchronize()
+    t_server = time.perf_counter() - t_phase
+    h2 = server.hnsw
+    # growth makes new tensors, so these objects keep the graph as built
+    built = types.SimpleNamespace(vectors=h2.vectors, vn=h2.vn,
+                                  graph=h2.graph, levels=h2.levels)
+    t_build = rec.build_s
+    t_conv = t_server - t_build
+    integ = {"hnsw": h2.check_integrity(),
+             "slim": server.slim.check_integrity()}
+    say(f"server nnd: SlimServer {t_server:.2f} s = NND build {t_build:.2f} "
+        f"s + IncrementalSlim.full and layouts {t_conv:.2f} s (full split "
+        f"{json.dumps({k: round(v, 3) for k, v in server.inc.last_stats['seconds'].items() if v >= 0.05})}"
+        f"), NND rounds {rec.rounds}, index_size {server.slim.index_size()} "
+        f"B, max_level {h2.graph.max_level}, integrity {integ}")
+    slim_nnd = serve_sweep(server.slim, queries, gt, base, make_cfg,
+                           "slim(nnd) server.slim")
+
+    # ---- over HTTP: the server's Slim index keeps the sweep's knobs
+    # (seed_width 32, pop 8); /setEf sets ef
+    server.slim.scfg = make_cfg(64)
+    server.start_background()
+    port = server._httpd.server_address[1]
+    client = SlimClient(port=port)
+    check(client.set_ef(64), "/setEf did not answer ok with ef 64")
+    stats0 = client.stats()
+    check(stats0["n"] == n, f"/stats: {stats0}")
+
+    def http_run(threads: int, qs) -> dict:
+        """qs through /query from ``threads`` client threads in client
+        processes of their own (one, or HTTP_PROCS of threads / HTTP_PROCS
+        each, so that the clients do not share the server's interpreter):
+        per-request latency, QPS from the start signal to the last answer,
+        the batches the _Batcher formed, and the labels (numpy
+        [len(qs), 10])."""
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        procs = 1 if threads == 1 else HTTP_PROCS
+        go = ctx.Event()
+        jobs = []
+        for p_ in range(procs):
+            rx, tx = ctx.Pipe(duplex=False)
+            rows = np.arange(p_, len(qs), procs)
+            pr = ctx.Process(target=http_client_proc,
+                             args=(port, qs[rows], rows, threads // procs, go,
+                                   tx))
+            pr.start()
+            jobs.append((pr, rx))
+        for _, rx in jobs:  # each process has imported the client
+            check(rx.poll(300) and rx.recv() == "ready",
+                  "an HTTP client process did not start")
+        server.batcher.batch_sizes.clear()
+        labels = np.full((len(qs), 10), -1, np.int64)
+        lat = np.zeros(len(qs))
+        errors = []
+        t0 = time.perf_counter()
+        go.set()
+        for _, rx in jobs:
+            check(rx.poll(900), "an HTTP client process did not answer")
+            rows, lat_p, lab_p, err_p = rx.recv()
+            lat[rows], labels[rows] = lat_p, lab_p
+            errors += err_p
+        wall = time.perf_counter() - t0
+        for pr, _ in jobs:
+            pr.join(60)
+        check(not errors, f"/query from {threads} threads: {errors[:1]}")
+        sizes = np.asarray(server.batcher.batch_sizes)
+        return {"threads": threads, "processes": procs, "queries": len(qs),
+                "p50_ms": round(float(np.percentile(lat, 50)) * 1e3, 3),
+                "p99_ms": round(float(np.percentile(lat, 99)) * 1e3, 3),
+                "qps": round(len(qs) / wall, 1),
+                "batches": int(len(sizes)),
+                "batch_mean": round(float(sizes.mean()), 2),
+                "batch_max": int(sizes.max()), "labels": labels}
+
+    _, ref = server.search(queries, 10)  # one batch of all the queries
+    http = {}
+    for threads, nq_ in ((1, 512), (64, len(queries))):
+        row = http_run(threads, queries[:nq_])
+        lab = row.pop("labels")
+        row["recall@10"] = round(recall(lab, gt[:nq_]), 4)
+        row["rows_as_one_batch"] = round(float(
+            (lab == ref[:nq_]).all(axis=1).mean()), 4)
+        http[f"threads_{threads}"] = row
+        say(f"server /query ef=64: {json.dumps(row)}")
+        check(row["rows_as_one_batch"] >= 0.99,
+              f"the HTTP answers from {threads} threads are not the ids of "
+              f"one batched search: {row['rows_as_one_batch']}")
+
+    # ---- /getIndex, two 1000-vector updates, patch sync onto the copy
+    t0 = time.perf_counter()
+    local = client.bootstrap(device=dev)
+    t_boot = time.perf_counter() - t0
+    check(same_graph(patchlib.to_np(local.graph), local.graph.n,
+                     patchlib.to_np(server.chal_unpadded), n),
+          "/getIndex: the bootstrapped copy differs from the server's graph")
+    extra, _ = clustered(2 * UPD_BATCH, 128, n_queries=0,
+                         n_clusters=max(64, n // 1000), seed=7, scale=0.3)
+    chunks = []
+    fetch = client.get_last_batch
+
+    def counted():
+        blob, fin = fetch()
+        chunks.append(len(blob))
+        return blob, fin
+
+    client.get_last_batch = counted
+    upd = []
+    ef64_recall = slim_nnd[EFS.index(64)]["recall@10"]
+    for b_ in range(2):
+        lo = n + b_ * UPD_BATCH
+        vecs = extra[b_ * UPD_BATCH:(b_ + 1) * UPD_BATCH]
+        chunks.clear()
+        t0 = time.perf_counter()
+        blob, fin = client.update_index(range(lo, lo + UPD_BATCH), vecs)
+        t_http = time.perf_counter() - t0
+        chunks.append(len(blob))
+        ust = h2.last_update_stats
+        t0 = time.perf_counter()
+        local = client.sync_patches(local, blob, fin)
+        torch.cuda.synchronize()
+        t_sync = time.perf_counter() - t0
+        n_now = h2.graph.n
+        equal = (same_graph(patchlib.to_np(local.graph), local.graph.n,
+                            server.inc.host_chal, n_now)
+                 and torch.equal(local.vectors.cpu(), torch.as_tensor(
+                     server.vectors_np[:n_now])))
+        n_hit = min(256, len(vecs))
+        _, hit = server.slim.search(vecs[:n_hit], k=1)
+        row = {"batch": "cold" if b_ == 0 else "warm", "n": n_now,
+               "update_http_s": round(t_http, 3),
+               "insert_s": round(sum(ust["seconds"].values()), 3),
+               "inc_update_s": round(sum(
+                   server.inc.last_stats["seconds"].values()), 3),
+               "patch_bytes": sum(chunks), "patch_chunks": len(chunks),
+               "sync_patches_s": round(t_sync, 3),
+               "client_equals_server": bool(equal),
+               "self_hit@1": round(float(
+                   (hit[:, 0] == np.arange(lo, lo + n_hit)).mean()), 4)}
+        say(f"server /updateIndex: {json.dumps(row)}")
+        check(equal, f"{row['batch']} update: the patched client differs "
+                     "from the server's graph or vectors")
+        check(row["self_hit@1"] >= ef64_recall - 0.05,
+              f"{row['batch']} update: self-hit@1 {row['self_hit@1']} more "
+              f"than 0.05 under the index's recall@10 {ef64_recall} at ef 64")
+        upd.append(row)
+    client.get_last_batch = fetch
+
+    # ---- /markDelete of 1000 labels, served through filter_mask
+    dead = np.random.default_rng(29).choice(n, UPD_BATCH, replace=False)
+    check(client.mark_delete(dead) == UPD_BATCH, "/markDelete count")
+    row = http_run(64, queries[:1024])
+    lab = row.pop("labels")
+    check((lab >= 0).all() and not np.isin(lab, dead).any(),
+          "a deleted label was served, or an answer was short")
+    row["recall@10_pre_delete_gt"] = round(recall(lab, gt[:1024]), 4)
+    say(f"server /query after /markDelete of {UPD_BATCH} labels: "
+        f"{json.dumps(row)}")
+    http["after_delete"] = row
+    t0 = time.perf_counter()
+    again = client.bootstrap(device=dev)
+    t_boot2 = time.perf_counter() - t0
+    n_now = h2.graph.n
+    check(same_graph(patchlib.to_np(again.graph), again.graph.n,
+                     server.inc.host_chal, n_now),
+          "/getIndex after the updates differs from the server's graph")
+    got = client.get_vectors(n_now - UPD_BATCH - 5, 2 * UPD_BATCH)
+    check(got.shape == (UPD_BATCH + 5, 128) and np.array_equal(
+        got, server.vectors_np[n_now - UPD_BATCH - 5:n_now]),
+        "/getVectors rows differ from the server's vectors")
+    launch_srv = dict(cuda.launches)
+    cost = {k: round(v, 3) if isinstance(v, float) else v
+            for k, v in server.query_cost.items()}
+    say(f"server-path launches: {launch_srv}")
+    for name in SERVER_PATH:
+        check(launch_srv[name] > 0, f"{name} never launched on the server "
+                                    "path")
+    check(launch_srv["nnd_cand"] > launch_srv["nnd_cand.join"]
+          and launch_srv["run_scatter"] > launch_srv["run_scatter.dedup"],
+          "nnd_cand's pivot mode or run_scatter's scatter mode never "
+          "launched on the server path")
+    server.shutdown()
+    summary = {"n": n, "server_s": round(t_server, 2),
+               "build_s": round(t_build, 2), "convert_s": round(t_conv, 2),
+               "nnd_rounds": rec.rounds, "integrity": integ,
+               "index_size": server.slim.index_size(), "slim": slim_nnd,
+               "http": http, "query_cost": cost,
+               "bootstrap_s": [round(t_boot, 3), round(t_boot2, 3)],
+               "updates": upd}
+    del server, local, again
+
+    # ---- the build with the kernels against the build with the twins
+    n_par = min(n, 100_000)
+    adjs = []
+    for twins in (False, True):
+        with plain_nnd_twins() if twins else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            hp = HnswIndex(hcfg, strategy="nnd", device=dev)
+            hp.build(base[:n_par])
+            torch.cuda.synchronize()
+            adjs.append(([a.clone() for a in hp.graph.adjs],
+                         time.perf_counter() - t0))
+        del hp
+    eq = len(adjs[0][0]) == len(adjs[1][0]) and all(
+        torch.equal(a, b) for a, b in zip(adjs[0][0], adjs[1][0]))
+    summary["twin_build"] = {"n": n_par, "equal": bool(eq),
+                             "levels": len(adjs[0][0]),
+                             "kernels_s": round(adjs[0][1], 2),
+                             "twins_s": round(adjs[1][1], 2)}
+    say(f"NND build at {n_par} with the kernels against the plain twins: "
+        f"{json.dumps(summary['twin_build'])}")
+    check(eq, f"the {n_par}-point NND build with the kernels differs from "
+              "the build with the plain twins")
+    del adjs
+
+    # ---- the new kernels against their plain versions, real inputs
+    ids, newf, n_valid, s_fwd, r_rev, draws = rec.rec["round"]
+    rand_key, r2, r3, r4 = draws
+    nn, k = ids.shape
+    c = 2 * s_fwd + r_rev
+    tgt_s = torch.where(ids >= 0, ids, nn).reshape(-1).contiguous()
+    src = torch.arange(nn, dtype=torch.int32,
+                       device=dev).repeat_interleave(k)
+    bits = nn.bit_length()
+    e_ = tgt_s.numel()
+    st, ss = sort.kv_radix_sort(tgt_s, src, bits)
+    pst, pss = sort.kv_radix_sort_plain(tgt_s, src, bits)
+    passes = -(-bits // 8)
+    report["radix_sort"] = dict(
+        agree=float(torch.equal(st, pst) and torch.equal(ss, pss)),
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: sort.kv_radix_sort(tgt_s, src, bits), 5),
+        plain_ms=cuda_ms(lambda: sort.kv_radix_sort_plain(tgt_s, src, bits),
+                         3),
+        library_ms=cuda_ms(lambda: src[torch.sort(tgt_s, stable=True)[1]],
+                           3),
+        bound=bound(e_ * 16, 0))
+    check(report["radix_sort"]["agree"] == 1.0,
+          "radix_sort differs from its plain version on the reverse edges")
+    # the warm start's f32 keys and the level-0 union's lexsorts
+    proj, rp_valid, w, rnd = rec.rec["rp"]
+    iota = torch.arange(nn, dtype=torch.int32, device=dev)
+    key0 = torch.where(iota < rp_valid, proj[:, 0], float("inf")).contiguous()
+    fk, fo = sort.kv_radix_sort(key0, iota, 32, float_keys=True)
+    pfk, pfo = sort.kv_radix_sort_plain(key0, iota, 32, float_keys=True)
+    f_ms = cuda_ms(lambda: sort.kv_radix_sort(key0, iota, 32, True), 10)
+    f_lib = cuda_ms(lambda: torch.sort(key0, stable=True), 10)
+    sel, d_sel, w_union = rec.rec["union"]
+    ku, kc = tb.mutual_union(sel, d_sel, w_union=w_union)
+    with plain_nnd_twins():
+        pu, pc = tb.mutual_union(sel, d_sel, w_union=w_union)
+        u_plain = cuda_ms(lambda: tb.mutual_union(sel, d_sel,
+                                                  w_union=w_union), 3)
+    u_ms = cuda_ms(lambda: tb.mutual_union(sel, d_sel, w_union=w_union), 3)
+    eq_f = torch.equal(fo, pfo) and torch.equal(fk.view(torch.int32),
+                                                pfk.view(torch.int32))
+    eq_u = torch.equal(ku, pu) and torch.equal(kc, pc)
+    report["radix_sort"]["shapes"] = (
+        f"E {e_} (target, source) pairs of NND round 2, {bits}-bit keys, "
+        f"{passes} passes (the radix form itself moves {passes} x 20 B an "
+        f"element: {bound(passes * e_ * 20, 0)[0]:.4f} ms); rp_init's f32 "
+        f"keys E {nn} (4 passes): {f_ms:.4f} ms vs torch.sort {f_lib:.4f} "
+        f"ms, equal {eq_f}; the level-0 mutual_union (E {2 * sel.numel()}, "
+        f"two lexsorts, dedup, scatter, counts): {u_ms:.4f} ms vs the plain "
+        f"twins {u_plain:.4f} ms, rows and counts equal {eq_u}")
+    check(eq_f and eq_u, "radix_sort on f32 keys or the mutual union "
+                         "differs from its plain version")
+
+    # Kμ scatter: the round's reverse samples; dedup: the union's pairs
+    rev = sort.run_scatter(st, ss, nn, r_rev, n_valid)
+    prev = sort.run_scatter_plain(st, ss, nn, r_rev, n_valid)
+    report["run_scatter"] = dict(
+        agree=float(torch.equal(rev, prev)), max_abs_err=0.0,
+        ms=cuda_ms(lambda: sort.run_scatter(st, ss, nn, r_rev, n_valid), 5),
+        plain_ms=cuda_ms(lambda: sort.run_scatter_plain(st, ss, nn, r_rev,
+                                                        n_valid), 3),
+        bound=bound(e_ * 8 + rev.numel() * 4, 0),
+        shapes=f"E {e_} sorted pairs -> rev i32[{nn}, {r_rev}]")
+    n_u = sel.shape[0]
+    src1 = torch.arange(n_u, dtype=torch.int32,
+                        device=dev).repeat_interleave(sel.shape[1])
+    tgt1 = sel.reshape(-1)
+    ok = torch.cat([tgt1 >= 0] * 2)
+    src_m = torch.where(ok, torch.cat([src1, tgt1]), n_u).contiguous()
+    tgt_m = torch.where(ok, torch.cat([tgt1, src1]), n_u).contiguous()
+    s1, o = sort.lexsort_stable(src_m, tgt_m, n_u.bit_length())
+    t1s = torch.index_select(tgt_m, 0, o)
+    dk = sort.dedup_pairs(s1, t1s, n_u)
+    report["run_scatter.dedup"] = dict(
+        agree=float(torch.equal(dk, sort.dedup_pairs_plain(s1, t1s, n_u))),
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: sort.dedup_pairs(s1, t1s, n_u), 10),
+        plain_ms=cuda_ms(lambda: sort.dedup_pairs_plain(s1, t1s, n_u), 10),
+        bound=bound(s1.numel() * 12, 0),
+        shapes=f"E {s1.numel()} (src, tgt) pairs of the level-0 union")
+    for key_ in ("run_scatter", "run_scatter.dedup"):
+        check(report[key_]["agree"] == 1.0,
+              f"{key_} differs from its plain version")
+
+    # Kλ pivot and join modes on the recorded round
+    def pivot(fn):
+        cand = torch.full((nn, c), -7, dtype=torch.int32, device=dev)
+        return fn(ids, newf, rand_key, r2, cand), cand
+
+    fk_, ck_ = pivot(nnd.nnd_pivot)
+    fp_, cp_ = pivot(nnd.nnd_pivot_plain)
+    report["nnd_cand"] = dict(
+        agree=float(torch.equal(fk_, fp_) and torch.equal(ck_, cp_)),
+        max_abs_err=0.0, ms=cuda_ms(lambda: pivot(nnd.nnd_pivot), 5),
+        plain_ms=cuda_ms(lambda: pivot(nnd.nnd_pivot_plain), 3),
+        bound=bound(ids.numel() * 16 + r2.numel() * (8 + 4 + 4), 0),
+        shapes=f"{nn} rows, k {k}, s_fwd {s_fwd} (pivot mode; ms include "
+               "the -1 fill of the candidate buffer)")
+
+    def join(fn):
+        cand = torch.full((nn, c), -7, dtype=torch.int32, device=dev)
+        fn(ids, rev, r3, r4, cand)
+        return cand
+
+    report["nnd_cand.join"] = dict(
+        agree=float(torch.equal(join(nnd.nnd_join),
+                                join(nnd.nnd_join_plain))),
+        max_abs_err=0.0, ms=cuda_ms(lambda: join(nnd.nnd_join), 5),
+        plain_ms=cuda_ms(lambda: join(nnd.nnd_join_plain), 3),
+        bound=bound(rev.numel() * 8 + r3.numel() * (16 + 4 + 4), 0),
+        shapes=f"{nn} rows, r_rev {r_rev}, s_fwd {s_fwd}")
+    # Kν on the warm start's four orders
+    orders = torch.stack([sort.kv_radix_sort(
+        torch.where(iota < rp_valid, proj[:, p], float("inf")).contiguous(),
+        iota, 32, float_keys=True)[1] for p in range(proj.shape[1])])
+    kw_ = nnd.rp_window(orders, rnd, rp_valid, w)
+    report["rp_window"] = dict(
+        agree=float(torch.equal(kw_, nnd.rp_window_plain(orders, rnd,
+                                                          rp_valid, w))),
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: nnd.rp_window(orders, rnd, rp_valid, w), 10),
+        plain_ms=cuda_ms(lambda: nnd.rp_window_plain(orders, rnd, rp_valid,
+                                                     w), 3),
+        bound=bound(orders.numel() * 4 + rnd.numel() * 8 + kw_.numel() * 4,
+                    0),
+        shapes=f"{proj.shape[1]} orders of {nn}, w {w}, random fill "
+               f"{rnd.shape[1]} -> i32[{nn}, {kw_.shape[1]}]")
+    for key_ in ("nnd_cand", "nnd_cand.join", "rp_window"):
+        check(report[key_]["agree"] == 1.0,
+              f"{key_} differs from its plain version")
+    del rec
+    summary["profile"] = profile_nnd_build(base, hcfg, dev)
+    say(f"NND build under torch.profiler: {json.dumps(summary['profile'])}")
+    summary["phase_s"] = round(time.perf_counter() - t_phase, 1)
+    return summary, launch_srv, slim_nnd, built
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -835,8 +1453,7 @@ def main() -> int:
     from hnsw_slim_tpu_torch.graph import build as tb
     from hnsw_slim_tpu_torch.graph import heuristic, nnd, prune, revconn
     from hnsw_slim_tpu_torch.graph import search as gs
-    from hnsw_slim_tpu_torch.graph.incremental import (IncrementalSlim,
-                                                       IncrementalSlimZero)
+    from hnsw_slim_tpu_torch.graph.incremental import IncrementalSlimZero
     from hnsw_slim_tpu_torch.index import bruteforce as bf
     from hnsw_slim_tpu_torch.index import hnsw as hnsw_mod
     from hnsw_slim_tpu_torch.index.hnsw import (HnswIndex,
@@ -852,6 +1469,7 @@ def main() -> int:
     from hnsw_slim_tpu_torch.quant import estimator as qest
     from hnsw_slim_tpu_torch.quant import kmeans as qkm
     from hnsw_slim_tpu_torch.quant import rotator as qrot
+    from hnsw_slim_tpu_torch.serve.server import SlimServer
     from hnsw_slim_tpu_torch.utils.data import clustered, manifold
 
     t_start = time.perf_counter()
@@ -880,7 +1498,11 @@ def main() -> int:
                                        "fht_kernel", "g_tables_kernel",
                                        "row_deg_kernel", "sort_tile_kernel",
                                        "global_step_kernel",
-                                       "merge_tile_kernel", "point_kernel")
+                                       "merge_tile_kernel", "point_kernel",
+                                       "hist_kernel", "scan_kernel",
+                                       "scatter_kernel", "dedup_kernel",
+                                       "pivot_kernel", "join_kernel",
+                                       "window_kernel")
                            if k in fn), "?")
             if "ILb1E" in fn:  # the quantized / estimate instantiation
                 kernel += "<quant>"
@@ -1221,27 +1843,10 @@ def main() -> int:
     for row in sq_rows.values():
         row.pop("ids")
 
-    # ---- 6. the NN-descent path -------------------------------------------
-    cuda.reset_launches()
-    t0 = time.perf_counter()
-    h2 = HnswIndex(hcfg, strategy="nnd", device=dev)
-    h2.build(base)
-    torch.cuda.synchronize()
-    t_build2 = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    idx2 = HnswSlimIndex.from_hnsw(h2, SlimConfig.from_ratios())
-    dense2 = idx2.densify_level0()
-    torch.cuda.synchronize()
-    t_conv2 = time.perf_counter() - t0
-    integ2 = idx2.check_integrity()
-    say(f"nnd: build {t_build2:.2f} s, conversion+densify {t_conv2:.2f} s, "
-        f"index_size {idx2.index_size()} B, dense0 {dense2} B, integrity "
-        f"{integ2}, max_level {idx2.graph.max_level}")
-    slim_nnd = serve_sweep(idx2, queries, gt, base, scfg_slim, "slim(nnd)")
-    launch_nnd = dict(cuda.launches)
-    say(f"nnd-path launches: {launch_nnd}")
-    for name in NND_PATH:
-        check(launch_nnd[name] > 0, f"{name} never launched on the NND path")
+    # ---- 6. the HTTP server on an NN-descent-built index ------------------
+    report = {}
+    srv_summary, launch_nnd, slim_nnd, h2 = server_phase(
+        base, queries, gt, hcfg, scfg_slim, report, dev)
     say(f"recall@10 at ef={EFS[-1]}: insertion-built Slim "
         f"{slim_ins[-1]['recall@10']}, NND-built Slim "
         f"{slim_nnd[-1]['recall@10']}")
@@ -1251,7 +1856,6 @@ def main() -> int:
               f"one at ef={EFS[-1]}")
 
     # ---- 7. each kernel against its plain version -------------------------
-    report = {}
     x, xn = h.vectors, h.vn
     d = x.shape[1]
     r = recorder.rec
@@ -2101,98 +2705,51 @@ def main() -> int:
     vec_np[:n] = base
     pre_recall = slim_ins[EFS.index(64)]["recall@10"]
     t0 = time.perf_counter()
-    inc = IncrementalSlim(slim_cfg, metric=hcfg.metric)
-    g_inc = inc.full(h.host_adj(), h.levels, int(h.graph.entry), h.vectors,
-                     h.vn)
+    server = SlimServer(h, slim_cfg=slim_cfg, port=0, device=dev)
     torch.cuda.synchronize()
     t_full = time.perf_counter() - t0
-    say(f"updates: IncrementalSlim.full {t_full:.2f} s, split (s) "
-        f"{json.dumps({k: round(v, 3) for k, v in inc.last_stats['seconds'].items() if v >= 0.05})}")
+    inc, srv, g_inc = server.inc, server.slim, server.chal_unpadded
+    say(f"updates: SlimServer(h) {t_full:.2f} s: IncrementalSlim.full, split "
+        f"(s) {json.dumps({k: round(v, 3) for k, v in inc.last_stats['seconds'].items() if v >= 0.05})}"
+        ", then both dense layouts")
     check(torch.equal(g_inc.nbr, idx.graph.nbr)
           and torch.equal(g_inc.lvl_off, idx.graph.lvl_off)
           and torch.equal(g_inc.level, idx.graph.level),
           "IncrementalSlim.full differs from convert_to_slim")
-    srv = HnswSlimIndex(metric=hcfg.metric, search_cfg=scfg_slim(64),
-                        device=dev)
-    srv.graph, srv.vectors, srv.vn = g_inc, h.vectors, h.vn
-    srv.host_chal = inc.host_chal
-    srv.densify_level0()
-    srv.densify_upper()
+    srv.scfg = scfg_slim(64)
     client, client_vecs = g_inc, base
-    placeholder = (torch.zeros(8, dtype=torch.int32, device=dev),
-                   torch.zeros((8, 8), dtype=torch.int32, device=dev))
-    node_bucket = 65536
     upd_rounds = []
 
-    def same_graph(a_np, n_a, b_np, n_b):
-        """Two flat CHAL mirrors hold the same logical graph (rows are
-        packed in canonical order, so the arrays themselves compare)."""
-        if n_a != n_b:
-            return False
-        ea, eb = int(a_np["lvl_off"][n_a - 1, -1]), \
-            int(b_np["lvl_off"][n_b - 1, -1])
-        return (ea == eb
-                and np.array_equal(a_np["level"][:n_a], b_np["level"][:n_b])
-                and np.array_equal(a_np["lvl_off"][:n_a],
-                                   b_np["lvl_off"][:n_b])
-                and np.array_equal(a_np["nbr"][:ea], b_np["nbr"][:eb]))
-
     def update_round(label, new_vecs, slots=None):
-        """One update_index round: insert (or reuse ``slots``), incremental
-        re-prune, serving-layout refresh, patch, client apply, checks."""
+        """One SlimServer.update_index call without HTTP (an add batch, or,
+        with ``slots``, the batch that reuses those deleted slots): insert,
+        incremental re-prune, serving-layout refresh, patch writer; then
+        the patch chunks, the client apply and the checks."""
         nonlocal client, client_vecs
         prev = h.graph.n
-        lc, reused = None, np.zeros(0, np.int64)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if slots is None:
-            touched = h.add_points(new_vecs)
-            vec_np[prev:prev + len(new_vecs)] = new_vecs
-            new_ids = np.arange(prev, prev + len(new_vecs))
-        else:
-            touched, lc = h.replace_points(slots, new_vecs)
-            vec_np[slots] = new_vecs
-            reused = new_ids = slots
-        torch.cuda.synchronize()
-        t_ins = time.perf_counter() - t0
-        n_now = h.graph.n
-        ust = h.last_update_stats
-        t0 = time.perf_counter()
         # severed slots can cut the Slim graph where the full pass would
         # bridge it again, so the round that reuses slots re-runs the
         # connectivity repair; an add batch links into the graph and the
         # reference repairs nothing there
         inc.repair_updates = slots is not None
-        chal, changed = inc.update(
-            h.host_adj(), h.levels, int(h.graph.entry), h.vectors, h.vn,
-            touched=touched, level_changed=lc, device_pack=False)
         torch.cuda.synchronize()
-        t_inc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        writer = server.update_index(new_vecs)
+        torch.cuda.synchronize()
+        t_upd = time.perf_counter() - t0
+        if slots is None:
+            vec_np[prev:prev + len(new_vecs)] = new_vecs
+            new_ids = np.arange(prev, prev + len(new_vecs))
+        else:
+            vec_np[slots] = new_vecs
+            new_ids = slots
+        n_now = h.graph.n
+        ust = h.last_update_stats
         hc = inc.host_chal
-        # the serving graph in host mode: both dense layouts serve, so the
-        # flat CHAL stays on the host and the device holds placeholders
+        t_ins = sum(ust["seconds"].values())
+        t_inc = sum(inc.last_stats["seconds"].values())
+        lvl_pad = srv.graph.level.cpu().numpy()
         t0 = time.perf_counter()
-        n_src = len(hc["level"])
-        n_pad = -(-n_src // node_bucket) * node_bucket
-        lvl_pad = np.full(n_pad, -1, np.int32)
-        lvl_pad[:n_src] = hc["level"]
-        srv.graph = dataclasses.replace(
-            chal, nbr=placeholder[0], lvl_off=placeholder[1],
-            level=torch.as_tensor(lvl_pad, device=dev), n_real=n_now)
-        srv.host_chal = hc
-        srv.vectors, srv.vn = h.vectors, h.vn
-        upd_ids = np.concatenate([changed, np.arange(prev, n_now), reused])
-        srv.update_dense0(hc, upd_ids)
-        srv.update_dense_upper(hc, upd_ids)
-        torch.cuda.synchronize()
-        t_dense = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        reused_set = set(int(v) for v in reused)
-        old = sorted(int(v) for v in changed
-                     if v < prev and int(v) not in reused_set)
-        new = sorted(set(range(prev, n_now)) | reused_set)
-        writer = patchlib.PatchWriter(chal, old, new, vectors=vec_np[:n_now],
-                                      host_chal=hc)
         chunks, finished = [], False
         while not finished:
             blob, finished = writer.next_chunk()
@@ -2218,13 +2775,14 @@ def main() -> int:
                "inc_sizes": inc.last_stats["sizes"],
                "repair_updates": inc.repair_updates,
                "repair_bridges": len(inc.repair_keys),
-               "changed": len(changed),
-               "dense_refresh_s": round(t_dense, 3),
+               "changed_old": len(writer.old),
+               "update_index_s": round(t_upd, 3),
+               "layouts_and_writer_s": round(t_upd - t_ins - t_inc, 3),
                "patch_s": round(t_patch, 3), "patch_chunks": len(chunks),
                "patch_bytes": sum(len(c_) for c_ in chunks),
-               "records": len(old) + len(new),
+               "records": len(writer.old) + len(writer.new),
                "client_apply_s": round(t_apply, 3),
-               "update_s": round(t_ins + t_inc + t_dense + t_patch, 3)}
+               "update_s": round(t_upd + t_patch, 3)}
         if ust.get("overflow"):
             check(ust["overflow"]["truncated_applies"] == 0,
                   f"{label}: reverse-connect truncated: {ust['overflow']}")
@@ -2238,7 +2796,7 @@ def main() -> int:
         fresh.densify_level0()
         fresh.densify_upper()
         ok_up = True
-        for l in range(1, chal.max_level + 1):
+        for l in range(1, srv.graph.max_level + 1):
             at = torch.as_tensor(np.nonzero(lvl_pad >= l)[0], device=dev)
             ok_up &= bool(torch.equal(
                 srv.dense_up[l - 1][srv.rank_up[at].long()],
@@ -2297,14 +2855,14 @@ def main() -> int:
     n_now = h.graph.n
     dead = np.sort(np.random.default_rng(23).choice(n_now, UPD_BATCH,
                                                     replace=False))
-    live = np.ones(int(srv.vectors.shape[0]), bool)  # one flag per row
-    live[dead] = False
+    check(server.mark_delete(dead) == UPD_BATCH, "mark_delete count")
     srv.scfg = scfg_slim(64)
-    _, del_ids = srv.search(queries, k=10, filter_mask=live)
-    check((del_ids >= 0).all() and bool(live[del_ids].all()),
+    _, del_ids = server.search(queries, 10)
+    check((del_ids >= 0).all() and not np.isin(del_ids, dead).any(),
           "a deleted id was served, or a filtered row is not full")
-    say(f"updates: {UPD_BATCH} ids marked deleted, served with filter_mask: "
-        "no deleted id returned, every row full")
+    say(f"updates: {UPD_BATCH} labels marked deleted (SlimServer."
+        "mark_delete), served through filter_mask: no deleted label "
+        "returned, every row full")
     update_round("delete + replace batch", extra[3 * UPD_BATCH:4 * UPD_BATCH],
                  slots=dead.astype(np.int64))
     t_fresh = check_equals_full(
@@ -2531,10 +3089,7 @@ def main() -> int:
                                     for k, v in sq.build_stats.items()},
                   "sizes": sq_size, "lines": sq_rows,
                   "launches": launch_sq},
-        "nnd": {"n": n, "build_s": round(t_build2, 2),
-                "convert_s": round(t_conv2, 2),
-                "index_size": idx2.index_size(), "slim": slim_nnd,
-                "launches": launch_nnd},
+        "server": dict(srv_summary, launches=launch_nnd),
         "updates": dict(upd_summary, launches=launch_upd),
         "shards": dict(shard_summary, launches=launch_par),
         "nq": NQ, "wall_s": round(time.perf_counter() - t_start, 1)}))

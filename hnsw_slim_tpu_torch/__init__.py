@@ -12,11 +12,12 @@ pass ``device="cpu"`` to run on the CPU.
     from hnsw_slim_tpu_torch import (
         HnswConfig, SlimConfig, SearchConfig, QuantConfig,
         HnswIndex, HnswSlimIndex, HnswSlimZeroIndex, HnswSlimQIndex,
-        BruteForceIndex, ShardedSlimIndex,
+        BruteForceIndex, ShardedSlimIndex, SlimServer, SlimClient,
     )
 
-The index classes resolve lazily, so importing the package loads no index
-module. ``FlatUnionIndex`` lives in ``parallel/flat_union.py``.
+The index classes and the HTTP server and client resolve lazily, so
+importing the package loads no index or serving module. ``FlatUnionIndex``
+lives in ``parallel/flat_union.py``.
 
 ``config.py``, ``utils/data.py`` and ``utils/native.py`` are byte-equal
 copies of the JAX package's jax-free modules (a test holds them equal), so
@@ -28,7 +29,7 @@ from .config import HnswConfig, QuantConfig, SearchConfig, SlimConfig
 __all__ = [
     "HnswConfig", "SlimConfig", "SearchConfig", "QuantConfig",
     "HnswIndex", "HnswSlimIndex", "HnswSlimZeroIndex", "HnswSlimQIndex",
-    "BruteForceIndex", "ShardedSlimIndex",
+    "BruteForceIndex", "ShardedSlimIndex", "SlimServer", "SlimClient",
 ]
 
 # name -> (module, attribute), imported on first use
@@ -39,6 +40,8 @@ _LAZY = {
     "HnswSlimQIndex": (".index.slimq", "HnswSlimQIndex"),
     "BruteForceIndex": (".index.bruteforce", "BruteForceIndex"),
     "ShardedSlimIndex": (".parallel.sharded", "ShardedSlimIndex"),
+    "SlimServer": (".serve.server", "SlimServer"),
+    "SlimClient": (".serve.client", "SlimClient"),
 }
 
 

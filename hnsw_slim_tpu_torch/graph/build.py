@@ -31,10 +31,10 @@ from ..config import HnswConfig
 
 from ..index.bruteforce import topk_dist
 from ..ops.distance import gathered_dist, sq_norms
+from ..ops.sort import dedup_pairs, lexsort_stable, run_scatter
 from . import revconn
 from . import search as gs
 from .heuristic import prune_all, prune_batch
-from .nnd import sorted_run_rank
 from .types import LevelGraph
 
 INF = float("inf")
@@ -48,41 +48,33 @@ def sample_levels(n: int, mult: float, seed: int, cap: int = 12) -> np.ndarray:
     return np.minimum((-np.log(u) * mult).astype(np.int32), cap)
 
 
-def _lexsort_stable(primary, secondary):
-    """Permutation sorting by (primary, secondary), ties in input order."""
-    o1 = torch.sort(secondary, stable=True).indices
-    o2 = torch.sort(primary[o1], stable=True).indices
-    return o1[o2]
-
-
 def mutual_union(sel: torch.Tensor, d_sel: torch.Tensor, *, w_union: int):
     """Symmetrize pruned forward edges and keep each node's w_union nearest:
     dedup (src, tgt) pairs, rank by distance within each src. Returns rows
-    i32[N, w_union] (-1 padded, ascending distance) and counts i32[N]."""
+    i32[N, w_union] (-1 padded, ascending distance) and counts i32[N].
+
+    On the card: a lexsort by (src, tgt) (two Kκ passes), the duplicate
+    mark (Kμ dedup mode), a lexsort by (src, distance) (Kκ over the f32
+    distances, then src), the ranked scatter (Kμ) and the row counts (Kθ).
+    CPU tensors take each kernel's plain version."""
+    from ..index.hnsw import _row_deg
+
     n, m = sel.shape
     dev = sel.device
     src1 = torch.arange(n, dtype=torch.int32, device=dev).repeat_interleave(m)
-    tgt1 = sel.reshape(-1)
+    tgt1 = sel.reshape(-1).to(torch.int32)
     valid = tgt1 >= 0
-    src = torch.cat([src1, tgt1])
-    tgt = torch.cat([tgt1, src1])
-    dd = torch.cat([d_sel.reshape(-1)] * 2)
     ok = torch.cat([valid, valid])
-    src_m = torch.where(ok, src, n)
-    tgt_m = torch.where(ok, tgt, n)
-    o = _lexsort_stable(src_m, tgt_m)
-    s1, t1s, d1s = src_m[o], tgt_m[o], dd[o]
-    dup = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev),
-                     (s1[1:] == s1[:-1]) & (t1s[1:] == t1s[:-1])])
-    s1 = torch.where(dup, n, s1)
-    o = _lexsort_stable(s1, d1s)
-    s2, t2 = s1[o], t1s[o]
-    rank = sorted_run_rank(s2)
-    keep = (rank < w_union) & (s2 < n)
-    rows = torch.full((n + 1, w_union), -1, dtype=torch.int32, device=dev)
-    rows[s2[keep].long(), rank[keep].long()] = t2[keep]
-    rows = rows[:n]
-    return rows, (rows >= 0).sum(dim=1, dtype=torch.int32)
+    src_m = torch.where(ok, torch.cat([src1, tgt1]), n).contiguous()
+    tgt_m = torch.where(ok, torch.cat([tgt1, src1]), n).contiguous()
+    dd = torch.cat([d_sel.reshape(-1)] * 2).to(torch.float32)
+    bits = max(1, n.bit_length())  # ids and the drop key n
+    s1, o = lexsort_stable(src_m, tgt_m, bits)
+    t1s = torch.index_select(tgt_m, 0, o)
+    d1s = torch.index_select(dd, 0, o)
+    s2, o = lexsort_stable(dedup_pairs(s1, t1s, n), d1s, bits)
+    rows = run_scatter(s2, torch.index_select(t1s, 0, o), n, w_union)
+    return rows, _row_deg(rows)
 
 
 def _edge_dists(q, qn, vectors, vn, sel, metric):

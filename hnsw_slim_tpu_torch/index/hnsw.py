@@ -59,6 +59,16 @@ def filter_iters(max_iters: int, mask: np.ndarray) -> int:
     return int(max_iters / density) + 8
 
 
+def allowed_rows(mask: np.ndarray, rows: int, device) -> torch.Tensor:
+    """The kernels' allowed flags, one per row of the vector store: a mask
+    over the logical nodes alone (as the JAX package takes it, e.g. a
+    server's live flags) is padded with False over the capacity rows, which
+    no traversal reaches."""
+    if len(mask) < rows:
+        mask = np.concatenate([mask, np.zeros(rows - len(mask), bool)])
+    return torch.as_tensor(mask, device=device)
+
+
 def row_deg_plain(a: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch Kθ: per row of a i32[N, cap], the count of ids >= 0."""
     return (a >= 0).sum(1, dtype=torch.int32)
@@ -346,7 +356,8 @@ class HnswIndex:
         max_iters = self.scfg.iters()
         if filter_mask is not None:
             mask = np.asarray(filter_mask, bool)
-            allowed = torch.as_tensor(mask, device=self.device)
+            allowed = allowed_rows(mask, int(self.vectors.shape[0]),
+                                   self.device)
             max_iters = filter_iters(max_iters, mask)
         q = torch.as_tensor(np.asarray(queries, np.float32),
                             device=self.device)

@@ -34,7 +34,7 @@ from ..ops import cuda
 from ..ops.distance import sq_norms
 from ..persist.patch import _level_rows, _subset_rows, to_np
 from .bruteforce import exact_topk
-from .hnsw import HnswIndex, _check, filter_iters
+from .hnsw import HnswIndex, _check, allowed_rows, filter_iters
 
 
 class HnswSlimIndex:
@@ -244,7 +244,8 @@ class HnswSlimIndex:
         max_iters = self.scfg.iters()
         if filter_mask is not None:
             mask = np.asarray(filter_mask, bool)
-            allowed = self._dev(mask)
+            allowed = allowed_rows(mask, int(self.vectors.shape[0]),
+                                   self.device)
             max_iters = filter_iters(max_iters, mask)
         q = torch.as_tensor(np.asarray(queries, np.float32),
                             device=self.device)

@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (Kα–Kι, and their fetch-form, filtered, strata,
-guarded, quantized-scorer, rerank-track and collect modes) against their plain
-PyTorch versions on the card. Marked ``cuda``; each test skips when no CUDA device is present.
+"""The port's CUDA kernels (Kα–Kν, and their fetch-form, filtered, strata,
+guarded, quantized-scorer, rerank-track, collect, join and dedup modes)
+against their plain PyTorch versions on the card. Marked ``cuda``; each test skips when no CUDA device is present.
 The machine with the card has no JAX, so run these without the suite's
 conftest (which imports JAX):
 
@@ -8,8 +8,8 @@ conftest (which imports JAX):
 
 Tolerances: ids equal on >= 99% of rows/slots (near-ties in fp32 summation
 order may reorder), distances and estimates within 1e-4 * (1 + |d|); Kζ
-moves integers only and Kη adds in the plain version's order: both must be
-exactly equal.
+and Kκ–Kν move integers only and Kη adds in the plain version's order: they
+must be exactly equal.
 """
 
 import numpy as np
@@ -1113,3 +1113,178 @@ def test_union_and_sharded_on_card(data):
     assert rec(ub.search(qs, 10)[1]) >= 0.8
     assert cuda.launches["topk_dist.bf16"] == 1
     assert cuda.launches["beam_search.bf16"] >= 1
+
+
+# ---- the NN-descent build's sorts: Kκ radix_sort, Kλ nnd_cand, Kμ
+# run_scatter, Kν rp_window
+
+
+@pytest.mark.parametrize("e", [0, 1, 4095, 4097, 100003])
+@pytest.mark.parametrize("key_bits", range(1, 33))
+def test_radix_sort_kernel_matches_plain(e, key_bits):
+    """Kκ against torch.sort(stable=True) + gather: keys and payload exactly
+    equal at every digit count, at sizes that are 0, 1, below, at and past
+    one 4096-element tile with a partial last tile; random keys below
+    2^key_bits with many ties, and all keys equal."""
+    from hnsw_slim_tpu_torch.ops import sort
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(e * 33 + key_bits)
+    hi = 2 ** key_bits
+    u = torch.randint(0, min(hi, 2**31 - 1), (e,), generator=g,
+                      device="cuda", dtype=torch.int64)
+    if key_bits == 32:  # the top bit too: words above 2^31 read as u32
+        u = u * 2 + torch.randint(0, 2, (e,), generator=g, device="cuda")
+    u = torch.where(torch.rand((e,), generator=g, device="cuda") < 0.3,
+                    hi - 1, u)
+    keys = ((u + 2**31) % 2**32 - 2**31).to(torch.int32)  # u32 words
+    p = torch.randint(0, 10**6, (e,), generator=g, device="cuda",
+                      dtype=torch.int32)
+    for k_ in (keys, torch.full_like(keys, 3 % hi)):
+        ku, kp = sort.kv_radix_sort(k_, p, key_bits)
+        torch.cuda.synchronize()
+        pu, pp = sort.kv_radix_sort_plain(k_, p, key_bits)
+        assert torch.equal(ku, pu) and torch.equal(kp, pp)
+
+
+@pytest.mark.parametrize("e", [1, 4097, 250000])
+def test_radix_sort_float_keys_match_torch_sort(e):
+    """Kκ on f32 keys (f32_sort_key's order): equal to torch.sort(stable=
+    True) with -0.0 and +0.0 tied in input order, +-inf, small negatives
+    and repeated values."""
+    from hnsw_slim_tpu_torch.ops import sort
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(e)
+    x = torch.randint(-20, 20, (e,), generator=g, device="cuda").float() / 8
+    pick = torch.randint(0, 6, (e,), generator=g, device="cuda")
+    x = torch.where(pick == 0, -0.0, x)
+    x = torch.where(pick == 1, float("inf"), x)
+    x = torch.where(pick == 2, -1e-7, x)
+    x = torch.where(pick == 3, float("-inf"), x)
+    p = torch.arange(e, dtype=torch.int32, device="cuda")
+    kx, kp = sort.kv_radix_sort(x, p, 32, float_keys=True)
+    torch.cuda.synchronize()
+    px, pp = sort.kv_radix_sort_plain(x, p, 32, float_keys=True)
+    assert torch.equal(kp, pp)
+    assert torch.equal(kx.view(torch.int32), px.view(torch.int32))
+
+
+@pytest.mark.parametrize("n,width,n_valid", [(1, 4, 1), (1000, 30, 1000),
+                                             (5000, 76, 4000)])
+def test_run_scatter_kernel_matches_plain(n, width, n_valid):
+    """Kμ scatter mode against sorted_run_rank + the masked scatter (runs
+    longer than width, the drop key n, payloads past n_valid), and the dedup
+    mode against the adjacent-pair mark: exactly equal."""
+    from hnsw_slim_tpu_torch.ops import sort
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(n)
+    e = 40 * n + 3
+    keys = torch.randint(0, n + 1, (e,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    keys[: e // 5] = min(3, n)  # one long run
+    vals = torch.randint(0, 6, (e,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    sk, sv = sort.kv_radix_sort_plain(keys, vals)
+    _, o = sort.lexsort_stable(keys, vals, 32)
+    dk, dv = keys[o.long()], vals[o.long()]
+    pay = torch.randint(0, n + 50, (e,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    got = sort.run_scatter(sk, pay, n, width, n_valid)
+    dd = sort.dedup_pairs(dk, dv, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sort.run_scatter_plain(sk, pay, n, width,
+                                                   n_valid))
+    assert torch.equal(dd, sort.dedup_pairs_plain(dk, dv, n))
+
+
+@pytest.mark.parametrize("k,s_fwd,r_rev", [(60, 60, 30), (32, 20, 16),
+                                           (16, 16, 8), (64, 48, 32)])
+def test_nnd_cand_and_rp_window_kernels_match_plain(data, k, s_fwd, r_rev):
+    """Kν on the 20k set's projection orders, then Kλ in both modes on a
+    partly filled NND state (empty rows, n_valid < n): the candidate rows
+    and cleared flags exactly equal to the plain versions."""
+    from hnsw_slim_tpu_torch.graph import nnd
+    from hnsw_slim_tpu_torch.ops import sort
+
+    x, xn, _ = data
+    n = len(x)
+    n_valid = n - 100
+    g = torch.Generator(device="cuda").manual_seed(k)
+    dirs, rnd = nnd.rp_draws(g, n, x.shape[1], k, 4, n_valid)
+    proj = x @ dirs
+    w = max(2, k // 8)
+    iota = torch.arange(n, dtype=torch.int32, device="cuda")
+    orders = torch.stack([sort.kv_radix_sort_plain(
+        torch.where(iota < n_valid, proj[:, p], float("inf")), iota, 32,
+        True)[1] for p in range(4)])
+    kc = nnd.rp_window(orders, rnd, n_valid, w)
+    torch.cuda.synchronize()
+    assert torch.equal(kc, nnd.rp_window_plain(orders, rnd, n_valid, w))
+    ids = torch.randint(0, n, (n, k), generator=g, device="cuda",
+                        dtype=torch.int32)
+    ids[torch.rand((n, k), generator=g, device="cuda") < 0.3] = -1
+    ids[:50] = -1  # all-empty rows
+    newf = torch.randint(0, 2, (n, k), generator=g, device="cuda",
+                         dtype=torch.int32)
+    rk, r2, r3, r4 = nnd.nnd_draws(g, n, k, s_fwd, r_rev, "cuda")
+    c = 2 * s_fwd + r_rev
+    ck = torch.full((n, c), -7, dtype=torch.int32, device="cuda")
+    cp = ck.clone()
+    fk = nnd.nnd_pivot(ids, newf, rk, r2, ck)
+    fp = nnd.nnd_pivot_plain(ids, newf, rk, r2, cp)
+    rev = torch.randint(-1, n, (n, r_rev), generator=g, device="cuda",
+                        dtype=torch.int32)
+    nnd.nnd_join(ids, rev, r3, r4, ck)
+    nnd.nnd_join_plain(ids, rev, r3, r4, cp)
+    torch.cuda.synchronize()
+    assert torch.equal(fk, fp) and torch.equal(ck, cp)
+
+
+def test_nnd_build_kernels_equal_plain_twins(data):
+    """A whole NN-descent build (rp_init, rounds, mutual union at every
+    level) with the kernels equals the build with every plain twin swapped
+    in, row for row, from the same seed."""
+    from hnsw_slim_tpu_torch.config import HnswConfig
+    from hnsw_slim_tpu_torch.graph import build as tb
+    from hnsw_slim_tpu_torch.graph import nnd
+    from hnsw_slim_tpu_torch.index.hnsw import HnswIndex
+    from hnsw_slim_tpu_torch.ops import sort
+
+    x, _, _ = data
+    base = x[:8000].cpu().numpy()
+    cfg = HnswConfig(M=16, ef_construction=64)
+
+    def build():
+        h = HnswIndex(cfg, strategy="nnd", device="cuda")
+        h.build(base)
+        return [a.cpu() for a in h.graph.adjs]
+
+    got = build()
+    # lexsort_stable reads ops/sort.py's kv_radix_sort, so swapping it there
+    # puts the union's lexsorts on the plain sort too
+    swap = {sort: dict(kv_radix_sort=sort.kv_radix_sort_plain),
+            nnd: dict(kv_radix_sort=sort.kv_radix_sort_plain,
+                      run_scatter=sort.run_scatter_plain,
+                      rp_window=nnd.rp_window_plain,
+                      nnd_pivot=nnd.nnd_pivot_plain,
+                      nnd_join=nnd.nnd_join_plain),
+            tb: dict(dedup_pairs=sort.dedup_pairs_plain,
+                     run_scatter=sort.run_scatter_plain)}
+    saved = {m: {k: getattr(m, k) for k in d} for m, d in swap.items()}
+    try:
+        for m, d in swap.items():
+            for k, v in d.items():
+                setattr(m, k, v)
+        want = build()
+    finally:
+        for m, d in saved.items():
+            for k, v in d.items():
+                setattr(m, k, v)
+    assert len(got) == len(want)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+

@@ -172,6 +172,8 @@ def test_chip_smoke_imports_only_the_port():
     mods += [n.module for n in ast.walk(tree)
              if isinstance(n, ast.ImportFrom) and n.module]
     assert "hnsw_slim_tpu_torch.index.slim" in mods
+    assert "hnsw_slim_tpu_torch.serve.server" in mods
+    assert "hnsw_slim_tpu_torch.serve.client" in mods
     assert not [m for m in mods if _is_reference(m)]
 
 
