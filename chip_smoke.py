@@ -53,7 +53,9 @@ Phases (one line each on stdout, the kernel table second to last):
      row for row to the build with every plain twin swapped in, Kκ / Kλ /
      Kμ / Kν against their plain versions on inputs recorded from the 1M
      build (round 2, the warm start, the level-0 union; Kκ beside
-     torch.sort(stable=True)), and the build once more under
+     torch.sort(stable=True), also on all-equal and on descending keys at
+     round 2's size, its device launches per sort counted by
+     torch.profiler), and the build once more under
      torch.profiler (device time by kernel group, host the rest);
   7. each kernel and each kernel mode against its plain PyTorch version on
      the card: Kε, Kβ in build mode, Kγ and Kζ on one 4096-insert batch
@@ -85,8 +87,9 @@ Phases (one line each on stdout, the kernel table second to last):
      nothing repaired and after the replace batch, whose update re-runs the
      connectivity repair; IncrementalSlimZero.full and one update with
      its floor, cap and hierarchy invariants; and Kθ row_deg on the 1M
-     level-0 adjacency, Kι kv_sort on a build batch's and an update
-     batch's edge list (beside torch.sort(stable=True)), and Kζ + Kγ on one
+     level-0 adjacency, Kι (Kκ's ids mode) on a build batch's and an
+     update batch's edge list, with payload and key-only (beside
+     torch.sort(stable=True)), and Kζ + Kγ on one
      recorded collect-mode apply, against their plain versions;
   9. union and sharded serving, with its own launch counts, on phase 2's
      data and ground truth: 4 round-robin shards of N / 4 points (the
@@ -144,8 +147,6 @@ ROUTES = {  # kernel: (source, the JAX program it replaces)
                    "hnsw_slim_tpu/quant/rotator.py:41"),
     "row_deg": ("hnsw_slim_tpu_torch/csrc/row_deg.cu",
                 "hnsw_slim_tpu/index/hnsw.py:39"),
-    "kv_sort": ("hnsw_slim_tpu_torch/csrc/kv_sort.cu",
-                "hnsw_slim_tpu/graph/revconn.py:90"),
     "point_dist": ("hnsw_slim_tpu_torch/csrc/point_dist.cu",
                    "hnsw_slim_tpu/ops/distance.py:63"),
     "shard_merge": ("hnsw_slim_tpu_torch/csrc/shard_merge.cu",
@@ -188,16 +189,18 @@ MODE_ROUTES = {  # kernel mode: (kernel, the JAX code that mode replaces)
     "point_dist.bf16": ("point_dist", "hnsw_slim_tpu/ops/distance.py:76"),
     "run_scatter.dedup": ("run_scatter", "hnsw_slim_tpu/graph/build.py:233"),
     "nnd_cand.join": ("nnd_cand", "hnsw_slim_tpu/graph/nnd.py:179"),
+    # Kι: the insert apply's three edge sorts on Kκ's ids map
+    "radix_sort.ids": ("radix_sort", "hnsw_slim_tpu/graph/revconn.py:90"),
 }
 INSERT_PATH = ("topk_dist", "beam_search", "rng_prune", "greedy_descent",
-               "rev_connect", "kv_sort")
-UPDATE_PATH = ("row_deg", "kv_sort", "rev_connect", "rng_prune",
+               "rev_connect", "radix_sort.ids")
+UPDATE_PATH = ("row_deg", "radix_sort.ids", "rev_connect", "rng_prune",
                "beam_search", "greedy_descent", "topk_dist")
 UPD_BATCH = 1000  # vectors per update batch (the paper's Table 4)
 SERVER_PATH = ("radix_sort", "run_scatter", "run_scatter.dedup", "nnd_cand",
                "nnd_cand.join", "rp_window", "cand_merge", "rng_prune",
                "topk_dist", "point_dist", "row_deg", "beam_search",
-               "beam_search.filtered", "greedy_descent", "kv_sort",
+               "beam_search.filtered", "greedy_descent", "radix_sort.ids",
                "rev_connect")
 QUERY_PATH = ("topk_dist", "beam_search", "greedy_descent", "rng_prune",
               "topk_dist.strata", "beam_search.chal", "beam_search.rank",
@@ -213,8 +216,8 @@ SHARDS = 4  # round-robin shards of phase 9 (4 x 250,000 at 1M)
 HTTP_PROCS = 4  # client processes of the 64-thread /query run
 SHARD_PATH = ("topk_dist", "topk_dist.strata", "beam_search",
               "beam_search.chal", "greedy_descent", "greedy_descent.chal",
-              "greedy_descent.rank", "rng_prune", "rev_connect", "kv_sort",
-              "point_dist", "shard_merge", "topk_dist.bf16",
+              "greedy_descent.rank", "rng_prune", "rev_connect",
+              "radix_sort.ids", "point_dist", "shard_merge", "topk_dist.bf16",
               "beam_search.bf16", "greedy_descent.bf16", "rng_prune.bf16",
               "point_dist.bf16")
 KM_PAIR = "topk_dist k=1 (KMeans assignment)"
@@ -260,6 +263,40 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     fp32 operations over the card's fp32 rate."""
     tb, to = nbytes / HBM_BPS * 1e3, flops / FP32_FLOPS * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def sweep_bound(e: int, key_bits: int, payload: bool = True) -> float:
+    """ms of Kκ's own traffic at the card's memory rate: 4 B an element for
+    its histogram launch, then 16 B an element (8 B key-only) for each of
+    its ceil(key_bits / 8) digit passes."""
+    return e * (4 + -(-key_bits // 8) * (16 if payload else 8)) / HBM_BPS * 1e3
+
+
+def sort_launches(fn, key_bits: int) -> dict:
+    """The device kernels one call of a Kκ sort launched, by name
+    (torch.profiler's device events, after a warm-up call); checks that they
+    are Kκ's histogram launch and one launch per 8-bit digit, and nothing
+    else. Empty without a card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        return {}
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {}
+    for evt in prof.key_averages():
+        if "CUDA" in str(getattr(evt, "device_type", "")):
+            key = "hist_kernel" if "hist_kernel" in evt.key else \
+                "pass_kernel" if "pass_kernel" in evt.key else evt.key
+            names[key] = names.get(key, 0) + evt.count
+    want = {"hist_kernel": 1, "pass_kernel": -(-key_bits // 8)}
+    check(names == want, f"a Kκ sort launched {names}, not {want}")
+    return names
 
 
 def recall(ids, gt) -> float:
@@ -948,7 +985,7 @@ def plain_nnd_twins():
 
 
 PROFILE_GROUPS = (  # (group, regex over a kernel's demangled name)
-    ("sorts: Kκ radix_sort", r"hist_kernel|scan_kernel\(|scatter_kernel\(unsigned"),
+    ("sorts: Kκ radix_sort", r"hist_kernel|pass_kernel"),
     ("sorts: Kμ run_scatter", r"scatter_kernel\(int|dedup_kernel"),
     ("sorts: Kλ nnd_cand", r"pivot_kernel|join_kernel"),
     ("sorts: Kν rp_window", r"window_kernel"),
@@ -1065,7 +1102,7 @@ def server_phase(base, queries, gt, hcfg, make_cfg, report, dev) -> tuple:
     import torch
 
     from hnsw_slim_tpu_torch.graph import build as tb
-    from hnsw_slim_tpu_torch.graph import nnd
+    from hnsw_slim_tpu_torch.graph import nnd, revconn
     from hnsw_slim_tpu_torch.index.hnsw import HnswIndex
     from hnsw_slim_tpu_torch.ops import cuda, sort
     from hnsw_slim_tpu_torch.persist import patch as patchlib
@@ -1318,17 +1355,43 @@ def server_phase(base, queries, gt, hcfg, make_cfg, report, dev) -> tuple:
                          3),
         library_ms=cuda_ms(lambda: src[torch.sort(tgt_s, stable=True)[1]],
                            3),
-        bound=bound(e_ * 16, 0))
+        bound=bound(e_ * 16, 0), sweep_bound_ms=sweep_bound(e_, bits),
+        device_launches=sort_launches(
+            lambda: sort.kv_radix_sort(tgt_s, src, bits), bits))
     check(report["radix_sort"]["agree"] == 1.0,
           "radix_sort differs from its plain version on the reverse edges")
+    # the same E with all keys equal (one digit run through every tile: the
+    # longest look-back chain) and with strictly descending keys
+    adversarial = {}
+    for what, keys_, bits_ in (
+            ("all equal", torch.full_like(tgt_s, nn // 2), bits),
+            ("descending", torch.arange(e_ - 1, -1, -1, dtype=torch.int32,
+                                        device=dev), e_.bit_length())):
+        ak_, ap_ = sort.kv_radix_sort(keys_, src, bits_)
+        pk_, pp_ = sort.kv_radix_sort_plain(keys_, src, bits_)
+        adversarial[what] = dict(
+            E=e_, key_bits=bits_,
+            equal=bool(torch.equal(ak_, pk_) and torch.equal(ap_, pp_)),
+            ms=cuda_ms(lambda: sort.kv_radix_sort(keys_, src, bits_), 3),
+            library_ms=cuda_ms(
+                lambda: src[torch.sort(keys_, stable=True)[1]], 3),
+            sweep_bound_ms=sweep_bound(e_, bits_))
+        say(f"kernel radix_sort on {what} keys: "
+            f"{json.dumps(adversarial[what])}")
+        check(adversarial[what]["equal"], f"radix_sort differs from its "
+                                          f"plain version on {what} keys")
+        del ak_, ap_, pk_, pp_, keys_
+    report["radix_sort"]["adversarial"] = adversarial
     # the warm start's f32 keys and the level-0 union's lexsorts
     proj, rp_valid, w, rnd = rec.rec["rp"]
     iota = torch.arange(nn, dtype=torch.int32, device=dev)
     key0 = torch.where(iota < rp_valid, proj[:, 0], float("inf")).contiguous()
-    fk, fo = sort.kv_radix_sort(key0, iota, 32, float_keys=True)
-    pfk, pfo = sort.kv_radix_sort_plain(key0, iota, 32, float_keys=True)
-    f_ms = cuda_ms(lambda: sort.kv_radix_sort(key0, iota, 32, True), 10)
+    fk, fo = sort.kv_radix_sort(key0, iota, 32, "f32")
+    pfk, pfo = sort.kv_radix_sort_plain(key0, iota, 32, "f32")
+    f_ms = cuda_ms(lambda: sort.kv_radix_sort(key0, iota, 32, "f32"), 10)
     f_lib = cuda_ms(lambda: torch.sort(key0, stable=True), 10)
+    f_launch = sort_launches(
+        lambda: sort.kv_radix_sort(key0, iota, 32, "f32"), 32)
     sel, d_sel, w_union = rec.rec["union"]
     ku, kc = tb.mutual_union(sel, d_sel, w_union=w_union)
     with plain_nnd_twins():
@@ -1339,14 +1402,28 @@ def server_phase(base, queries, gt, hcfg, make_cfg, report, dev) -> tuple:
     eq_f = torch.equal(fo, pfo) and torch.equal(fk.view(torch.int32),
                                                 pfk.view(torch.int32))
     eq_u = torch.equal(ku, pu) and torch.equal(kc, pc)
+    # Kι's device launches at a 4096-insert build batch's shape (E = 4096 M
+    # ids below n and its key bits, the ids map), counted here: on the card
+    # a profiler session in the update phase, after the profiled build
+    # below, saw no device events at all
+    e_i = min(e_, 4096 * hcfg.M)
+    ids_k, ids_p = tgt_s[:e_i].contiguous(), src[:e_i].contiguous()
+    report["radix_sort"]["ids_launches"] = dict(
+        E=e_i, key_bits=bits, launches=sort_launches(
+            lambda: revconn.kv_sort(ids_k, ids_p, nn), bits))
+    report["radix_sort"]["f32"] = dict(
+        E=nn, ms=f_ms, library_ms=f_lib, equal=bool(eq_f),
+        bound_ms=bound(nn * 16, 0)[0], sweep_bound_ms=sweep_bound(nn, 32),
+        device_launches=f_launch)
     report["radix_sort"]["shapes"] = (
         f"E {e_} (target, source) pairs of NND round 2, {bits}-bit keys, "
-        f"{passes} passes (the radix form itself moves {passes} x 20 B an "
-        f"element: {bound(passes * e_ * 20, 0)[0]:.4f} ms); rp_init's f32 "
-        f"keys E {nn} (4 passes): {f_ms:.4f} ms vs torch.sort {f_lib:.4f} "
-        f"ms, equal {eq_f}; the level-0 mutual_union (E {2 * sel.numel()}, "
-        f"two lexsorts, dedup, scatter, counts): {u_ms:.4f} ms vs the plain "
-        f"twins {u_plain:.4f} ms, rows and counts equal {eq_u}")
+        f"1 + {passes} launches (the one-sweep form moves 4 + {passes} x 16 "
+        f"B an element: {sweep_bound(e_, bits):.4f} ms); rp_init's f32 "
+        f"keys E {nn} (1 + 4 launches): {f_ms:.4f} ms vs torch.sort "
+        f"{f_lib:.4f} ms, equal {eq_f}; the level-0 mutual_union (E "
+        f"{2 * sel.numel()}, two lexsorts, dedup, scatter, counts): "
+        f"{u_ms:.4f} ms vs the plain twins {u_plain:.4f} ms, rows and counts "
+        f"equal {eq_u}")
     check(eq_f and eq_u, "radix_sort on f32 keys or the mutual union "
                          "differs from its plain version")
 
@@ -1411,7 +1488,7 @@ def server_phase(base, queries, gt, hcfg, make_cfg, report, dev) -> tuple:
     # Kν on the warm start's four orders
     orders = torch.stack([sort.kv_radix_sort(
         torch.where(iota < rp_valid, proj[:, p], float("inf")).contiguous(),
-        iota, 32, float_keys=True)[1] for p in range(proj.shape[1])])
+        iota, 32, "f32")[1] for p in range(proj.shape[1])])
     kw_ = nnd.rp_window(orders, rnd, rp_valid, w)
     report["rp_window"] = dict(
         agree=float(torch.equal(kw_, nnd.rp_window_plain(orders, rnd,
@@ -1496,15 +1573,16 @@ def main() -> int:
                                        "append_kernel", "degree_kernel",
                                        "rows_kernel", "write_kernel",
                                        "fht_kernel", "g_tables_kernel",
-                                       "row_deg_kernel", "sort_tile_kernel",
-                                       "global_step_kernel",
-                                       "merge_tile_kernel", "point_kernel",
-                                       "hist_kernel", "scan_kernel",
+                                       "row_deg_kernel", "point_kernel",
+                                       "hist_kernel", "pass_kernel",
                                        "scatter_kernel", "dedup_kernel",
                                        "pivot_kernel", "join_kernel",
                                        "window_kernel")
                            if k in fn), "?")
-            if "ILb1E" in fn:  # the quantized / estimate instantiation
+            if kernel in ("hist_kernel", "pass_kernel") and "_kernelI" in fn:
+                # Kκ's instantiations: <digit map, payload>
+                kernel += "<" + fn.split("_kernelI", 1)[1].split("EEv")[0] + ">"
+            elif "ILb1E" in fn:  # the quantized / estimate instantiation
                 kernel += "<quant>"
             if "nv_bfloat16" in fn:  # the bfloat16-row instantiation
                 kernel += "<bf16>"
@@ -1986,7 +2064,8 @@ def main() -> int:
                                                     value=-1)
         deg[a_ids.long()] = cnt
 
-    us, ps = revconn.reverse_edges(a_ids, sel)
+    n_rows = adj0.shape[0]  # the ids map's node bound, as apply_insert
+    us, ps = revconn.reverse_edges(a_ids, sel, n_rows)
     pre_a, pre_d = adj0.clone(), deg0.clone()
     forward(pre_a, pre_d)
     ak, dk = pre_a.clone(), pre_d.clone()
@@ -1996,7 +2075,7 @@ def main() -> int:
     z_eq = [bool(torch.equal(ovf_k, ovf_p)), bool(torch.equal(ak, pa)),
             bool(torch.equal(dk, pdg))]
     of_u, of_p, ut, of_e, of_tc = revconn.overflow_targets(us, ps, ovf_k,
-                                                           kw["of_t"])
+                                                           kw["of_t"], n_rows)
     bk, ck = revconn.overflow_rows(ak, of_u, of_p, ut, kw["new_w"])
     bp, cp = revconn.overflow_rows_plain(pa, of_u, of_p, ut, kw["new_w"])
     z_eq += [bool(torch.equal(bk, bp)), bool(torch.equal(ck, cp))]
@@ -2026,7 +2105,8 @@ def main() -> int:
             evs[0].record()
             o = app(a, g, us, ps)
             evs[1].record()
-            fu, fp, tt, _, _ = revconn.overflow_targets(us, ps, o, kw["of_t"])
+            fu, fp, tt, _, _ = revconn.overflow_targets(us, ps, o, kw["of_t"],
+                                                        n_rows)
             evs[2].record()
             rows(a, fu, fp, tt, kw["new_w"])
             evs[3].record()
@@ -2082,7 +2162,20 @@ def main() -> int:
     err_seed = float((sd - psd[:, :32]).abs().max())
     seed_ms = cuda_ms(lambda: bf.topk_dist(qall, up_vecs, up_vn, 32,
                                            row_ids=up_ids))
+    # the two-call composite torch.cdist(q, x).topk(k, largest=False), fp32
+    # with TF32 off, at both shapes: a yardstick, not one library call
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cdist_topk_ms = {
+            "gt": cuda_ms(lambda: torch.cdist(q512, x).topk(
+                10, largest=False)),
+            "seeds": cuda_ms(lambda: torch.cdist(qall, up_vecs).topk(
+                32, largest=False))}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
     report["topk_dist"] = dict(
+        cdist_topk_ms=cdist_topk_ms, seed_ms=seed_ms,
         agree=min(agree_gt, agree_seed), max_abs_err=max(err_gt, err_seed),
         ms=cuda_ms(lambda: bf.topk_dist(q512, x, xn, 10)),
         plain_ms=cuda_ms(lambda: bf.topk_dist_plain(q512, x, xn, 10), 1),
@@ -2675,11 +2768,11 @@ def main() -> int:
         def installed(self):
             srt, ap = revconn.kv_sort, revconn.apply_insert
 
-            def srt_w(keys, payload=None):
+            def srt_w(keys, payload=None, n=None):
                 if self.sort_in is None and payload is not None and \
                         len(keys) == UPD_BATCH * hcfg.M:
-                    self.sort_in = (keys.clone(), payload.clone())
-                return srt(keys, payload)
+                    self.sort_in = (keys.clone(), payload.clone(), n)
+                return srt(keys, payload, n)
 
             def ap_w(adj, deg, vecs, vn, a_ids, cand, **kw):
                 if self.apply_in is None and kw["of_t"] == 16384:
@@ -2938,23 +3031,29 @@ def main() -> int:
     check(bool(torch.equal(kdeg, pdeg)),
           f"row_deg differs from its plain version: {report['row_deg']}")
 
-    # Kι on a build batch's reverse-edge list (the recorded 4096-insert
-    # batch's forward selection) and on an update batch's
-    def sort_pair(what, keys, payload):
-        ku, kp = revconn.kv_sort(keys, payload)
+    # Kι (Kκ's ids map) on a build batch's reverse-edge list (the recorded
+    # 4096-insert batch's forward selection) and on an update batch's
+    def sort_pair(what, keys, payload, n_ids):
+        bits_ = max(1, n_ids.bit_length())
+        ku, kp = revconn.kv_sort(keys, payload, n_ids)
         pu, pp = revconn.kv_sort_plain(keys, payload)
-        k_only, _ = revconn.kv_sort(keys)
+        k_only, _ = revconn.kv_sort(keys, None, n_ids)
         e_ = len(keys)
         part = dict(
-            what=what, E=e_,
+            what=what, E=e_, n=n_ids, key_bits=bits_,
             equal=bool(torch.equal(ku, pu) and torch.equal(kp, pp)
                        and torch.equal(k_only, pu)),
-            ms=cuda_ms(lambda: revconn.kv_sort(keys, payload), 20),
+            ms=cuda_ms(lambda: revconn.kv_sort(keys, payload, n_ids), 20),
             plain_ms=cuda_ms(lambda: revconn.kv_sort_plain(keys, payload),
                              20),
-            key_only_ms=cuda_ms(lambda: revconn.kv_sort(keys), 20),
-            bound=bound(2 * e_ * 8, 0))
-        say(f"kernel kv_sort part: {json.dumps(part)}")
+            key_only_ms=cuda_ms(lambda: revconn.kv_sort(keys, None, n_ids),
+                                20),
+            key_only_library_ms=cuda_ms(
+                lambda: torch.sort(keys, stable=True), 20),
+            bound=bound(2 * e_ * 8, 0), sweep_bound_ms=sweep_bound(e_, bits_),
+            key_only_sweep_bound_ms=sweep_bound(e_, bits_, payload=False),
+            device_launches=1 + -(-bits_ // 8))
+        say(f"kernel radix_sort.ids part: {json.dumps(part)}")
         check(part["equal"], f"kv_sort differs from torch.sort(stable=True) "
                              f"on {what}")
         return part
@@ -2962,18 +3061,25 @@ def main() -> int:
     u_b = torch.where(sel >= 0, sel, revconn.BIG).reshape(-1).contiguous()
     p_b = a_ids[:, None].expand(*sel.shape).reshape(-1).contiguous()
     s_build = sort_pair("the recorded build batch's reverse-edge list", u_b,
-                        p_b)
+                        p_b, n_rows)
     s_upd = sort_pair("an update batch's reverse-edge list", *u_rec.sort_in)
-    report["kv_sort"] = dict(
+    report["radix_sort.ids"] = dict(
         agree=1.0, max_abs_err=0.0, ms=s_build["ms"],
         plain_ms=s_build["plain_ms"], library_ms=s_build["plain_ms"],
-        bound=s_build["bound"],
-        shapes=f"E {s_build['E']} (a 4096-insert build batch, keys with "
-               f"2^30 padding): keys and payload equal to torch.sort("
-               f"stable=True), which is the plain version and the library "
-               f"call; key-only {s_build['key_only_ms']:.4f} ms; an update "
-               f"batch's list, E {s_upd['E']}: {s_upd['ms']:.4f} ms vs "
-               f"{s_upd['plain_ms']:.4f} ms")
+        bound=s_build["bound"], parts=[s_build, s_upd],
+        counted_launches=report["radix_sort"]["ids_launches"],
+        shapes=f"Kι: E {s_build['E']} (a 4096-insert build batch, ids "
+               f"below {s_build['n']} with 2^30 padding, "
+               f"{s_build['key_bits']}-bit keys): keys and payload equal to "
+               f"torch.sort(stable=True) + gather, which is the plain "
+               f"version and the library call; one-sweep traffic "
+               f"{s_build['sweep_bound_ms']:.4f} ms; key-only "
+               f"{s_build['key_only_ms']:.4f} ms vs torch.sort "
+               f"{s_build['key_only_library_ms']:.4f} ms; an update batch's "
+               f"list, E {s_upd['E']}: {s_upd['ms']:.4f} ms vs "
+               f"{s_upd['plain_ms']:.4f} ms, key-only "
+               f"{s_upd['key_only_ms']:.4f} ms vs "
+               f"{s_upd['key_only_library_ms']:.4f} ms")
 
     # Kζ and Kγ in collect mode: the recorded level-0 apply of an update
     # batch (of_t 16384, new_w 32) through the kernels and through every
@@ -3060,8 +3166,9 @@ def main() -> int:
         "plain_ms": round(report[name]["plain_ms"], 4),
         "bound_ms": round(report[name]["bound"][0], 4),
         "bound_by": report[name]["bound"][1],
-        # one PyTorch call computes row_deg's, kv_sort's, shard_merge's and
-        # point_dist's function; none computes any of the others
+        # a PyTorch sort (+ gather), or one call, computes both radix
+        # sorts', row_deg's, shard_merge's and point_dist's function; none
+        # computes any of the others
         "library_ms": None if "library_ms" not in report[name]
         else round(report[name]["library_ms"], 4),
     } for name in list(ROUTES) + list(MODE_ROUTES)]

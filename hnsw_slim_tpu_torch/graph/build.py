@@ -619,7 +619,7 @@ class HnswBuilder:
         that order while the target's row has room, else {row ∪ the first
         64 new edges in arrival order} re-pruned to the cap (Kγ). Returns
         (targets int64[U] ascending, their new rows i32[U, cap_l])."""
-        us, ps = revconn.reverse_edges(a_dev, sel)
+        us, ps = revconn.reverse_edges(a_dev, sel, adj_l.shape[0])
         us, ps = us.cpu().numpy(), ps.cpu().numpy()
         ps = ps[us < revconn.BIG]
         us = us[us < revconn.BIG]

@@ -161,7 +161,7 @@ def rp_candidates(proj, n_valid: int, w: int, rnd):
     iota = torch.arange(n, dtype=torch.int32, device=proj.device)
     orders = torch.stack([
         kv_radix_sort(torch.where(iota < n_valid, proj[:, p], INF)
-                      .contiguous(), iota, 32, float_keys=True)[1]
+                      .contiguous(), iota, 32, "f32")[1]
         for p in range(n_proj)])
     return rp_window(orders, rnd, n_valid, w)
 

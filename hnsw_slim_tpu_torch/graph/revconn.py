@@ -7,7 +7,8 @@ at one level, in the JAX program's order:
    (kernel Kγ);
 2. forward scatter of those rows and their degrees;
 3. the reverse edges u -> p, stably sorted by target u, so that a target's
-   new edges come in ascending inserter order (kernel Kι);
+   new edges come in ascending inserter order (kernel Kι: the ids map of
+   the radix sort Kκ);
 4. fitting appends at column deg[u] + rank within the target's run, and the
    degree update (kernel Kζ);
 5. the overflow edges sorted by target again and the first-of-run targets
@@ -26,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import cuda
+from ..ops.sort import kv_radix_sort
 from .heuristic import rng_prune
 
 BIG = 2**30
@@ -134,62 +136,54 @@ def write_rows(adj, deg, ut, osel, ocnt):
                     entry="rev_write_rows")
 
 
-def kv_sort_plain(keys, payload=None):
+def kv_sort_plain(keys, payload=None, n=None):
     """Plain PyTorch Kι: keys i32[E] ascending, equal keys in input order,
-    with payload i32[E] (or None) carried along. Returns (keys, payload)."""
+    with payload i32[E] (or None) carried along. Returns (keys, payload).
+    ``n`` is ignored: the ids map orders ids below n and the 2^30 padding as
+    the i32 order does."""
     out, order = torch.sort(keys, stable=True)
     return out, None if payload is None else payload[order]
 
 
-SORT_TILE = 4096  # words per shared-memory tile of csrc/kv_sort.cu
-
-
-def kv_sort(keys, payload=None):
-    """Kι (csrc/kv_sort.cu): stable ascending sort of keys i32[E] carrying
-    payload i32[E] (None: keys only). CPU tensors run ``kv_sort_plain``.
-    Returns new contiguous (keys, payload); nothing is read back."""
+def kv_sort(keys, payload=None, n=None):
+    """Kι, a mode of Kκ (csrc/radix_sort.cu): stable ascending sort of keys
+    i32[E] carrying payload i32[E] (None: keys only). With ``n`` the keys are
+    node ids below n or the 2^30 padding, sorted over n.bit_length() bits
+    (the ``radix_sort.ids`` mode); without it, any i32 keys (the signed
+    map). CPU tensors run ``kv_sort_plain``. Returns new contiguous (keys,
+    payload); nothing is read back."""
     if not keys.is_cuda:
-        return kv_sort_plain(keys, payload)
-    e = keys.shape[0]
-    cuda.require(keys, torch.int32, "keys", (e,))
-    if payload is not None:
-        cuda.require(payload, torch.int32, "payload", (e,))
-    if e > BIG:
-        raise ValueError(f"kv_sort: {e} keys (> 2^30)")
-    out_k = torch.empty_like(keys)
-    out_p = None if payload is None else torch.empty_like(payload)
-    if e:
-        e_pad = max(SORT_TILE, 1 << (e - 1).bit_length())
-        scratch = torch.empty((e_pad,), dtype=torch.int64, device=keys.device)
-        cuda.launch("kv_sort", keys.data_ptr(),
-                    None if payload is None else payload.data_ptr(), e, e_pad,
-                    scratch.data_ptr(), out_k.data_ptr(),
-                    None if payload is None else out_p.data_ptr())
-    return out_k, out_p
+        return kv_sort_plain(keys, payload, n)
+    if n is None:
+        return kv_radix_sort(keys, payload, 32, key_map="signed")
+    return kv_radix_sort(keys, payload, max(1, n.bit_length()),
+                         key_map="ids")
 
 
-def reverse_edges(a_ids, sel):
+def reverse_edges(a_ids, sel, n=None):
     """The reverse-edge list of forward rows sel i32[P, M] (-1 padded) of
     inserted nodes a_ids i32[P], stably sorted by target: (us i32[E],
-    ps i32[E]), padding targets 2^30 last."""
+    ps i32[E]), padding targets 2^30 last. ``n`` bounds the node ids (the
+    ids map of ``kv_sort``)."""
     p_rows, m = sel.shape
     u = torch.where(sel >= 0, sel, BIG).reshape(-1)
     p = a_ids[:, None].expand(p_rows, m).reshape(-1)
-    return kv_sort(u.contiguous(), p.contiguous())
+    return kv_sort(u.contiguous(), p.contiguous(), n)
 
 
-def overflow_targets(us, ps, ovf, of_t: int):
+def overflow_targets(us, ps, ovf, of_t: int, n=None):
     """Overflow edges in target order and the first of_t overflow targets in
-    ascending id order (padding 2^30). Returns (of_u, of_p, ut, of_edges,
-    of_targets) — the last two are device scalars."""
+    ascending id order (padding 2^30; ``n`` as in ``reverse_edges``).
+    Returns (of_u, of_p, ut, of_edges, of_targets) — the last two are device
+    scalars."""
     of_edges = ovf.sum(dtype=torch.int32)
-    of_u, of_p = kv_sort(torch.where(ovf, us, BIG), ps)
+    of_u, of_p = kv_sort(torch.where(ovf, us, BIG), ps, n)
     valid = of_u < BIG
     first = valid.clone()
     first[1:] &= of_u[1:] != of_u[:-1]
     of_targets = first.sum(dtype=torch.int32)
     t = min(of_t, us.shape[0])
-    ut = kv_sort(torch.where(first, of_u, BIG))[0][:t].contiguous()
+    ut = kv_sort(torch.where(first, of_u, BIG), None, n)[0][:t].contiguous()
     return of_u, of_p, ut, of_edges, of_targets
 
 
@@ -209,9 +203,10 @@ def apply_insert(adj, deg, vecs, vn, a_ids, cand, *, M: int, cap: int,
     rows = a_ids.long()
     adj[rows] = torch.nn.functional.pad(sel, (0, cap - M), value=-1)
     deg[rows] = cnt
-    us, ps = reverse_edges(a_ids, sel)
+    us, ps = reverse_edges(a_ids, sel, adj.shape[0])
     ovf = rev_append(adj, deg, us, ps)
-    of_u, of_p, ut, of_edges, of_targets = overflow_targets(us, ps, ovf, of_t)
+    of_u, of_p, ut, of_edges, of_targets = overflow_targets(us, ps, ovf, of_t,
+                                                            adj.shape[0])
     base, ocand = overflow_rows(adj, of_u, of_p, ut, new_w)
     osel, ocnt = rng_prune(
         vecs, vn, base, ocand, torch.full((ut.shape[0],), cap,

@@ -13,8 +13,9 @@ Every C entry point returns ``cudaGetLastError()`` after its launches;
 wrapper calls that launched it, and per kernel mode (``kernel.mode``: a fetch
 form, the filtered beam, stratified seeds, the guarded prune, the quantized
 scorers and the rerank track of SlimQ, ``bf16`` for rows read from a
-bfloat16 vector store, the dedup mode of the run scatter and the join mode
-of the NN-descent candidates) the launches made in that mode:
+bfloat16 vector store, the dedup mode of the run scatter, the join mode
+of the NN-descent candidates and the ids map of the radix sort) the
+launches made in that mode:
 ``reset_launches`` before a run and read the counts after it to show which
 kernels and modes the run went through.
 """
@@ -36,7 +37,7 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("topk_dist.cu", "beam_search.cu", "rng_prune.cu", "cand_merge.cu",
            "greedy_descent.cu", "rev_connect.cu", "fht_rotate.cu",
-           "row_deg.cu", "kv_sort.cu", "point_dist.cu", "shard_merge.cu",
+           "row_deg.cu", "point_dist.cu", "shard_merge.cu",
            "radix_sort.cu", "run_scatter.cu", "nnd_cand.cu", "rp_window.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
@@ -46,7 +47,7 @@ NVCC_FLAGS = (
 
 KERNELS = ("topk_dist", "beam_search", "rng_prune", "cand_merge",
            "greedy_descent", "rev_connect", "fht_rotate", "row_deg",
-           "kv_sort", "point_dist", "shard_merge", "radix_sort",
+           "point_dist", "shard_merge", "radix_sort",
            "run_scatter", "nnd_cand", "rp_window")
 MODES = ("topk_dist.strata", "beam_search.chal", "beam_search.rank",
          "beam_search.filtered", "greedy_descent.chal", "greedy_descent.rank",
@@ -54,7 +55,7 @@ MODES = ("topk_dist.strata", "beam_search.chal", "beam_search.rank",
          "beam_search.quant_ex", "beam_search.rerank", "greedy_descent.quant",
          "fht_rotate.g_tables", "topk_dist.bf16", "beam_search.bf16",
          "greedy_descent.bf16", "rng_prune.bf16", "point_dist.bf16",
-         "run_scatter.dedup", "nnd_cand.join")
+         "run_scatter.dedup", "nnd_cand.join", "radix_sort.ids")
 launches = dict.fromkeys(KERNELS + MODES, 0)
 
 P, I32, I64, F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -119,8 +120,6 @@ _SIGNATURES = {
     "hs_rev_write_rows": [P, P, I32, P, I32, P, P, P],
     # a, N, cap, deg, stream
     "hs_row_deg": [P, I32, I32, P, P],
-    # keys, payload, E, E_pad, scratch, keys_out, payload_out, stream
-    "hs_kv_sort": [P, P, I32, I32, P, P, P, P],
     # q, qn, x, xn, ids, B, W, D, metric, diff, out, stream
     "hs_point_dist": [P, P, P, P, P, I32, I32, I32, I32, I32, P, P],
     # d, ids, shard stride, query stride, gid, gid stride, hops, dcomp,
@@ -128,9 +127,9 @@ _SIGNATURES = {
     # out_dcomp, stream
     "hs_shard_merge": [P, P, I64, I64, P, I64, P, P, I64, I64, I32, I32, I32,
                        P, P, P, P, P],
-    # keys, payload, E, key_bits, float_keys, keys_out, payload_out,
-    # keys_tmp, payload_tmp, counts, totals, stream
-    "hs_radix_sort": [P, P, I32, I32, I32, P, P, P, P, P, P, P],
+    # keys, payload, E, key_bits, key_map, keys_out, payload_out,
+    # keys_tmp, payload_tmp, lookback, bases, accumulator, stream
+    "hs_radix_sort": [P, P, I32, I32, I32, P, P, P, P, P, P, P, P],
     # keys, payload, E, n, R, n_valid, rows, stream
     "hs_run_scatter": [P, P, I32, I32, I32, I32, P, P],
     # keys, vals, E, n, out, stream

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""The 1M insertion build with the hand-written sort (Kι, csrc/kv_sort.cu)
-against the same build with torch.sort(stable=True) in its place, in one
-process on one card, in turns (kernel, library, library, kernel) after one
-warm-up build.
+"""The 1M insertion build with the hand-written sort (Kι: the ids map of
+Kκ, csrc/radix_sort.cu) against the same build with torch.sort(stable=True)
+in its place, in one process on one card, in turns (kernel, library,
+library, kernel) after one warm-up build.
 
     python3 scripts/insert_build_sort_ab.py [--n 1000000]
 
 Prints the card, then per build its seconds, the build's phase split and
-the kv_sort launches, then one JSON line with both means. The two graphs
-must be equal: the sort's result is the same either way.
+the launches of the sort's ids mode, then one JSON line with both means.
+The two graphs must be equal: the sort's result is the same either way.
 """
 
 from __future__ import annotations
@@ -66,7 +66,8 @@ def main() -> int:
             "sort": which, "build_s": round(dt, 3),
             "split_s": {k: round(v, 3)
                         for k, v in h.build_stats["phase_s"].items()},
-            "kv_sort_launches": cuda.launches["kv_sort"]}), flush=True)
+            "radix_sort.ids_launches": cuda.launches["radix_sort.ids"]}),
+              flush=True)
         return dt, h.graph.adjs[0]
 
     build("kernel")  # warm-up: allocator, kernels loaded

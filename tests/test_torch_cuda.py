@@ -640,7 +640,8 @@ def test_slimq_search_on_card(data, slimq_index):
     assert (back.search(qs, 10)[1] == outs[(0, True)]).all()
 
 
-# ---- the update path: Kθ row_deg, Kι kv_sort, collect-mode applies
+# ---- the update path: Kθ row_deg, Kι kv_sort (Kκ's ids map), collect-mode
+# applies
 
 
 @pytest.mark.parametrize("n,cap", [(0, 60), (1, 60), (1000, 30), (4097, 60),
@@ -669,10 +670,12 @@ def test_row_deg_kernel_matches_plain(n, cap):
 @pytest.mark.parametrize("keys", ["ties", "equal", "padding", "spread",
                                   "negative"])
 def test_kv_sort_kernel_matches_plain(e, keys):
-    """Kι against torch.sort(stable=True): keys and payload exactly equal
-    for sizes that are 0, 1, a tile, not a power of two and beyond one
-    tile, with many ties, all keys equal, all keys the 2^30 padding, keys
-    spread over [0, 2^30] and negative keys; and the key-only form."""
+    """Kι (Kκ's ids map with n, its signed map without) against
+    torch.sort(stable=True): keys and payload exactly equal for sizes that
+    are 0, 1, a tile, not a power of two and beyond one tile, with many
+    ties, all keys equal, all keys the 2^30 padding, keys spread over
+    [0, 2^30] and negative keys (signed map only); and the key-only
+    form."""
     from hnsw_slim_tpu_torch.graph import revconn
 
     if not torch.cuda.is_available():
@@ -692,12 +695,68 @@ def test_kv_sort_kernel_matches_plain(e, keys):
                                             device="cuda", dtype=torch.int32)
     p = torch.randint(0, 10**6, (e,), generator=g, device="cuda",
                       dtype=torch.int32)
-    ku, kp = revconn.kv_sort(u, p)
-    k_only, none = revconn.kv_sort(u)
-    torch.cuda.synchronize()
+    # the node count the ids map is given: ids below it, 2^30 the padding
+    n = {"ties": 40, "equal": 8, "padding": 2, "spread": revconn.BIG}.get(keys)
     pu, pp = revconn.kv_sort_plain(u, p)
-    assert torch.equal(ku, pu) and torch.equal(kp, pp)
-    assert torch.equal(k_only, pu) and none is None
+    for n_ in (None, n) if n else (None,):
+        ku, kp = revconn.kv_sort(u, p, n_)
+        k_only, none = revconn.kv_sort(u, None, n_)
+        torch.cuda.synchronize()
+        assert torch.equal(ku, pu) and torch.equal(kp, pp), n_
+        assert torch.equal(k_only, pu) and none is None, n_
+
+
+@pytest.mark.parametrize("case", ["equal", "descending", "odd_offset",
+                                  "ids_padding"])
+@pytest.mark.parametrize("with_payload", [True, False])
+def test_radix_sort_maps_match_torch_sort(case, with_payload):
+    """Kκ's u32, signed, f32 and ids maps, with payload and key-only, at
+    2^21 + 3 elements (257 tiles, the last one partial) against
+    torch.sort(stable=True) + gather, exactly equal: all keys equal (one
+    digit run through every tile: the longest look-back chain), strictly
+    descending keys, views at an odd element offset (no 16-byte aligned
+    start), and ids below N = 10^6 with a 25% share of 2^30 padding."""
+    from hnsw_slim_tpu_torch.ops import sort
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    e = 2**21 + 3
+    g = torch.Generator(device="cuda").manual_seed(e)
+
+    def rand(lo, hi, size=e):
+        return torch.randint(lo, hi, (size,), generator=g, device="cuda",
+                             dtype=torch.int32)
+
+    p = rand(0, 10**6, e + 3)[3:] if case == "odd_offset" else rand(0, 10**6)
+    if case == "equal":
+        runs = [(torch.full((e,), 12345, dtype=torch.int32, device="cuda"),
+                 m, b) for m, b in (("u32", 14), ("signed", 32),
+                                    ("ids", 20))]
+    elif case == "descending":
+        desc = torch.arange(e - 1, -1, -1, dtype=torch.int32, device="cuda")
+        runs = [(desc, "u32", 22), (desc - e // 2, "signed", 32),
+                (desc, "ids", e.bit_length()),
+                (desc.float() / 7 - 1000, "f32", 32)]
+    elif case == "odd_offset":
+        w = rand(-(2**31), 2**31 - 1, e + 1)[1:]
+        f = (rand(-50, 50, e + 1).float() / 4)[1:]
+        runs = [(w, "u32", 32), (w, "signed", 32), (f, "f32", 32)]
+    else:
+        ids = rand(0, 10**6)
+        ids[torch.rand((e,), generator=g, device="cuda") < 0.25] = 2**30
+        runs = [(ids, "ids", (10**6).bit_length())]
+    pay = p if with_payload else None
+    for keys, key_map, bits in runs:
+        assert keys.is_contiguous() and p.is_contiguous()
+        ku, kp = sort.kv_radix_sort(keys, pay, bits, key_map=key_map)
+        torch.cuda.synchronize()
+        pu, pp = sort.kv_radix_sort_plain(keys, pay, bits, key_map=key_map)
+        assert torch.equal(ku.view(torch.int32), pu.view(torch.int32)), \
+            key_map
+        if with_payload:
+            assert torch.equal(kp, pp), key_map
+        else:
+            assert kp is None
 
 
 def test_collect_mode_apply_matches_plain(data, insert_index):
@@ -709,6 +768,7 @@ def test_collect_mode_apply_matches_plain(data, insert_index):
     from hnsw_slim_tpu_torch.graph import heuristic, revconn
     from hnsw_slim_tpu_torch.index import bruteforce as bf
     from hnsw_slim_tpu_torch.index.hnsw import _row_deg
+    from hnsw_slim_tpu_torch.ops import cuda
 
     x, xn, _ = data
     h, _ = insert_index
@@ -726,7 +786,9 @@ def test_collect_mode_apply_matches_plain(data, insert_index):
     adj_k = torch.as_tensor(_compact_rows(adj_k.cpu().numpy()), device="cuda")
     adj_p = adj_k.clone()
     deg_k, deg_p = _row_deg(adj_k), _row_deg(adj_p)
+    cuda.reset_launches()
     ek, tk = revconn.apply_insert(adj_k, deg_k, x, xn, a_ids, cand, **kw)
+    assert cuda.launches["radix_sort.ids"] == 3  # Kι's three sorts
     names = ("rng_prune", "kv_sort", "rev_append", "overflow_rows",
              "write_rows")
     real = {k: getattr(revconn, k) for k in names}
@@ -782,7 +844,7 @@ def test_add_points_and_update_round_on_card(data):
     touched = h.add_points(base[19000:])
     g1, changed = inc.update(*args(), touched=touched)
     torch.cuda.synchronize()
-    for name in ("row_deg", "kv_sort", "rev_connect", "rng_prune",
+    for name in ("row_deg", "radix_sort.ids", "rev_connect", "rng_prune",
                  "beam_search", "greedy_descent"):
         assert cuda.launches[name] > 0, name
     assert h.graph.n == 20000 and h.graph.level.shape[0] == 32768
@@ -1165,9 +1227,9 @@ def test_radix_sort_float_keys_match_torch_sort(e):
     x = torch.where(pick == 2, -1e-7, x)
     x = torch.where(pick == 3, float("-inf"), x)
     p = torch.arange(e, dtype=torch.int32, device="cuda")
-    kx, kp = sort.kv_radix_sort(x, p, 32, float_keys=True)
+    kx, kp = sort.kv_radix_sort(x, p, 32, "f32")
     torch.cuda.synchronize()
-    px, pp = sort.kv_radix_sort_plain(x, p, 32, float_keys=True)
+    px, pp = sort.kv_radix_sort_plain(x, p, 32, "f32")
     assert torch.equal(kp, pp)
     assert torch.equal(kx.view(torch.int32), px.view(torch.int32))
 
@@ -1221,7 +1283,7 @@ def test_nnd_cand_and_rp_window_kernels_match_plain(data, k, s_fwd, r_rev):
     iota = torch.arange(n, dtype=torch.int32, device="cuda")
     orders = torch.stack([sort.kv_radix_sort_plain(
         torch.where(iota < n_valid, proj[:, p], float("inf")), iota, 32,
-        True)[1] for p in range(4)])
+        "f32")[1] for p in range(4)])
     kc = nnd.rp_window(orders, rnd, n_valid, w)
     torch.cuda.synchronize()
     assert torch.equal(kc, nnd.rp_window_plain(orders, rnd, n_valid, w))

@@ -48,8 +48,61 @@ def test_f32_sort_key_orders_as_torch_sort(n):
     assert int(sort.f32_sort_key(torch.tensor([-0.0]))) == \
         int(sort.f32_sort_key(torch.tensor([0.0])))
     p = torch.arange(n, dtype=torch.int32)
-    sk, sp = sort.kv_radix_sort(x, p, 32, float_keys=True)
+    sk, sp = sort.kv_radix_sort(x, p, 32, "f32")
     assert torch.equal(sp.long(), want)
+
+
+def _awkward_ints(n, seed):
+    """i32 keys at both ends of the range, around zero, and many ties."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-5, 5, n)
+    pick = rng.integers(0, 6, n)
+    x[pick == 0] = -(2**31)
+    x[pick == 1] = 2**31 - 1
+    x[pick == 2] = rng.integers(-(2**31), 2**31, int((pick == 2).sum()))
+    return x.astype(np.int32)
+
+
+@pytest.mark.parametrize("n", [1, 7, 1000, 4097])
+def test_signed_sort_key_orders_as_torch_sort(n):
+    """Sorting by signed_sort_key (stable, on the u32 words) gives
+    torch.sort(stable=True)'s permutation of i32 keys, ties in input order;
+    the signed map of kv_radix_sort gives it too, with and without
+    payload."""
+    x = torch.from_numpy(_awkward_ints(n, n))
+    want = torch.sort(x, stable=True).indices
+    key = sort.signed_sort_key(x)
+    assert bool(((key >= 0) & (key < 2**32)).all())
+    assert torch.equal(torch.sort(key, stable=True).indices, want)
+    p = torch.arange(n, dtype=torch.int32)
+    sk, sp = sort.kv_radix_sort(x, p, 32, key_map="signed")
+    assert torch.equal(sp.long(), want) and torch.equal(sk, x[want])
+    ko, none = sort.kv_radix_sort(x, None, 32, key_map="signed")
+    assert torch.equal(ko, sk) and none is None
+
+
+@pytest.mark.parametrize("n_nodes", [1, 2, 255, 256, 1000, 2**20])
+def test_ids_sort_key_orders_as_torch_sort(n_nodes):
+    """ids_sort_key over n.bit_length() bits on node ids below n with a 25%
+    share of the 2^30 padding: every id below the top digit value, every
+    padding word tied on it, and a stable sort by it gives
+    torch.sort(stable=True)'s permutation of the i32 keys."""
+    rng = np.random.default_rng(n_nodes)
+    e = 3000
+    x = rng.integers(0, n_nodes, e).astype(np.int32)
+    x[rng.random(e) < 0.25] = 2**30
+    x[:3] = [n_nodes - 1, 0, 2**30]
+    t = torch.from_numpy(x)
+    bits = max(1, n_nodes.bit_length())
+    key = sort.ids_sort_key(t, bits)
+    pad = t == 2**30
+    assert bool((key[pad] == 2**bits - 1).all())
+    assert bool((key[~pad] < 2**bits - 1).all())
+    want = torch.sort(t, stable=True).indices
+    assert torch.equal(torch.sort(key, stable=True).indices, want)
+    sk, sp = sort.kv_radix_sort(t, torch.arange(e, dtype=torch.int32), bits,
+                                key_map="ids")
+    assert torch.equal(sp.long(), want) and torch.equal(sk, t[want])
 
 
 @pytest.mark.parametrize("key_bits", [1, 11, 32])

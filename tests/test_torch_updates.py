@@ -21,6 +21,7 @@ from hnsw_slim_tpu.index import hnsw as jhnsw
 from hnsw_slim_tpu_torch.graph import build as tb
 from hnsw_slim_tpu_torch.graph import revconn
 from hnsw_slim_tpu_torch.index import hnsw as thnsw
+from hnsw_slim_tpu_torch.ops import sort
 from hnsw_slim_tpu_torch.persist.checkpoint import (load_hnsw, load_slim,
                                                     save_hnsw, save_slim)
 from torch_slice_util import (UPD_ADD, UPD_BATCH, jax_update_dir,
@@ -71,21 +72,29 @@ def test_row_deg_plain_matches_jax():
 def test_kv_sort_plain_matches_lax_sort(e, with_payload):
     """kv_sort (plain on the CPU) = lax.sort((u, p), num_keys=1): keys with
     many ties, a share of 2^30 padding keys, payload in input order within
-    a tie: exact."""
+    a tie: exact; with n (ids below n = 40), and through the ids map over
+    n.bit_length() bits that the CUDA route sorts by
+    (kv_radix_sort_plain's ids map), the same."""
     rng = np.random.default_rng(e)
     u = rng.integers(0, 40, e).astype(np.int32)
     u[rng.random(e) < 0.25] = revconn.BIG
     p = rng.integers(0, 10**6, e).astype(np.int32)
+    tu_, tp_ = torch.from_numpy(u), torch.from_numpy(p) if with_payload \
+        else None
     if with_payload:
         ju, jp = lax.sort((jnp.asarray(u), jnp.asarray(p)), dimension=0,
                           num_keys=1)
-        tu, tp = revconn.kv_sort(torch.from_numpy(u), torch.from_numpy(p))
-        np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
     else:
-        ju = lax.sort(jnp.asarray(u), dimension=0)
-        tu, tp = revconn.kv_sort(torch.from_numpy(u))
-        assert tp is None
-    np.testing.assert_array_equal(tu.numpy(), np.asarray(ju))
+        ju, jp = lax.sort(jnp.asarray(u), dimension=0), None
+    outs = [revconn.kv_sort(tu_, tp_), revconn.kv_sort(tu_, tp_, n=40),
+            sort.kv_radix_sort_plain(tu_, tp_, (40).bit_length(),
+                                     key_map="ids")]
+    for tu, tp in outs:
+        np.testing.assert_array_equal(tu.numpy(), np.asarray(ju))
+        if with_payload:
+            np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+        else:
+            assert tp is None
 
 
 def test_grow_capacity_shapes_and_padding(upd):
