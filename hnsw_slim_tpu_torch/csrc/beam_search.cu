@@ -7,8 +7,10 @@
 //
 // What bounds it: the row gathers — every candidate costs one random
 // D*4-byte vector read (512 B at d=128) plus a 4*W-byte neighbor row per pop;
-// the arithmetic (one dot per candidate) is small. Per iteration the block
-// also sorts three short arrays, which costs barrier latency.
+// the arithmetic (one dot per candidate) is small. What kept an earlier
+// design of this kernel at 27% of that bound at build shape was block-barrier
+// latency — three full bitonic sorts an iteration, about 115 barriers — and
+// one random row in flight per warp.
 //
 // Design: the query's sorted buffer of P <= 512 (distance, id, checked)
 // entries stays in shared memory for the whole search, so no HBM traffic
@@ -17,29 +19,43 @@
 //   1. warp 0 finds the E best unchecked entries within the ef_eff window
 //      that are not worse than the window's last distance (the reference's
 //      termination rule on the single best unchecked entry);
-//   2. the E neighbor rows are fetched into shared memory and bitonic-sorted;
-//      ids already in the buffer (binary search over a sorted copy of the
-//      buffer ids) and in-batch duplicates are dropped, keeping cw lanes —
-//      with the 2*cw pre-window rule when 2*cw < E*W, as in JAX;
-//   3. one warp per candidate gathers the row with 16-byte loads and
-//      computes q.x and |x|^2 (|x|^2 from the row, as the JAX scorer does);
-//   4. candidates are sorted by (distance, id) and merged into the buffer
+//   2. the E neighbor rows are read; an id already in the buffer is dropped
+//      by one probe of the buffer's id set (common.cuh set_has: open
+//      addressing in shared memory, a generation tag per slot, so the set
+//      is rebuilt by the merge of step 4 without a clearing pass). The
+//      reference keeps the first cw lanes of the sorted ids (2*cw under
+//      the pre-window rule, 2*cw < E*W): only when more lanes are left
+//      does a k-th smallest select (common.cuh select_kth: one 256-bin
+//      radix pass, then one warp over the chosen bin) cut them at that
+//      id. Repeats are dropped as they fail to enter the set, and the
+//      pre-window's pool is cut to its cw smallest by a second select.
+//      No sort, no binary search;
+//   3. each warp gathers four candidates at a time, all four rows in flight
+//      (common.cuh warp_dot_rows), and computes q.x and |x|^2 (|x|^2 from
+//      the row, as the JAX scorer does) in warp_dot's order, so every
+//      distance is bit-equal to a one-row-at-a-time dot;
+//   4. candidates are sorted by (distance, id) (strides under 32 in
+//      registers, common.cuh sort_pairs_shfl) and merged into the buffer
 //      by rank (each entry finds its output slot by binary search in the
 //      other list), keeping the P smallest; buffer entries precede
 //      candidates on equal distance, as JAX's stable sort merge does.
+// About 20 block barriers an iteration at build shape where the sorting
+// design waited at about 115; every result, hops and dcomp count is the
+// same.
 // The neighbor rows come through one of three fetch forms (common.cuh
 // Fetch): dense rows, rows behind a rank indirection, or CHAL slices.
 //
 // Filtered mode (allowed != nullptr, JAX FilterTrack): the block keeps a
 // second sorted list of P (distance, id), the result track, which holds
 // allowed nodes only. After scoring, candidates that are allowed and not yet
-// in the track (binary search over a sorted copy of its ids) are merged into
+// in the track (a probe of the track's id set) are merged into
 // it by rank, track entries first on equal distance. The pop bound and the
 // stop rule read the track's ef_eff-th distance instead of the buffer's, so
 // a query keeps expanding until ef_eff allowed results are held (or nothing
 // is left unchecked). The track comes in and goes out whole, so a caller can
 // carry it across levels beside the buffer. At P = 512, E = 8, W = 60 the
-// block needs 21 KB of shared memory unfiltered and 37 KB filtered.
+// block needs 38 KB of shared memory unfiltered (16 KB of it the id set)
+// and 60 KB filtered.
 //
 // Quantized mode (QUANT; JAX: index/slimq.py _slimq_search_jit's score
 // closure over pack_code_rows with quant/estimator.py est_dist_1bit /
@@ -60,24 +76,26 @@
 // a candidate with one 8-byte load a lane (256 B at d=128 instead of 512 B)
 // and widens it to fp32 in registers (common.cuh load4); the query, the
 // norms and the sums stay fp32, so every rule above is unchanged.
+#include <algorithm>
 #include <climits>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;  // select_kth needs exactly 256
 constexpr int NW = THREADS / 32;
 constexpr int MAX_POP = 64;
+constexpr int ROWS = 4;  // candidate rows a warp has in flight (step 3)
 
 template <bool QUANT, class T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 4)
 beam_kernel(const T* __restrict__ vec, int D, const hs::Fetch f,
             const hs::Quant z, const hs::PopTrack t, int Cp, int Drp, int KKp,
             const float* __restrict__ q, const float* __restrict__ qn,
             const float* __restrict__ seed_d, const int* __restrict__ seed_id,
             int S, int P, int ef_eff, int E, int cw, int max_iters, int k,
-            int metric, int Dp, int EWp, int Pp, int CWp,
+            int metric, int Dp, int EWp, int Hs, int Ht, int CWp,
             const unsigned char* __restrict__ allowed,
             const float* __restrict__ trk_d_in,
             const int* __restrict__ trk_id_in, float* __restrict__ out_d,
@@ -85,10 +103,14 @@ beam_kernel(const T* __restrict__ vec, int D, const hs::Fetch f,
             int* __restrict__ dcomp_out, float* __restrict__ trk_d_out,
             int* __restrict__ trk_id_out) {
   extern __shared__ __align__(16) unsigned char smem[];
+  // the id sets: the buffer's (and the iteration's candidates'), and in
+  // filtered mode the track's
+  unsigned long long* tab = reinterpret_cast<unsigned long long*>(smem);
+  unsigned long long* ttab = tab + Hs;
   // exact: the query (D floats). Quantized: q_rot (D = 32 nb), the g_add
   // row (Cp), and with a rerank track the raw query (Drp) and the track with
   // its double buffer (4 KKp); all three sizes are 0 when unused
-  float* qs = reinterpret_cast<float*>(smem);
+  float* qs = reinterpret_cast<float*>(ttab + Ht);
   float* ga = qs + Dp;
   float* qraw = ga + Cp;
   float* rd = qraw + Drp;
@@ -102,20 +124,21 @@ beam_kernel(const T* __restrict__ vec, int D, const hs::Fetch f,
   int* ni = reinterpret_cast<int*>(nd + P);
   int* nc = ni + P;
   int* raw = nc + P;
-  int* sb = raw + EWp;
-  float* cd = reinterpret_cast<float*>(sb + Pp);
+  int* lst = raw + EWp;
+  int* hist = lst + EWp;
+  float* cd = reinterpret_cast<float*>(hist + 256);
   int* ci = reinterpret_cast<int*>(cd + CWp);
-  // filtered mode only: the track and its double buffer, a sorted copy of
-  // its ids, and the allowed new candidates (index, distance, id)
+  // filtered mode only: the track and its double buffer, and the allowed
+  // new candidates (index, distance, id)
   float* td = reinterpret_cast<float*>(ci + CWp);
   int* ti = reinterpret_cast<int*>(td + P);
   float* ntd = reinterpret_cast<float*>(ti + P);
   int* nti = reinterpret_cast<int*>(ntd + P);
-  int* st = nti + P;
-  int* fx = st + Pp;
+  int* fx = nti + P;
   float* fd = reinterpret_cast<float*>(fx + CWp);
   int* fi = reinterpret_cast<int*>(fd + CWp);
   __shared__ int s_pos[MAX_POP], s_popid[MAX_POP], s_npop, s_scr[32];
+  __shared__ int s_sel[16], s_n, s_or, s_tk;
   __shared__ const int* s_row[MAX_POP];
   __shared__ int s_rowcnt[MAX_POP];
   __shared__ float s_ed[MAX_POP];  // the pops' exact distances (rerank)
@@ -127,7 +150,10 @@ beam_kernel(const T* __restrict__ vec, int D, const hs::Fetch f,
   const float qnv = QUANT ? z.sumq[b] : qn[b];  // quantized: sum(q_rot)
   const float qnr = (track && !metric) ? t.qn_raw[b] : 0.f;
   const bool rvec4 = hs::can_vec4(t.data, t.D);
+  const unsigned hmask = Hs - 1, tmask = Ht - 1;
   const float* qsrc = QUANT ? z.q_rot : q;
+  for (int i = tid; i < Hs + Ht; i += THREADS) tab[i] = 0ull;
+  for (int i = tid; i < 256; i += THREADS) hist[i] = 0;
   for (int i = tid; i < D; i += THREADS) qs[i] = qsrc[(size_t)b * D + i];
   if (QUANT)
     for (int i = tid; i < z.C; i += THREADS)
@@ -149,6 +175,12 @@ beam_kernel(const T* __restrict__ vec, int D, const hs::Fetch f,
       ti[j] = trk_id_in[(size_t)b * P + j];
     }
   }
+  __syncthreads();
+  // generation 1 of the sets: the seeds, the incoming track
+  for (int j = tid; j < P; j += THREADS) {
+    if (bi[j] >= 0) hs::set_insert(tab, hmask, 1u, bi[j]);
+    if (allowed && ti[j] >= 0) hs::set_insert(ttab, tmask, 1u, ti[j]);
+  }
   const int W = f.W;
   const int ew = E * W;
   const bool prewindow = E > 1 && 2 * cw < ew;
@@ -156,6 +188,7 @@ beam_kernel(const T* __restrict__ vec, int D, const hs::Fetch f,
   __syncthreads();
 
   for (int it = 0; it < max_iters; ++it) {
+    const unsigned gen = it + 1;  // the sets' generation this iteration
     // 1. pops: first E unchecked entries of the window within the bound
     if (warp == 0) {
       const float bound = allowed ? td[ef_eff - 1] : bd[ef_eff - 1];
@@ -173,7 +206,12 @@ beam_kernel(const T* __restrict__ vec, int D, const hs::Fetch f,
           if (++cnt == E) { stop = true; break; }
         }
       }
-      if (lane == 0) s_npop = cnt;
+      if (lane == 0) {
+        s_npop = cnt;
+        s_n = 0;
+        s_or = 0;
+        s_tk = 0;
+      }
     }
     __syncthreads();
     const int npop = s_npop;
@@ -223,80 +261,119 @@ beam_kernel(const T* __restrict__ vec, int D, const hs::Fetch f,
       int* xi = ri; ri = nri; nri = xi;
     }
 
-    // 2. candidate ids: fetch rows, sort, dedup, cap at cw lanes
-    for (int t = tid; t < EWp; t += THREADS) {
+    // 2. candidate ids. The reference sorts the E*W fetched ids and keeps
+    // the first cw sorted lanes (the first 2*cw under the pre-window rule)
+    // that are valid, new to the buffer and not repeats. The same set
+    // without a sort: buffer ids are dropped by a probe of the buffer's
+    // set; only when more than cw (2*cw) lanes are left does a k-th
+    // smallest select (with multiplicity, as the sorted lanes count) cut
+    // them at the cw-th (2*cw-th) smallest id; repeats are dropped as they
+    // fail to enter the set (E = 1 keeps them, as the reference does).
+    int nv = 0;
+    unsigned orv = 0;
+    for (int c = tid; c < EWp; c += THREADS) {
       int v = hs::BIG;
-      if (t < npop * W) {
-        const int p = t / W, lane_t = t - p * W;
-        const int id = lane_t < s_rowcnt[p] ? __ldg(s_row[p] + lane_t) : -1;
-        if (id >= 0) v = id;
+      if (c < npop * W) {
+        const int p = c / W, lane_c = c - p * W;
+        const int id = lane_c < s_rowcnt[p] ? __ldg(s_row[p] + lane_c) : -1;
+        if (id >= 0 && (prewindow || !hs::set_has(tab, hmask, gen, id)))
+          v = id;
       }
-      raw[t] = v;
+      raw[c] = v;
+      if (v != hs::BIG) { ++nv; orv |= v; }
     }
-    for (int j = tid; j < Pp; j += THREADS)
-      sb[j] = (j < P && bi[j] >= 0) ? bi[j] : hs::BIG;
+    nv = __reduce_add_sync(HS_FULL, nv);
+    orv = __reduce_or_sync(HS_FULL, orv);
+    if (lane == 0 && nv) {
+      atomicAdd(&s_n, nv);
+      atomicOr(&s_or, static_cast<int>(orv));
+    }
     __syncthreads();
-    hs::sort_int(sb, Pp);
-    int m;
-    if (!prewindow) {
-      for (int t = tid; t < EWp; t += THREADS) {
-        const int v = raw[t];
-        if (v != hs::BIG && hs::member(sb, P, v)) raw[t] = hs::BIG;
+    const int nbits = 32 - __clz(s_or);
+    const int lim = prewindow ? 2 * cw : cw;
+    if (s_n > lim) {
+      int tk;
+      const int cut = hs::select_kth(raw, EWp, lim, nbits, hist, lst, s_sel,
+                                     &tk);
+      for (int c = tid; c < EWp; c += THREADS) {
+        const int v = raw[c];
+        if (v != hs::BIG &&
+            (v > cut || (v == cut && E == 1 && atomicAdd(&s_tk, 1) >= tk)))
+          raw[c] = hs::BIG;
       }
       __syncthreads();
-      hs::sort_int(raw, EWp);
+    }
+    int m;
+    if (!prewindow) {
       m = hs::compact(
-          cw,
-          [&](int t, int& v) {
-            v = raw[t];
-            return v != hs::BIG && (E == 1 || t == 0 || raw[t - 1] != v);
+          EWp,
+          [&](int c, int& v) {
+            v = raw[c];
+            return v != hs::BIG &&
+                   (E == 1 || hs::set_insert(tab, hmask, gen, v));
           },
           ci, s_scr, cw);
     } else {
-      hs::sort_int(raw, EWp);
+      // the pool: the unique ids of the 2*cw smallest lanes that are not
+      // in the buffer (both fail to enter the set); then its cw smallest
+      const int u = hs::compact(
+          EWp,
+          [&](int c, int& v) {
+            v = raw[c];
+            return v != hs::BIG && hs::set_insert(tab, hmask, gen, v);
+          },
+          lst, s_scr, EWp);
+      int cut = INT_MAX, tk;
+      if (u > cw) cut = hs::select_kth(lst, u, cw, nbits, hist, raw, s_sel,
+                                       &tk);
       m = hs::compact(
-          2 * cw,
-          [&](int t, int& v) {
-            v = raw[t];
-            return v != hs::BIG && (t == 0 || raw[t - 1] != v) &&
-                   !hs::member(sb, P, v);
+          u,
+          [&](int c, int& v) {
+            v = lst[c];
+            return v <= cut;
           },
           ci, s_scr, cw);
     }
 
-    // 3. score: one warp per candidate
-    for (int c = warp; c < m; c += NW) {
-      float dist;
+    // 3. score: each warp ROWS candidates at a time, their rows in flight
+    // together
+    for (int c0 = warp * ROWS; c0 < m; c0 += NW * ROWS) {
+      const int nr = min(ROWS, m - c0);
       if (QUANT) {
-        dist = hs::quant_score(z, qs, ga, qnv, ci[c]);
+        for (int r = 0; r < nr; ++r) {
+          const float dist = hs::quant_score(z, qs, ga, qnv, ci[c0 + r]);
+          if (lane == 0) cd[c0 + r] = dist;
+        }
       } else {
-        float nrm;
-        const float dot =
-            hs::warp_dot(qs, vec + (size_t)ci[c] * D, D, vec4, &nrm);
-        dist = metric ? 1.f - dot : (qnv + nrm) - 2.f * dot;
+        const T* rows[ROWS];
+        float* const st[ROWS] = {};
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r)
+          rows[r] = vec + (size_t)ci[c0 + min(r, nr - 1)] * D;
+        float s, nrm;  // of row lane / (32 / ROWS)
+        hs::warp_dot_rows<ROWS>(qs, rows, nr, D, vec4, s, nrm, st);
+        const int r = lane / (32 / ROWS);
+        if (lane % (32 / ROWS) == 0 && r < nr)
+          cd[c0 + r] = metric ? 1.f - s : (qnv + nrm) - 2.f * s;
       }
-      if (lane == 0) cd[c] = dist;
     }
-    const int mp = hs::next_pow2(m);
+    const int mp = max(32, hs::next_pow2(m));
     for (int c = m + tid; c < mp; c += THREADS) {
       cd[c] = HS_INF;
       ci[c] = INT_MAX;
     }
     __syncthreads();
-    hs::sort_pairs(cd, ci, mp);
+    hs::sort_pairs_shfl(cd, ci, mp);
 
     // 3b. filtered mode: allowed candidates not yet in the track merge into
     // it by rank (track entries first on equal distance), P smallest kept
     if (allowed) {
-      for (int j = tid; j < Pp; j += THREADS)
-        st[j] = (j < P && ti[j] >= 0) ? ti[j] : hs::BIG;
-      __syncthreads();
-      hs::sort_int(st, Pp);
       const int fm = hs::compact(
           m,
           [&](int c, int& v) {
             v = c;
-            return allowed[ci[c]] != 0 && !hs::member(st, P, ci[c]);
+            return allowed[ci[c]] != 0 &&
+                   !hs::set_has(ttab, tmask, gen, ci[c]);
           },
           fx, s_scr, cw);
       for (int c = tid; c < fm; c += THREADS) {
@@ -306,25 +383,44 @@ beam_kernel(const T* __restrict__ vec, int D, const hs::Fetch f,
       __syncthreads();
       for (int j = tid; j < P; j += THREADS) {
         const int pos = j + hs::count_below(fd, fm, td[j]);
-        if (pos < P) { ntd[pos] = td[j]; nti[pos] = ti[j]; }
+        if (pos < P) {
+          ntd[pos] = td[j];
+          nti[pos] = ti[j];
+          if (ti[j] >= 0) hs::set_insert(ttab, tmask, gen + 1, ti[j]);
+        }
       }
       for (int c = tid; c < fm; c += THREADS) {
         const int pos = c + hs::count_at_or_below(td, P, fd[c]);
-        if (pos < P) { ntd[pos] = fd[c]; nti[pos] = fi[c]; }
+        if (pos < P) {
+          ntd[pos] = fd[c];
+          nti[pos] = fi[c];
+          hs::set_insert(ttab, tmask, gen + 1, fi[c]);
+        }
       }
       __syncthreads();
       float* xd = td; td = ntd; ntd = xd;
       int* xi = ti; ti = nti; nti = xi;
     }
 
-    // 4. merge by rank into the other buffer, keep the P smallest
+    // 4. merge by rank into the other buffer, keep the P smallest; the
+    // merged ids form the buffer's set of the next generation
     for (int j = tid; j < P; j += THREADS) {
       const int pos = j + hs::count_below(cd, m, bd[j]);
-      if (pos < P) { nd[pos] = bd[j]; ni[pos] = bi[j]; nc[pos] = bc[j]; }
+      if (pos < P) {
+        nd[pos] = bd[j];
+        ni[pos] = bi[j];
+        nc[pos] = bc[j];
+        if (bi[j] >= 0) hs::set_insert(tab, hmask, gen + 1, bi[j]);
+      }
     }
     for (int c = tid; c < m; c += THREADS) {
       const int pos = c + hs::count_at_or_below(bd, P, cd[c]);
-      if (pos < P) { nd[pos] = cd[c]; ni[pos] = ci[c]; nc[pos] = 0; }
+      if (pos < P) {
+        nd[pos] = cd[c];
+        ni[pos] = ci[c];
+        nc[pos] = 0;
+        hs::set_insert(tab, hmask, gen + 1, ci[c]);
+      }
     }
     dcomp += m;
     __syncthreads();
@@ -355,6 +451,9 @@ beam_kernel(const T* __restrict__ vec, int D, const hs::Fetch f,
   }
 }
 
+// smallest power of two that holds n ids at a load of at most 1/2
+int set_size(int n) { return hs::next_pow2(2 * (n < 1 ? 1 : n)); }
+
 template <bool QUANT, class T>
 int launch_beam(const T* vec, int D, const hs::Fetch& f,
                 const hs::Quant& z, const hs::PopTrack& t, const float* q,
@@ -369,14 +468,25 @@ int launch_beam(const T* vec, int D, const hs::Fetch& f,
   const int Cp = QUANT ? (z.C + 3) / 4 * 4 : 0;
   const int Drp = (QUANT && t.data) ? (t.D + 3) / 4 * 4 : 0;
   const int KKp = (QUANT && t.data) ? (t.kk + 3) / 4 * 4 : 0;
-  const int EWp = hs::next_pow2(E * f.W);
-  const int Pp = hs::next_pow2(P);
-  const int CWp = hs::next_pow2(cw);
-  size_t smem = sizeof(float) * (Dp + Cp + Drp + 4 * KKp) +
-                6 * sizeof(int) * P + sizeof(int) * (EWp + Pp) +
-                2 * sizeof(int) * CWp;
-  if (allowed)
-    smem += 4 * sizeof(int) * P + sizeof(int) * Pp + 3 * sizeof(int) * CWp;
+  const int ew = E * f.W;
+  const int EWp = std::max(32, hs::next_pow2(ew));
+  const int CWp = std::max(32, hs::next_pow2(cw));
+  // the buffer's set holds P buffer ids and at most min(E W, 2 cw)
+  // candidates in one generation; the track's set P ids
+  int Hs = set_size(P + std::min(ew, 2 * cw));
+  const int Ht = allowed ? set_size(P) : 0;
+  const size_t rest = sizeof(float) * (Dp + Cp + Drp + 4 * KKp) +
+                      6 * sizeof(int) * P + 2 * sizeof(int) * EWp +
+                      256 * sizeof(int) + 2 * sizeof(int) * CWp +
+                      (allowed ? 4 * sizeof(int) * P +
+                                     3 * sizeof(int) * CWp : 0);
+  const size_t cap = 227 * 1024;
+  // past the shared memory a block can have, the set runs fuller (it keeps
+  // a free slot: Hs > P + min(E W, 2 cw))
+  while (Hs > hs::next_pow2(P + std::min(ew, 2 * cw) + 1) &&
+         rest + 8 * (size_t)(Hs + Ht) > cap)
+    Hs >>= 1;
+  const size_t smem = rest + 8 * (size_t)(Hs + Ht);
   cudaError_t err = cudaFuncSetAttribute(
       beam_kernel<QUANT, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -384,7 +494,7 @@ int launch_beam(const T* vec, int D, const hs::Fetch& f,
   beam_kernel<QUANT, T><<<B, THREADS, smem,
                           static_cast<cudaStream_t>(stream)>>>(
       vec, D, f, z, t, Cp, Drp, KKp, q, qn, seed_d, seed_id, S, P, ef_eff, E,
-      cw, max_iters, k, metric, Dp, EWp, Pp, CWp, allowed, trk_d_in,
+      cw, max_iters, k, metric, Dp, EWp, Hs, Ht, CWp, allowed, trk_d_in,
       trk_id_in, out_d, out_id, hops, dcomp, trk_d_out, trk_id_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -106,15 +106,6 @@ __device__ __forceinline__ float warp_dot(const float* a, const T* b, int d,
   return warp_sum(s);
 }
 
-// Same, with both operands in shared memory.
-__device__ __forceinline__ float warp_dot_smem(const float* a, const float* b,
-                                               int d) {
-  const int lane = threadIdx.x & 31;
-  float s = 0.f;
-  for (int e = lane; e < d; e += 32) s = fmaf(a[e], b[e], s);
-  return warp_sum(s);
-}
-
 // Bitonic sort of n (a power of two) int keys, ascending.
 __device__ inline void sort_int(int* a, int n) {
   for (int k = 2; k <= n; k <<= 1) {
@@ -150,6 +141,332 @@ __device__ inline void sort_pairs(float* d, int* id, int n) {
       __syncthreads();
     }
   }
+}
+
+// One compare-exchange step of a bitonic sort held in registers: lane
+// element idx (its index in the array) and its partner idx ^ j (j < 32, in
+// the same warp) of a merge of size k; both lanes keep what the shared-memory
+// step of sort_pairs would leave at their index.
+__device__ __forceinline__ void shfl_cas(float& v, int& i, int idx, int k,
+                                         int j) {
+  const float ov = __shfl_xor_sync(HS_FULL, v, j);
+  const int oi = __shfl_xor_sync(HS_FULL, i, j);
+  const bool keep_small = ((idx & k) == 0) == ((idx & j) == 0);
+  if (keep_small ? pair_less(ov, oi, v, i) : pair_less(v, i, ov, oi)) {
+    v = ov;
+    i = oi;
+  }
+}
+
+// sort_pairs for n a power of two >= 32: the steps that compare elements
+// fewer than 32 apart run in registers with warp shuffles, so a sort of
+// 2^p pairs waits at (p - 5)(p - 4) / 2 + p - 4 block barriers instead of
+// p (p + 1) / 2. Pairs equal in both fields are interchangeable, so the
+// result is the one sort_pairs gives.
+__device__ inline void sort_pairs_shfl(float* d, int* id, int n) {
+  const int lane = threadIdx.x & 31;
+  for (int b = threadIdx.x & ~31; b < n; b += blockDim.x) {
+    const int x = b + lane;
+    float v = d[x];
+    int i = id[x];
+    for (int k = 2; k <= 32; k <<= 1)
+      for (int j = k >> 1; j > 0; j >>= 1) shfl_cas(v, i, x, k, j);
+    d[x] = v;
+    id[x] = i;
+  }
+  __syncthreads();
+  for (int k = 64; k <= n; k <<= 1) {
+    for (int j = k >> 1; j >= 32; j >>= 1) {
+      for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        const int p = i ^ j;
+        if (p > i) {
+          const float da = d[i], db = d[p];
+          const int ia = id[i], ib = id[p];
+          const bool up = (i & k) == 0;
+          const bool swap = up ? pair_less(db, ib, da, ia)
+                               : pair_less(da, ia, db, ib);
+          if (swap) { d[i] = db; d[p] = da; id[i] = ib; id[p] = ia; }
+        }
+      }
+      __syncthreads();
+    }
+    for (int b = threadIdx.x & ~31; b < n; b += blockDim.x) {
+      const int x = b + lane;
+      float v = d[x];
+      int i = id[x];
+      for (int j = 16; j > 0; j >>= 1) shfl_cas(v, i, x, k, j);
+      d[x] = v;
+      id[x] = i;
+    }
+    __syncthreads();
+  }
+}
+
+// A set of ids (>= 0) in shared memory, open addressing with linear
+// probing, emptied without a pass over it: a slot holds
+// (generation << 32 | id) and counts as empty unless its generation is the
+// caller's. A table of a power-of-two size, zeroed once, serves generation
+// 1, 2, ...; each generation's ids must leave at least one slot empty.
+__device__ __forceinline__ unsigned set_slot(int v, unsigned mask) {
+  unsigned h = static_cast<unsigned>(v) * 0x9E3779B1u;
+  return (h ^ (h >> 16)) & mask;
+}
+
+// Adds v to generation g; true if it was not there yet (safe under
+// concurrent inserts of the same generation).
+__device__ __forceinline__ bool set_insert(unsigned long long* t,
+                                           unsigned mask, unsigned g, int v) {
+  const unsigned long long want =
+      (static_cast<unsigned long long>(g) << 32) | static_cast<unsigned>(v);
+  for (unsigned s = set_slot(v, mask);; s = (s + 1) & mask) {
+    unsigned long long cur = t[s];
+    while (static_cast<unsigned>(cur >> 32) != g) {
+      const unsigned long long prev = atomicCAS(t + s, cur, want);
+      if (prev == cur) return true;
+      cur = prev;
+    }
+    if (static_cast<int>(static_cast<unsigned>(cur)) == v) return false;
+  }
+}
+
+__device__ __forceinline__ bool set_has(const unsigned long long* t,
+                                        unsigned mask, unsigned g, int v) {
+  for (unsigned s = set_slot(v, mask);; s = (s + 1) & mask) {
+    const unsigned long long cur = t[s];
+    if (static_cast<unsigned>(cur >> 32) != g) return false;
+    if (static_cast<int>(static_cast<unsigned>(cur)) == v) return true;
+  }
+}
+
+// The k-th smallest (1-based, with multiplicity) of the values of a[0, n)
+// other than BIG, all below 2^nbits; the caller ensures that more than k
+// such values exist. *tk gets how many values equal to it are among the k
+// smallest. Needs blockDim.x == 256. hist: 256 ints, zero on entry and
+// again on return; list: room for n ints; sm: 16 ints. One radix pass over
+// the top 8 of the nbits bits (a 256-bin histogram in shared memory), then
+// warp 0 resolves the low bits bit by bit over the chosen bin's values
+// alone: five block barriers in all.
+__device__ inline int select_kth(const int* a, int n, int k, int nbits,
+                                 int* hist, int* list, int* sm, int* tk) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int sh = nbits > 8 ? nbits - 8 : 0;
+  for (int i = tid; i < n; i += blockDim.x) {
+    const int v = a[i];
+    if (v != BIG) atomicAdd(hist + (v >> sh), 1);
+  }
+  __syncthreads();
+  const int c = hist[tid];
+  int incl = c;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(HS_FULL, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) sm[8 + warp] = incl;
+  __syncthreads();
+  for (int u = 0; u < warp; ++u) incl += sm[8 + u];
+  hist[tid] = 0;
+  if (incl - c < k && k <= incl) {
+    sm[0] = tid;
+    sm[1] = k - (incl - c);
+    sm[2] = 0;
+  }
+  __syncthreads();
+  const int dig = sm[0];
+  for (int i = tid; i < n; i += blockDim.x) {
+    const int v = a[i];
+    if (v != BIG && (v >> sh) == dig) list[atomicAdd(sm + 2, 1)] = v;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int cnt = sm[2], kin = sm[1];
+    int t = dig << sh;
+    for (int bit = sh - 1; bit >= 0; --bit) {
+      const int probe = t + (1 << bit);
+      int below = 0;
+      for (int i = lane; i < cnt; i += 32) below += list[i] < probe;
+      if (__reduce_add_sync(HS_FULL, below) < kin) t = probe;
+    }
+    int lt = 0;
+    for (int i = lane; i < cnt; i += 32) lt += list[i] < t;
+    lt = __reduce_add_sync(HS_FULL, lt);
+    if (lane == 0) {
+      sm[3] = t;
+      sm[4] = kin - lt;
+    }
+  }
+  __syncthreads();
+  *tk = sm[4];
+  return sm[3];
+}
+
+// The butterfly sums of a warp (warp_sum's tree: at offset o a lane adds
+// its partner's value, o = 16 .. 1) of R values per lane at once, R a power
+// of two <= 32: while a lane holds more than one value, each step keeps half
+// of them and adds the partner's half (one shuffle a kept value), so R sums
+// cost R - 1 + 5 - log2 R shuffles instead of 5 R. Every sum adds the same
+// operands in the same order as warp_sum, so it is bit-equal to warp_sum's.
+// On return v[0] of lane l holds the sum of value l / (32 / R).
+template <int R>
+__device__ __forceinline__ void warp_sum_rows(float (&v)[R]) {
+  const int lane = threadIdx.x & 31;
+  int o = 16;
+#pragma unroll
+  for (int h = R / 2; h >= 1; h >>= 1, o >>= 1) {
+    const bool up = (lane & o) != 0;
+#pragma unroll
+    for (int i = 0; i < h; ++i) {
+      const float send = up ? v[i] : v[i + h];
+      const float keep = up ? v[i + h] : v[i];
+      v[i] = keep + __shfl_xor_sync(HS_FULL, send, o);
+    }
+  }
+  for (; o > 0; o >>= 1) v[0] += __shfl_xor_sync(HS_FULL, v[0], o);
+}
+
+// dot(a, b_r) and |b_r|^2 of R rows b_r at once by one warp: the loads of
+// all R rows are issued before any is summed, so a warp has R random rows
+// in flight instead of one. Each row's lane sums run in partial_dot's order
+// and are reduced by warp_sum_rows, so each result is bit-equal to
+// warp_dot's. On return lane l holds, in s and n, the sums of row
+// l / (32 / R). Rows r >= nr are not read. With st_r given, row r is also
+// stored widened to fp32 at st_r (scalar stores: any alignment). a is fp32
+// in shared memory.
+template <int R, class T>
+__device__ __forceinline__ void warp_dot_rows(const float* a,
+                                              const T* const (&b)[R], int nr,
+                                              int d, bool vec4, float& s_out,
+                                              float& n_out,
+                                              float* const (&st)[R]) {
+  const int lane = threadIdx.x & 31;
+  float s[R], n[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) s[r] = n[r] = 0.f;
+  if (vec4) {
+    for (int e = lane * 4; e < d; e += 128) {
+      float4 x[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        x[r] = r < nr ? load4(b[r] + e) : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 y = *reinterpret_cast<const float4*>(a + e);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        s[r] = fmaf(x[r].x, y.x, s[r]); s[r] = fmaf(x[r].y, y.y, s[r]);
+        s[r] = fmaf(x[r].z, y.z, s[r]); s[r] = fmaf(x[r].w, y.w, s[r]);
+        n[r] = fmaf(x[r].x, x[r].x, n[r]); n[r] = fmaf(x[r].y, x[r].y, n[r]);
+        n[r] = fmaf(x[r].z, x[r].z, n[r]); n[r] = fmaf(x[r].w, x[r].w, n[r]);
+        if (st[r] != nullptr && r < nr) {
+          st[r][e] = x[r].x; st[r][e + 1] = x[r].y;
+          st[r][e + 2] = x[r].z; st[r][e + 3] = x[r].w;
+        }
+      }
+    }
+  } else {
+    for (int e = lane; e < d; e += 32) {
+      const float y = a[e];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r < nr) {
+          const float x = load1(b[r] + e);
+          s[r] = fmaf(x, y, s[r]);
+          n[r] = fmaf(x, x, n[r]);
+          if (st[r] != nullptr) st[r][e] = x;
+        }
+      }
+    }
+  }
+  warp_sum_rows<R>(s);
+  warp_sum_rows<R>(n);
+  s_out = s[0];
+  n_out = n[0];
+}
+
+// warp_dot_rows over fp32 rows in shared memory (16-byte aligned, d % 4 ==
+// 0): the same vec4 lane order, so each sum is bit-equal to warp_dot's of
+// the same row in device memory. Returns the dot of row lane / (32 / R).
+template <int R>
+__device__ __forceinline__ float warp_dot_rows_smem(const float* a,
+                                                    const float* const (&b)[R],
+                                                    int nr, int d) {
+  const int lane = threadIdx.x & 31;
+  float s[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) s[r] = 0.f;
+  for (int e = lane * 4; e < d; e += 128) {
+    const float4 y = *reinterpret_cast<const float4*>(a + e);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r < nr) {
+        const float4 x = *reinterpret_cast<const float4*>(b[r] + e);
+        s[r] = fmaf(x.x, y.x, s[r]); s[r] = fmaf(x.y, y.y, s[r]);
+        s[r] = fmaf(x.z, y.z, s[r]); s[r] = fmaf(x.w, y.w, s[r]);
+      }
+    }
+  }
+  warp_sum_rows<R>(s);
+  return s[0];
+}
+
+// Up to 32 dots of one shared-memory row a with shared-memory rows b_j,
+// j < nb, by one warp: lane j passes b_j as its float offset from base and
+// gets dot(a, b_j) back, in the lane-strided order (lane l sums elements
+// e = l, l + 32, ... with fmaf(a[e], b[e], .), then warp_sum's tree) that
+// a warp computing one dot at a time would use. Each lane keeps its
+// elements of a in registers and sums eight rows at a time; warp_sum_rows
+// adds the lane sums as warp_sum does. So each row is read once (no bank
+// clash: lanes read consecutive elements) and 32 dots cost 4 x 9 + 4
+// shuffles, not 160.
+__device__ __forceinline__ float warp_dots_smem(const float* a,
+                                                const float* base, int off,
+                                                int nb, int d) {
+  const int lane = threadIdx.x & 31;
+  float res = 0.f;
+  for (int q0 = 0; q0 < nb; q0 += 8) {
+    float s[8];
+    int o[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      s[r] = 0.f;
+      o[r] = __shfl_sync(HS_FULL, off, q0 + r);
+    }
+    for (int e0 = 0; e0 < d; e0 += 128) {
+      float av[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int e = e0 + lane + 32 * k;
+        av[k] = e < d ? a[e] : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        if (q0 + r < nb) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int e = e0 + lane + 32 * k;
+            if (e < d) s[r] = fmaf(av[k], base[o[r] + e], s[r]);
+          }
+        }
+      }
+    }
+    warp_sum_rows<8>(s);  // lane l: row q0 + l / 4
+    const float v = __shfl_sync(HS_FULL, s[0], 4 * (lane & 7));
+    if ((lane >> 3) == (q0 >> 3)) res = v;
+  }
+  return res;
+}
+
+// 16-byte asynchronous copies from device to shared memory (cp.async,
+// sm_80+), committed as one group; cp_async_wait_all waits for all of
+// this thread's groups (a block barrier then makes them visible to all).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Stream compaction: for lanes t in [0, n) in order, keep(t, &v) decides and
@@ -216,12 +533,6 @@ __device__ __forceinline__ int upper_bound(const int* a, int n, int v) {
     if (a[mid] <= v) lo = mid + 1; else hi = mid;
   }
   return lo;
-}
-
-// binary search for v in ascending a[0, n)
-__device__ __forceinline__ bool member(const int* a, int n, int v) {
-  const int lo = lower_bound(a, n, v);
-  return lo < n && a[lo] == v;
 }
 
 // Neighbor-row fetch forms (graph/search.py Fetch), the three ways the JAX

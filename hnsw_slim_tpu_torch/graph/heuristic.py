@@ -10,6 +10,9 @@ whatever the budget, and tests the others against all of those too.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from ..ops import cuda
@@ -82,6 +85,46 @@ def _prune_rows_plain(vectors, vn, base_ids, cand_ids, m, keep_all_under_m,
     return sel.to(torch.int32), cnt
 
 
+SMEM_LIMIT = 232448  # shared memory one block can have (227 KB)
+SMEM_STATIC = 2048  # bound on the kernel's static shared memory
+RING = 32  # candidate rows Kγ stages at a time
+STAGE_ALL = 64  # up to this many candidates, all are staged at once
+
+
+class PrunePlan(NamedTuple):
+    ring: int  # candidate rows staged at a time (C: all, in step 1)
+    smem: int  # dynamic shared-memory bytes of a block
+    threads: int = 256  # a block's: 128 for staged rows (short: more rows
+    # in flight at the same 64 registers a thread)
+
+
+@functools.lru_cache(maxsize=256)
+def prune_plan(c: int, d: int, m_slots: int) -> PrunePlan:
+    """Kγ's launch shape for C candidates of d elements and up to m_slots
+    kept rows (C in the guarded mode): every candidate row staged (fp32
+    whatever the store's type; a kept row is its staged row) when C <=
+    STAGE_ALL and they fit, else two rings of RING rows (fewer than C),
+    one walked while the next loads, beside m_slots kept rows, the rings
+    halved until the block's shared memory holds them. Raises where even one ring
+    row does not fit. The byte counts follow csrc/rng_prune.cu's layout."""
+    sd = -(-d // 32) * 32 + 8  # row stride in floats (8 mod 32)
+    cp = 1 << (max(c, 32) - 1).bit_length()
+    fixed = 12 * cp + 12 * m_slots + cp
+    if c <= STAGE_ALL:  # a kept row is a staged row: one row beside
+        smem = 4 * sd * (c + 1) + fixed
+        if smem + SMEM_STATIC <= SMEM_LIMIT:
+            return PrunePlan(c, smem, 128)
+    ring = min(RING, c - 1)  # fewer rows than C: two rings
+    while ring >= 1:
+        smem = 4 * sd * (2 * ring + m_slots) + fixed
+        if smem + SMEM_STATIC <= SMEM_LIMIT:
+            return PrunePlan(ring, smem)
+        ring //= 2
+    raise ValueError(f"rng_prune: C={c}, D={d} with {m_slots} kept rows "
+                     f"needs more than {SMEM_LIMIT - SMEM_STATIC} B of "
+                     "shared memory")
+
+
 def rng_prune_plain(vectors, vn, base_ids, cand_ids, m_per_row, *,
                     keep_all_under_m: bool, keep_pruned: bool,
                     out_width: int, metric: str = "l2", guard=None):
@@ -142,14 +185,9 @@ def rng_prune(vectors, vn, base_ids, cand_ids, m_per_row, *,
         cuda.require(guard, torch.bool, "guard", (b, c))
         m_slots = c
     else:
-        m_slots = int(min(int(m_per_row.max()) if m_max is None else m_max,
-                          c))
-    dp = -(-d // 4) * 4
-    smem = 4 * dp * (1 + m_slots) + 8 * (1 << (c - 1).bit_length()) \
-        + 8 * m_slots + (1 << (c - 1).bit_length())
-    if smem > 227 * 1024:
-        raise ValueError(f"rng_prune: C={c} with m={m_slots} needs {smem} B "
-                         "of shared memory (> 227 KB)")
+        m_slots = max(1, int(min(
+            int(m_per_row.max()) if m_max is None else m_max, c)))
+    plan = prune_plan(c, d, m_slots)
     entry, modes = cuda.row_type(vectors, "rng_prune",
                                  () if guard is None else ("guarded",))
     cuda.launch(
@@ -157,7 +195,11 @@ def rng_prune(vectors, vn, base_ids, cand_ids, m_per_row, *,
         cand_ids.data_ptr(), m_per_row.data_ptr(), b, c, m_slots,
         int(keep_all_under_m), int(keep_pruned), out_width,
         int(metric == "ip"), None if guard is None else guard.data_ptr(),
-        sel.data_ptr(), cnt.data_ptr(), entry=entry, modes=modes,
+        plan.ring, plan.threads, plan.smem, sel.data_ptr(),
+        cnt.data_ptr(), entry=entry, modes=modes,
+        shape=("guarded" if guard is not None else "keep_all"
+               if keep_all_under_m else "budget")
+        + ("+backfill" if keep_pruned else "") + f" C{c}",
     )
     return sel, cnt
 

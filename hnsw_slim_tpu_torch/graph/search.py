@@ -375,6 +375,7 @@ def beam_search(vectors, q, qn, rows, seed_d, seed_id, *, P: int,
             ef_eff, pop_width, cw, max_iters, k, int(metric == "ip"),
             *filt[:3], out_d.data_ptr(), out_i.data_ptr(), hops.data_ptr(),
             dcomp.data_ptr(), *filt[3:], entry=entry, modes=modes,
+            shape=f"E{pop_width} ef{ef_eff} S{S}",
         )
     if allowed is not None:
         return out_d, out_i, hops, dcomp, trk_d, trk_i
@@ -435,7 +436,8 @@ def _beam_search_quant(fetch, scorer, pop_track, seed_d, seed_id, P, ef_eff,
             seed_id.data_ptr(), b, S, P, ef_eff, pop_width, cw, max_iters, k,
             int(metric == "ip"), *targs, out_d.data_ptr(), out_i.data_ptr(),
             hops.data_ptr(), dcomp.data_ptr(), *touts,
-            entry="beam_search_quant", modes=modes)
+            entry="beam_search_quant", modes=modes,
+            shape=f"E{pop_width} ef{ef_eff} S{S}")
     out = (out_d, out_i, hops, dcomp)
     return out if pop_track is None else out + (new_track,)
 

@@ -17,11 +17,14 @@ bfloat16 vector store, the dedup mode of the run scatter, the join mode
 of the NN-descent candidates and the ids map of the radix sort) the
 launches made in that mode:
 ``reset_launches`` before a run and read the counts after it to show which
-kernels and modes the run went through.
+kernels and modes the run went through. ``launch_shapes`` splits the
+launches of Kβ and Kγ by their shape class (pop width, ef and seeds; prune
+form and width) under a caller's ``tagged`` label.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -57,6 +60,10 @@ MODES = ("topk_dist.strata", "beam_search.chal", "beam_search.rank",
          "greedy_descent.bf16", "rng_prune.bf16", "point_dist.bf16",
          "run_scatter.dedup", "nnd_cand.join", "radix_sort.ids")
 launches = dict.fromkeys(KERNELS + MODES, 0)
+# launches by the shape a wrapper reports (``launch(shape=)``) under the
+# caller's tag (``tagged``): "kernel[tag] shape" -> count
+launch_shapes: dict[str, int] = {}
+_tag = ""
 
 P, I32, I64, F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
@@ -83,10 +90,10 @@ _SIGNATURES = {
                        I32, I32, I32, I32, I32, I32, I32, I32, P, P, P, P, P,
                        P, P, P, P, P],
     # vectors, vn, D, base_ids, cand, m_per_row, B, C, m_max,
-    # keep_all_under_m, keep_pruned, out_width, metric, guard, out, cnt,
-    # stream
+    # keep_all_under_m, keep_pruned, out_width, metric, guard, ring rows,
+    # threads, smem bytes (graph/heuristic.py prune_plan), out, cnt, stream
     "hs_rng_prune": [P, P, I32, P, P, P, I32, I32, I32, I32, I32, I32, I32,
-                     P, P, P, P],
+                     P, I32, I32, I32, P, P, P],
     # vectors, vn, D, row0, ids, dists, newf, cand, n, K, C, metric,
     # out_ids, out_d, out_nf, inserted, stream
     "hs_cand_merge": [P, P, I32, I32, P, P, P, P, I32, I32, I32, I32, P, P,
@@ -236,10 +243,11 @@ def check(err: int, name: str) -> None:
 
 
 def launch(name: str, *args, entry: str | None = None,
-           modes: tuple = ()) -> None:
+           modes: tuple = (), shape: str = "") -> None:
     """Call C entry point ``hs_<entry or name>`` on the current stream, raise
-    on a launch error, and count one launch of kernel ``name`` and of each
-    of its ``modes`` this launch ran in."""
+    on a launch error, and count one launch of kernel ``name``, of each of
+    its ``modes`` this launch ran in and, where given, of its ``shape``
+    under the current tag."""
     err = getattr(lib(), f"hs_{entry or name}")(
         *args, torch.cuda.current_stream().cuda_stream
     )
@@ -247,6 +255,9 @@ def launch(name: str, *args, entry: str | None = None,
     launches[name] += 1
     for mode in modes:
         launches[f"{name}.{mode}"] += 1
+    if shape:
+        key = f"{name}[{_tag}] {shape}"
+        launch_shapes[key] = launch_shapes.get(key, 0) + 1
 
 
 def resolve_device(device=None) -> torch.device:
@@ -263,6 +274,19 @@ def resolve_device(device=None) -> torch.device:
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    launch_shapes.clear()
+
+
+@contextlib.contextmanager
+def tagged(tag: str):
+    """Count the launches made inside under ``tag`` in launch_shapes (the
+    caller names the work: an insertion build, a conversion, ...)."""
+    global _tag
+    old, _tag = _tag, tag
+    try:
+        yield
+    finally:
+        _tag = old
 
 
 ROW_TYPES = (torch.float32, torch.bfloat16)  # the vector store's row types

@@ -1350,3 +1350,251 @@ def test_nnd_build_kernels_equal_plain_twins(data):
     assert len(got) == len(want)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
+
+
+# ---- Kβ and Kγ at the shapes their redesign turns on, on exact data -----
+# Coordinates that are multiples of 1/8 in [-4, 4]: every dot, norm and
+# distance of such vectors is exact in fp32 (and their bf16 copies are the
+# same values), so a kernel and its plain version compute the same
+# distances, and where two distances tie, the tie rules alone decide. Ids,
+# hops, dcomp, kept rows and counts must then be exactly equal.
+
+
+def _dyadic(n, d, seed):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(
+        rng.integers(-32, 33, (n, d)).astype(np.float32) / 8, device="cuda")
+
+
+def _random_rows(n, w, seed, pool=None, hole=0.1):
+    """i32[n, w] neighbor rows: ids drawn from [0, pool or n), a share
+    ``hole`` of lanes -1."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, pool or n, (n, w))
+    ids[rng.random((n, w)) < hole] = -1
+    return torch.as_tensor(ids.astype(np.int32), device="cuda")
+
+
+@pytest.fixture(scope="module")
+def exact():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = _dyadic(20000, 128, 11)
+    return x, (x * x).sum(1), _dyadic(512, 128, 12)
+
+
+def _seed(x, q, seed):
+    """One seed a query: a random id and its exact distance."""
+    g = np.random.default_rng(seed)
+    si = torch.as_tensor(g.integers(0, len(x), (len(q), 1)).astype(np.int32),
+                         device="cuda")
+    sd = ((q[:, None, :] - x[si.long()].float()) ** 2).sum(-1)
+    return sd.contiguous(), si
+
+
+def _beam_equal(x, q, rows, sd, si, **kw):
+    from hnsw_slim_tpu_torch.graph import search as gs
+
+    qn = (q * q).sum(1)
+    k_o = gs.beam_search(x, q, qn, rows, sd, si, **kw)
+    p_o = gs.beam_search_plain(x, q, qn, rows, sd, si, **kw)
+    for a, b in zip(k_o, p_o):
+        assert torch.equal(a, b)
+    return k_o
+
+
+@pytest.mark.parametrize("case", ["cap", "prewindow", "dups",
+                                  "dups_prewindow", "bf16"])
+def test_beam_redesign_exactly_equal_plain(exact, case):
+    """Kβ at the build shape (P 128, E 8, W 60, cw 256: after the first pop
+    more than cw new ids arrive, so the cap's select runs), under the
+    pre-window rule (P 64, cw 128: 2 cw < E W), with rows full of repeated
+    ids (drawn from 300 ids: repeats within a row and across pops), and on
+    a bf16 store: buffer distances and ids, hops and dcomp exactly equal to
+    the plain version's."""
+    from hnsw_slim_tpu_torch.graph import search as gs
+
+    x, _, q = exact
+    P = 64 if "prewindow" in case else 128
+    rows = _random_rows(len(x), 60, 3, pool=300 if "dups" in case else None)
+    cw = gs.cand_width(P, 8, 60, 0)
+    assert (2 * cw < 480) == ("prewindow" in case)
+    sd, si = _seed(x, q, 4)
+    xs = x.to(torch.bfloat16) if case == "bf16" else x
+    _beam_equal(xs, q, rows, sd, si, P=P, ef_eff=P, pop_width=8, cw=cw,
+                max_iters=2 * P + 64, k=P)
+
+
+def test_beam_carried_buffer_exactly_equal_plain(exact):
+    """Kβ from a carried buffer (E 1, S = P = 128, cw = W = 60, the
+    upper-level insert beam): a full buffer from one graph's beam seeds the
+    beam over another graph; exactly equal to the plain version."""
+    from hnsw_slim_tpu_torch.graph import search as gs
+
+    x, xn, q = exact
+    sd, si = _seed(x, q, 5)
+    qn = (q * q).sum(1)
+    kw = dict(P=128, ef_eff=128, max_iters=2 * 128 + 64, k=128)
+    bd, bi, _, _ = gs.beam_search_plain(x, q, qn, _random_rows(len(x), 60, 6),
+                                        sd, si, pop_width=8, cw=256, **kw)
+    assert (bi >= 0).all()
+    _beam_equal(x, q, _random_rows(len(x), 60, 7, pool=5000),
+                bd.contiguous(), bi.contiguous(), pop_width=1, cw=60, **kw)
+
+
+@pytest.mark.parametrize("share", [0.3, 0.05])
+def test_filtered_beam_exactly_equal_plain(exact, share):
+    """Kβ's filtered mode under the pre-window rule (P 64, E 8, W 60): the
+    buffer, the allowed-only track, hops and dcomp exactly equal to the
+    plain version's; every track id allowed."""
+    from hnsw_slim_tpu_torch.graph import search as gs
+
+    x, _, q = exact
+    g = torch.Generator(device="cuda").manual_seed(8)
+    allowed = torch.rand(len(x), generator=g, device="cuda") < share
+    sd, si = _seed(x, q, 9)
+    trk = gs.filter_track_init(allowed, si[:, 0], sd[:, 0], 64)
+    out = _beam_equal(x, q, _random_rows(len(x), 60, 10), sd, si, P=64,
+                      ef_eff=64, pop_width=8, cw=gs.cand_width(64, 8, 60, 0),
+                      max_iters=400, k=10, allowed=allowed, track_d=trk[0],
+                      track_id=trk[1])
+    ti = out[5]
+    assert allowed[ti[ti >= 0].long()].all()
+
+
+def test_quant_beam_prewindow_matches_plain(data, slimq_index):
+    """Kβ's quantized mode with the rerank track under the pre-window rule
+    (pop 16 over the SlimQ graph's level-0 rows, ef 64: 2 cw < E W): buffer
+    and track ids equal on >= 99% of slots (estimates are summed in another
+    order than the plain version's), hops on >= 99% of queries."""
+    from hnsw_slim_tpu_torch.graph import search as gs
+    from hnsw_slim_tpu_torch.index import bruteforce as bf
+
+    x, _, q = data
+    idx, _ = slimq_index
+    sc = _scorer(idx, q, False)
+    rows, up_ids = idx._seed_table()
+    sd, sp = bf.topk_estimate_plain(sc._replace(rows=rows), up_ids, 32)
+    si = torch.where(sp >= 0, up_ids[sp.clamp(min=0).long()], -1)
+    si = si.to(torch.int32).contiguous()
+    cw = gs.cand_width(64, 16, idx.graph.cap0, 0)
+    assert 2 * cw < 16 * idx.graph.cap0
+    kw = dict(P=64, ef_eff=64, pop_width=16, cw=cw, max_iters=200, k=64,
+              scorer=sc, pop_track=gs.pop_track_init(x, q, 16))
+    args = (None, None, None, idx.dense0, sd.contiguous(), si)
+    k_o = gs.beam_search(*args, **kw)
+    p_o = gs.beam_search_plain(*args, **kw)
+    assert (k_o[1] == p_o[1]).float().mean() >= 0.99
+    assert (k_o[2] == p_o[2]).float().mean() >= 0.99
+    assert (k_o[4].ids == p_o[4].ids).float().mean() >= 0.99
+
+
+def _prune_equal(x, base, cand, m, **kw):
+    from hnsw_slim_tpu_torch.graph import heuristic as th
+
+    xn = (x.float() ** 2).sum(1)
+    ks, kc = th.rng_prune(x, xn, base, cand, m, **kw)
+    ps, pc = th.rng_prune_plain(x, xn, base, cand, m, **kw)
+    assert torch.equal(ks, ps) and torch.equal(kc, pc)
+    return ks, kc
+
+
+def _prune_rows(x, b, c, seed):
+    g = np.random.default_rng(seed)
+    base = g.integers(0, len(x), b).astype(np.int32)
+    cand = g.integers(0, len(x), (b, c)).astype(np.int32)
+    cand[g.random((b, c)) < 0.05] = -1
+    cand[:, 0] = base  # the base itself is no candidate
+    return (torch.as_tensor(base, device="cuda"),
+            torch.as_tensor(cand, device="cuda"))
+
+
+@pytest.mark.parametrize("keep_pruned", [False, True])
+def test_prune_wide_rows_exactly_equal_plain(exact, keep_pruned):
+    """Kγ with C 1024 at D 128 (32 rings of staged rows a row): rows and
+    counts exactly equal to the plain version's."""
+    from hnsw_slim_tpu_torch.graph import heuristic as th
+
+    x, _, _ = exact
+    assert th.prune_plan(1024, 128, 30).ring < 1024
+    base, cand = _prune_rows(x, 96, 1024, 13)
+    m = torch.full((96,), 30, dtype=torch.int32, device="cuda")
+    _prune_equal(x, base, cand, m, keep_all_under_m=False,
+                 keep_pruned=keep_pruned, out_width=40)
+
+
+def test_guarded_prune_wide_rows_exactly_equal_plain():
+    """Kγ's guarded mode with C 1024 (D 32: up to C kept rows, the walk
+    over many rings): rows and counts exactly equal to the plain version's;
+    some rows keep more than their budget."""
+    from hnsw_slim_tpu_torch.graph import heuristic as th
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = _dyadic(20000, 32, 14)
+    assert th.prune_plan(1024, 32, 1024).ring < 1024
+    base, cand = _prune_rows(x, 64, 1024, 15)
+    g = torch.Generator(device="cuda").manual_seed(16)
+    guard = torch.rand(cand.shape, generator=g, device="cuda") < 0.02
+    m = torch.randint(1, 20, (64,), generator=g, device="cuda",
+                      dtype=torch.int32)
+    xn = (x * x).sum(1)
+    ks, kc = th.rng_prune(x, xn, base, cand, m, keep_all_under_m=False,
+                          keep_pruned=False, out_width=64, guard=guard)
+    ps, pc = th.rng_prune_plain(x, xn, base, cand, m, keep_all_under_m=False,
+                                keep_pruned=False, out_width=64, guard=guard)
+    assert torch.equal(ks, ps) and torch.equal(kc, pc)
+    assert (kc > m).any()
+
+
+def test_prune_all_conflicting_and_m1_exactly_equal_plain():
+    """Kγ on rows whose candidates all lie close together and far from the
+    base (each conflicts with the nearest one: one row kept), and with a
+    budget of 1, with and without the backfill: exactly equal to the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    b, c, d = 256, 128, 128
+    rng = np.random.default_rng(17)
+    pts = []
+    for _ in range(b):
+        far = rng.integers(-4, 5, d) * 4.0
+        pts.append(rng.integers(-2, 3, (1, d)) / 8.0)  # the base
+        pts.append(far + rng.integers(-1, 2, (c, d)) / 8.0)
+    x = torch.as_tensor(np.concatenate(pts).astype(np.float32),
+                        device="cuda")
+    base = torch.arange(0, b * (c + 1), c + 1, dtype=torch.int32,
+                        device="cuda")
+    cand = (base[:, None] + 1 + torch.arange(c, device="cuda")).to(
+        torch.int32).contiguous()
+    m = torch.full((b,), 30, dtype=torch.int32, device="cuda")
+    _, kc = _prune_equal(x, base, cand, m, keep_all_under_m=False,
+                         keep_pruned=False, out_width=30)
+    assert (kc == 1).all()
+    x2 = _dyadic(20000, 128, 18)
+    base2, cand2 = _prune_rows(x2, 1024, 128, 19)
+    m1 = torch.ones(1024, dtype=torch.int32, device="cuda")
+    for keep_pruned in (False, True):
+        _, kc = _prune_equal(x2, base2, cand2, m1, keep_all_under_m=False,
+                             keep_pruned=keep_pruned, out_width=8)
+        assert (kc == 1).all()
+
+
+@pytest.mark.parametrize("c", [60, 128])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prune_forward_shape_exactly_equal_plain(exact, metric, dtype, c):
+    """Kγ at the insert forward prune's shape (C 128, m = M = 30, the
+    keep-all early-out; the walk reloads its ring of staged rows) and at a
+    conversion row's width (C 60: every candidate staged in step 1), and
+    with a budget past the kept rows and the backfill, over fp32 and bf16
+    stores, L2 and inner product: rows and counts exactly equal to the
+    plain version's."""
+    x, _, _ = exact
+    xs = x.to(getattr(torch, dtype))
+    base, cand = _prune_rows(x, 2048, c, 20)
+    m = torch.full((2048,), 30, dtype=torch.int32, device="cuda")
+    _prune_equal(xs, base, cand, m, keep_all_under_m=True, keep_pruned=False,
+                 out_width=30, metric=metric)
+    _prune_equal(xs, base, cand, m, keep_all_under_m=False, keep_pruned=True,
+                 out_width=30, metric=metric)
