@@ -58,9 +58,13 @@ Phases (one line each on stdout, the kernel table second to last):
      torch.profiler), and the build once more under
      torch.profiler (device time by kernel group, host the rest);
   7. each kernel and each kernel mode against its plain PyTorch version on
-     the card: Kε, Kβ in build mode, Kγ and Kζ on one 4096-insert batch
-     recorded during the insertion build (its pre-batch graph and inputs),
-     Kα and Kβ on the serving paths, Kγ on the NND build's and conversion's
+     the card: Kε (level by level, and as the one launch for all levels
+     that the main paths make, against its level-by-level plain twin), Kβ
+     in build mode and from a carried buffer (with its bound), Kγ and Kζ on
+     one 4096-insert batch recorded during the insertion build (its
+     pre-batch graph and inputs), Kα (ground truth, the seed block, and a
+     12-query server batch over the seed table) and Kβ on the serving
+     paths, Kγ on the NND build's and conversion's
      prunes, Kδ on an NND chunk, and on inputs of phases 3 and 4 Kβ over
      CHAL and rank rows, Kβ filtered, Kε over CHAL and rank rows, Kα in
      strata mode, Kγ guarded (one recorded 8192-row chunk with its live
@@ -109,9 +113,10 @@ Phases (one line each on stdout, the kernel table second to last):
      entry distances from both stores (beside the gather + torch.bmm), and
      Kα (strata and exact), Kβ, Kε, Kγ in their bf16 modes, each against
      its plain version;
- 10. Kβ's and Kγ's main-path launches by shape class (build E 8, upper
-     levels E 1, serving by ef; forward, overflow, conversion, NN-descent,
-     and the SlimQ build and update rounds apart), summing to their
+ 10. Kα's, Kβ's, Kγ's and Kε's main-path launches by shape class (scan
+     mode, tile and k; build E 8, upper levels E 1, serving by ef; forward,
+     overflow, conversion, NN-descent, and the SlimQ build and update
+     rounds apart; a run of levels or one level), summing to their
      launches; output checks (finite, in range, true distances, recall
      sanity, the
      insertion-built Slim index above the NND-built one at ef=320, SlimZero
@@ -337,6 +342,45 @@ def tie_ok(ids_a, ids_b, d_ref, k: int) -> float:
     return float((same | near).mean())
 
 
+def distinct(ts: list) -> int:
+    """How many distinct ids the tensors in ``ts`` hold together: a plain
+    run's ``seen`` ids, the rows or vectors its call must read at least
+    once."""
+    import torch
+
+    return int(torch.unique(torch.cat(ts)).numel()) if ts else 0
+
+
+def descent_pair(args: tuple, kw: dict, err=None) -> dict:
+    """Kε's one-launch descent (greedy_descent_levels) against its
+    level-by-level plain twin on the same inputs: agreement of the final
+    cur, the largest curdist difference where cur agrees (``err`` of the
+    two, default absolute), the share of queries whose cur, hops and dcomp
+    all agree (a near-tie that the two sum orders break apart changes the
+    rest of a query's walk), both times, and the launch's hops and
+    dcomp."""
+    import torch
+
+    from hnsw_slim_tpu_torch.graph import search as gs
+
+    k_o = gs.greedy_descent_levels(*args, **kw)
+    p_o = gs.greedy_descent_levels_plain(*args, **kw)
+    same = k_o[0] == p_o[0]
+    e = 0.0
+    if same.any():
+        e = (err(k_o[1][same], p_o[1][same]) if err else
+             float((k_o[1] - p_o[1])[same].abs().max()))
+    return dict(
+        agree=float(same.float().mean()), max_abs_err=e,
+        ms=cuda_ms(lambda: gs.greedy_descent_levels(*args, **kw)),
+        plain_ms=cuda_ms(lambda: gs.greedy_descent_levels_plain(*args, **kw),
+                         1),
+        hops=int(k_o[2].sum()), dcomp=int(k_o[3].sum()),
+        path_agree=float((same & (k_o[2] == p_o[2]) & (k_o[3] == p_o[3]))
+                         .float().mean()),
+        levels=len(args[3]))
+
+
 def full_batches(n: int, max_batch: int = 4096) -> int:
     """How many insert batches of max_batch points the build makes."""
     done, k = 1, 0
@@ -347,7 +391,7 @@ def full_batches(n: int, max_batch: int = 4096) -> int:
     return k
 
 
-MAIN_SHAPES: dict = {}  # Kβ / Kγ launches of the main paths by shape
+MAIN_SHAPES: dict = {}  # Kα-Kε launches of the main paths by shape
 
 
 def keep_shapes() -> None:
@@ -360,7 +404,9 @@ def keep_shapes() -> None:
 
 
 def launch_classes(shapes: dict) -> dict:
-    """Kβ and Kγ main-path launches by shape class. Kβ: "upper E1" (pop
+    """Kα, Kβ, Kγ and Kε main-path launches by shape class. Kα: its scan
+    mode (none, strata, estimate), plan tile and k; Kε: "levels" (one
+    launch for a run of levels) or "one level". Kβ: "upper E1" (pop
     width 1: the insertion build's upper levels, a carried buffer), "build
     E8" (pop 8 from one seed inside a tagged build), else "serving ef<ef>".
     Kγ by the tag of the work that ran it: in an insertion build (phase 2,
@@ -379,6 +425,10 @@ def launch_classes(shapes: dict) -> dict:
             cls = ("upper E1" if e == "E1" else
                    f"build {e}" if tag and seeds == "S1" else
                    f"serving {ef}")
+        elif kern == "topk_dist":  # scan mode, plan tile and k
+            cls = shape
+        elif kern == "greedy_descent":  # one launch for a run of levels
+            cls = "levels" if parts[0] == "levels" else "one level"
         else:
             keep_all = parts[0].startswith("keep_all")
             cls = {"build": "forward" if keep_all else "overflow",
@@ -859,7 +909,7 @@ def shard_phase(base, queries, gt, slim_ins, report, dev) -> tuple:
                 max_iters=SearchConfig(ef=64, pop_width=8).iters(), k=k)
     b_args = (x16, q512, qn512, s0b.dense0, sd_.contiguous(), si_)
     k_o = gs.beam_search(*b_args, **kw_b)
-    p_o = gs.beam_search_plain(*b_args, **kw_b)
+    p_o = gs.beam_search_plain(*b_args, **kw_b, seen=(sn := []))
     same = k_o[1] == p_o[1]
     hops_, dc_ = int(k_o[2].sum()), int(k_o[3].sum())
     report["beam_search.bf16"] = dict(
@@ -868,7 +918,8 @@ def shard_phase(base, queries, gt, slim_ins, report, dev) -> tuple:
             p_o[0])].abs().max()),
         ms=cuda_ms(lambda: gs.beam_search(*b_args, **kw_b)),
         plain_ms=cuda_ms(lambda: gs.beam_search_plain(*b_args, **kw_b), 1),
-        bound=bound(hops_ * s0b.dense0.shape[1] * 4 + dc_ * d * 2
+        bound=bound(distinct([a for a, _ in sn]) * s0b.dense0.shape[1] * 4
+                    + distinct([v for _, v in sn]) * d * 2
                     + 512 * d * 4 + 512 * (k * 8 + 8) + 512 * 32 * 8,
                     dc_ * 4 * d),
         shapes=f"bf16 shard 0 Slim, dense rows, seeded ef=64: 512 queries, "
@@ -883,26 +934,36 @@ def shard_phase(base, queries, gt, slim_ins, report, dev) -> tuple:
     g0b = h0b.graph
     pc_, pd_ = gs.entry_dist(h0b.vectors, h0b.vn, qall, qn_all, g0b.entry)
     eq_, tot_, err_, kms, pms, byt, flo = 0, 0, 0.0, 0.0, 0.0, 0, 0
+    vecs = []  # the ids scored at every level: one store, read once
     for l in range(g0b.max_level, 0, -1):
         st_ = (h0b.vectors, qall, qn_all, g0b.adjs[l], pc_, pd_)
         kc_, kd_, kh_, kdc_ = gs.greedy_descent(*st_)
         kms += cuda_ms(lambda: gs.greedy_descent(*st_))
         pms += cuda_ms(lambda: gs.greedy_descent_plain(*st_), 1)
-        npc, npd, _, _ = gs.greedy_descent_plain(*st_)
+        npc, npd, _, _ = gs.greedy_descent_plain(*st_, seen=(sn := []))
         same_ = kc_ == npc
         eq_, tot_ = eq_ + int(same_.sum()), tot_ + len(same_)
         if same_.any():
             err_ = max(err_, float((kd_ - npd)[same_].abs().max()))
-        byt += (int(kh_.sum()) * g0b.adjs[l].shape[1] * 4
-                + int(kdc_.sum()) * d * 2 + NQ * d * 4 + NQ * 16)
+        byt += distinct([a for a, _ in sn]) * g0b.adjs[l].shape[1] * 4
+        vecs += [v for _, v in sn]
         flo += int(kdc_.sum()) * 4 * d
         pc_, pd_ = npc, npd
+    byt += distinct(vecs) * d * 2 + NQ * d * 4 + NQ * 16
+    c0, d0 = gs.entry_dist(h0b.vectors, h0b.vn, qall, qn_all, g0b.entry)
+    fused = descent_pair((h0b.vectors, qall, qn_all,
+                          g0b.adjs[g0b.max_level:0:-1], g0b.max_level, c0,
+                          d0), {})
     report["greedy_descent.bf16"] = dict(
-        agree=eq_ / max(1, tot_), max_abs_err=err_, ms=kms, plain_ms=pms,
-        bound=bound(byt, flo),
+        agree=min(eq_ / max(1, tot_), fused["agree"]),
+        max_abs_err=max(err_, fused["max_abs_err"]), ms=fused["ms"],
+        plain_ms=fused["plain_ms"], per_level_ms=kms,
+        per_level_plain_ms=pms, fused=fused, bound=bound(byt, flo),
         shapes=f"{NQ} queries, levels {g0b.max_level}..1 of the bf16 shard "
-               "0's vanilla graph")
-    check(report["greedy_descent.bf16"]["agree"] >= 0.99,
+               f"0's vanilla graph: one launch {fused['ms']:.4f} ms, per "
+               f"level {kms:.4f} ms")
+    check(report["greedy_descent.bf16"]["agree"] >= 0.99
+          and fused["path_agree"] >= 0.99,
           f"greedy_descent (bf16) disagrees with its plain version: "
           f"{report['greedy_descent.bf16']}")
 
@@ -2016,27 +2077,42 @@ def main() -> int:
     # rows (the level-0-only inserts), each level from the plain state
     top = len(adjs) - 1
     pc, pd = gs.entry_dist(x, xn, q4, qn4, entry)
+    # its bound: the distinct rows fetched at each level and vectors scored
+    # over all levels (the plain walk's ids; the top levels' few nodes are
+    # read again and again), the queries once for the one launch
     eq, tot, err, k_ms, p_ms, e_bytes, e_flops = 0, 0, 0.0, 0.0, 0.0, 0, 0
+    vecs = []
     for l in range(top, 0, -1):
         st = (x, q4, qn4, adjs[l], pc, pd, act)
         kc, kd, kh, kdc = gs.greedy_descent(*st)
         k_ms += cuda_ms(lambda: gs.greedy_descent(*st))
         p_ms += cuda_ms(lambda: gs.greedy_descent_plain(*st), 1)
-        npc, npd, _, _ = gs.greedy_descent_plain(*st)
+        npc, npd, _, _ = gs.greedy_descent_plain(*st, seen=(sn := []))
         same = kc == npc
         eq, tot = eq + int(same.sum()), tot + len(same)
         if same.any():
             err = max(err, float((kd - npd)[same].abs().max()))
-        e_bytes += (int(kh.sum()) * adjs[l].shape[1] * 4
-                    + int(kdc.sum()) * d * 4 + q4.numel() * 4 + len(q4) * 16)
+        e_bytes += distinct([a for a, _ in sn]) * adjs[l].shape[1] * 4
+        vecs += [v for _, v in sn]
         e_flops += int(kdc.sum()) * 4 * d
         pc, pd = npc, npd
+    e_bytes += distinct(vecs) * d * 4 + q4.numel() * 4 + len(q4) * 16
+    # the one launch _build_search0 makes: levels top..1, the inactive rows
+    # stopping at the top
+    c0, d0 = gs.entry_dist(x, xn, q4, qn4, entry)
+    fused = descent_pair((x, q4, qn4, adjs[top:0:-1], top, c0, d0),
+                         dict(stop=torch.where(act, 0, top).to(torch.int32)))
     report["greedy_descent"] = dict(
-        agree=eq / max(1, tot), max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-        bound=bound(e_bytes, e_flops),
+        agree=min(eq / max(1, tot), fused["agree"]),
+        max_abs_err=max(err, fused["max_abs_err"]), ms=fused["ms"],
+        plain_ms=fused["plain_ms"], per_level_ms=k_ms,
+        per_level_plain_ms=p_ms, fused=fused, bound=bound(e_bytes, e_flops),
         shapes=f"{len(q4)} queries of one insert batch, levels {top}..1, "
-               f"{int(act.sum())} active")
-    check(eq / max(1, tot) >= 0.99,
+               f"{int(act.sum())} active: one launch {fused['ms']:.4f} ms "
+               f"(the main path's), {top} per-level launches "
+               f"{k_ms:.4f} ms")
+    check(eq / max(1, tot) >= 0.99 and fused["agree"] >= 0.99
+          and fused["path_agree"] >= 0.99,
           f"greedy_descent disagrees: {report['greedy_descent']}")
 
     # Kβ in build mode: _build_search0's level-0 beam from the greedy seeds
@@ -2049,10 +2125,13 @@ def main() -> int:
               torch.where(act, pd, float("inf"))[:, None].contiguous(),
               torch.where(act, pc, -1)[:, None].contiguous())
     bd, bi, bh, bc = gs.beam_search(*b_args, **kw0)
-    pbd, pbi, _, pbc = gs.beam_search_plain(*b_args, **kw0)
+    pbd, pbi, _, pbc = gs.beam_search_plain(*b_args, **kw0, seen=(sn := []))
     same = bi == pbi
     slots = float(same[act].float().mean())
-    b_bytes = (int(bh.sum()) * adjs[0].shape[1] * 4 + int(bc.sum()) * d * 4
+    # its bound: the distinct rows fetched and vectors scored (the plain
+    # run's ids), the queries, the seeds and the results
+    b_bytes = (distinct([a for a, _ in sn]) * adjs[0].shape[1] * 4
+               + distinct([v for _, v in sn]) * d * 4
                + q4.numel() * 4 + len(q4) * (8 + efc * 8))
     report["beam_search"] = dict(
         agree=slots, max_abs_err=float(
@@ -2080,14 +2159,25 @@ def main() -> int:
     kw1 = dict(P=efc, ef_eff=efc, pop_width=1, cw=adjs[1].shape[1],
                max_iters=2 * efc + 64, k=efc)
     c_args = (x, q4, qn4, adjs[1], buf_d.contiguous(), buf_id.contiguous())
-    cdk, cik, _, _ = gs.beam_search(*c_args, **kw1)
-    cdp, cip, _, _ = gs.beam_search_plain(*c_args, **kw1)
+    cdk, cik, chk, cdc = gs.beam_search(*c_args, **kw1)
+    cdp, cip, _, _ = gs.beam_search_plain(*c_args, **kw1, seen=(sn := []))
     c_slots = float((cik == cip).float().mean())
     c_ms = cuda_ms(lambda: gs.beam_search(*c_args, **kw1))
     c_pms = cuda_ms(lambda: gs.beam_search_plain(*c_args, **kw1), 1)
+    # its bound: the distinct rows fetched and vectors scored (level 1 holds
+    # few nodes, each scored for many queries), the queries, and the
+    # carried buffer read and written whole
+    c_bound = bound(distinct([a for a, _ in sn]) * adjs[1].shape[1] * 4
+                    + distinct([v for _, v in sn]) * d * 4 + q4.numel() * 4
+                    + len(q4) * (8 + 2 * efc * 8), int(cdc.sum()) * 4 * d)
+    report["beam_search"]["carried"] = dict(
+        ms=c_ms, plain_ms=c_pms, bound=c_bound, hops=int(chk.sum()),
+        dcomp=int(cdc.sum()), slots=c_slots)
     report["beam_search"]["shapes"] += (
         f"; carried buffer at level 1 (E=1, S=P={efc}, {len(q4)} queries): "
-        f"slots {c_slots:.5f}, {c_ms:.3f} ms vs plain {c_pms:.3f} ms")
+        f"slots {c_slots:.5f}, {c_ms:.3f} ms vs plain {c_pms:.3f} ms, bound "
+        f"{c_bound[0]:.4f} ms ({c_bound[1]}; hops {int(chk.sum())}, dcomp "
+        f"{int(cdc.sum())})")
     check(c_slots >= 0.99, f"beam_search (carried buffer) disagrees: "
                            f"{c_slots}")
 
@@ -2232,6 +2322,19 @@ def main() -> int:
     err_seed = float((sd - psd[:, :32]).abs().max())
     seed_ms = cuda_ms(lambda: bf.topk_dist(qall, up_vecs, up_vn, 32,
                                            row_ids=up_ids))
+    # a server batch (12 queries, as the HTTP batcher forms them) over the
+    # same seed table
+    q12 = qall[:12].contiguous()
+    vd_, vi_ = bf.topk_dist(q12, up_vecs, up_vn, 32, row_ids=up_ids)
+    pvd, pvi = bf.topk_dist_plain(q12, up_vecs, up_vn, 33, row_ids=up_ids)
+    agree_sv = tie_ok(vi_.cpu().numpy(), pvi.cpu().numpy(),
+                      pvd.cpu().numpy(), 32)
+    err_sv = float((vd_ - pvd[:, :32]).abs().max())
+    server_ms = cuda_ms(lambda: bf.topk_dist(q12, up_vecs, up_vn, 32,
+                                             row_ids=up_ids), 20)
+    n_up = up_vecs.shape[0]
+    server_bound = bound(n_up * (d * 4 + 8) + 12 * (d * 4 + 32 * 8),
+                         2 * 12 * n_up * d)
     # the two-call composite torch.cdist(q, x).topk(k, largest=False), fp32
     # with TF32 off, at both shapes: a yardstick, not one library call
     tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -2245,17 +2348,21 @@ def main() -> int:
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     report["topk_dist"] = dict(
-        cdist_topk_ms=cdist_topk_ms, seed_ms=seed_ms,
-        agree=min(agree_gt, agree_seed), max_abs_err=max(err_gt, err_seed),
+        cdist_topk_ms=cdist_topk_ms, seed_ms=seed_ms, server_ms=server_ms,
+        server_bound=server_bound,
+        agree=min(agree_gt, agree_seed, agree_sv),
+        max_abs_err=max(err_gt, err_seed, err_sv),
         ms=cuda_ms(lambda: bf.topk_dist(q512, x, xn, 10)),
         plain_ms=cuda_ms(lambda: bf.topk_dist_plain(q512, x, xn, 10), 1),
         bound=bound(x.numel() * 4 + n * 4 + q512.numel() * 4 + 512 * 80,
                     2 * 512 * n * d),
         shapes=f"GT 512x{n} k=10 (agree {agree_gt:.4f}); seeds {NQ}x"
                f"{up_vecs.shape[0]} k=32 (agree {agree_seed:.4f}, kernel "
-               f"{seed_ms:.3f} ms)")
-    check(min(agree_gt, agree_seed) >= 0.99 and
-          max(err_gt, err_seed) <= 1e-4 * (1 + float(pd_.abs().max())),
+               f"{seed_ms:.3f} ms); server batch 12x{n_up} k=32 (agree "
+               f"{agree_sv:.4f}, kernel {server_ms:.4f} ms, bound "
+               f"{server_bound[0]:.4f} ms)")
+    check(min(agree_gt, agree_seed, agree_sv) >= 0.99 and
+          max(err_gt, err_seed, err_sv) <= 1e-4 * (1 + float(pd_.abs().max())),
           f"topk_dist disagrees with its plain version: {report['topk_dist']}")
 
     # Kβ serving: 512 queries, ef=64, pop 8, seeds as chal_search makes them;
@@ -2282,14 +2389,15 @@ def main() -> int:
             f" beam {beam_ms:.3f} ms, search() {row['search_ms']:.3f} ms"
             f" for {NQ} queries")
     # where a vanilla search() call's time goes: the greedy descent (Kε,
-    # levels max..1) and the level-0 beam (Kβ, pop 4) on the card
+    # levels max..1 in one launch, as level_search runs it) and the level-0
+    # beam (Kβ, pop 4) on the card
     g = h.graph
 
     def descend():
         cur, dist = gs.entry_dist(x, xn, qall, qn_all, g.entry)
-        for l in range(g.max_level, 0, -1):
-            cur, dist, _, _ = gs.greedy_descent(x, qall, qn_all, g.adjs[l],
-                                                cur, dist)
+        cur, dist, _, _ = gs.greedy_descent_levels(
+            x, qall, qn_all, g.adjs[g.max_level:0:-1], g.max_level, cur,
+            dist)
         return cur[:, None].contiguous(), dist[:, None].contiguous()
 
     greedy_ms = cuda_ms(descend)
@@ -2429,15 +2537,18 @@ def main() -> int:
                                             args_b[4][:, 0], kw_b["P"])
             extra = dict(allowed=filt, track_d=t_d, track_id=t_i)
         k_o = gs.beam_search(*args_b, **kw_b, **extra)
-        p_o = gs.beam_search_plain(*args_b, **kw_b, **extra)
+        p_o = gs.beam_search_plain(*args_b, **kw_b, **extra,
+                                   seen=(sn := []))
         col = 5 if filt is not None else 1
         same = k_o[col] == p_o[col]
         fin = same & torch.isfinite(p_o[col - 1])
         hops_, dc_ = int(k_o[2].sum()), int(k_o[3].sum())
-        n_bytes = (hops_ * fetch.width * 4 + dc_ * d * 4 + nq * d * 4
+        n_vec = distinct([v for _, v in sn])
+        n_bytes = (distinct([a for a, _ in sn]) * fetch.width * 4
+                   + n_vec * d * 4 + nq * d * 4
                    + nq * (kw_b["k"] * 8 + 8) + args_b[4].numel() * 8)
         if filt is not None:  # one allowed byte per scored node; the track
-            n_bytes += dc_ + 2 * nq * kw_b["P"] * 8
+            n_bytes += n_vec + 2 * nq * kw_b["P"] * 8
         rep = dict(
             agree=float(same.float().mean()),
             max_abs_err=float((k_o[col - 1] - p_o[col - 1])[fin].abs().max()),
@@ -2511,7 +2622,7 @@ def main() -> int:
     def greedy_pair(form):
         pc_, pd_ = gs.entry_dist(x, xn, qall, qn_all, gq.entry)
         eq_, tot_, err_, kms, pms, byt, flo = 0, 0, 0.0, 0.0, 0.0, 0, 0
-        curs = []
+        curs, vecs = [], []
         for l in range(gq.max_level, 0, -1):
             fch = gs.rank_fetch(idx.rank_up, idx.dense_up[l - 1]) \
                 if form == "rank" else gs.chal_fetch(gq.nbr, gq.lvl_off, l,
@@ -2520,22 +2631,34 @@ def main() -> int:
             kc_, kd_, kh_, kdc_ = gs.greedy_descent(*st_)
             kms += cuda_ms(lambda: gs.greedy_descent(*st_))
             pms += cuda_ms(lambda: gs.greedy_descent_plain(*st_), 1)
-            npc, npd, _, _ = gs.greedy_descent_plain(*st_)
+            npc, npd, _, _ = gs.greedy_descent_plain(*st_, seen=(sn := []))
             same_ = kc_ == npc
             eq_, tot_ = eq_ + int(same_.sum()), tot_ + len(same_)
             if same_.any():
                 err_ = max(err_, float((kd_ - npd)[same_].abs().max()))
-            byt += (int(kh_.sum()) * (fch.width * 4 + 8)
-                    + int(kdc_.sum()) * d * 4 + qall.numel() * 4 + NQ * 16)
+            byt += distinct([a for a, _ in sn]) * (fch.width * 4 + 8)
+            vecs += [v for _, v in sn]
             flo += int(kdc_.sum()) * 4 * d
             curs.append(kc_)
             pc_, pd_ = npc, npd
-        rep = dict(agree=eq_ / max(1, tot_), max_abs_err=err_, ms=kms,
-                   plain_ms=pms, bound=bound(byt, flo),
+        byt += distinct(vecs) * d * 4 + qall.numel() * 4 + NQ * 16
+        fl = [gs.rank_fetch(idx.rank_up, idx.dense_up[l - 1])
+              if form == "rank" else gs.chal_fetch(gq.nbr, gq.lvl_off, l,
+                                                   gq.cap)
+              for l in range(gq.max_level, 0, -1)]
+        c0, d0 = gs.entry_dist(x, xn, qall, qn_all, gq.entry)
+        fused = descent_pair((x, qall, qn_all, fl, gq.max_level, c0, d0), {})
+        rep = dict(agree=min(eq_ / max(1, tot_), fused["agree"]),
+                   max_abs_err=max(err_, fused["max_abs_err"]),
+                   ms=fused["ms"], plain_ms=fused["plain_ms"],
+                   per_level_ms=kms, per_level_plain_ms=pms, fused=fused,
+                   bound=bound(byt, flo),
                    shapes=f"{NQ} queries, levels {gq.max_level}..1 of the "
-                          f"Slim graph through {form} rows")
-        check(rep["agree"] >= 0.99, f"greedy_descent ({form}) disagrees "
-                                    f"with its plain version: {rep}")
+                          f"Slim graph through {form} rows: one launch "
+                          f"{fused['ms']:.4f} ms, per level {kms:.4f} ms")
+        check(rep["agree"] >= 0.99 and fused["path_agree"] >= 0.99,
+              f"greedy_descent ({form}) disagrees with its plain version: "
+              f"{rep}")
         return rep, curs
 
     report["greedy_descent.rank"], cur_r = greedy_pair("rank")
@@ -2720,7 +2843,8 @@ def main() -> int:
         args_q = (None, None, None, gs.dense_fetch(sq.dense0), *est_seeds(sc))
         extra = dict(scorer=sc, pop_track=track0 if with_track else None)
         k_o = gs.beam_search(*args_q, **kw_q, **extra)
-        p_o = gs.beam_search_plain(*args_q, **kw_q, **extra)
+        p_o = gs.beam_search_plain(*args_q, **kw_q, **extra,
+                                   seen=(sn := []))
         if with_track:
             same = k_o[4].ids == p_o[4].ids
             fin = same & torch.isfinite(p_o[4].d)
@@ -2731,12 +2855,14 @@ def main() -> int:
             err_ = est_err(k_o[0][fin], p_o[0][fin])
         hops_, dc_ = int(k_o[2].sum()), int(k_o[3].sum())
         planes = 1 + exq if use_ex else 1
-        n_bytes = (hops_ * sq.dense0.shape[1] * 4 + dc_ * cand_b(use_ex)
+        n_pop = distinct([a for a, _ in sn])
+        n_bytes = (n_pop * sq.dense0.shape[1] * 4
+                   + distinct([v for _, v in sn]) * cand_b(use_ex)
                    + 512 * (p_rot + n_c + 1) * 4 + 512 * 32 * 8
                    + 512 * 64 * 8)
         n_flops = dc_ * 2 * p_rot * planes
         if with_track:  # one raw row per pop, the raw query, the track
-            n_bytes += hops_ * d * 4 + 512 * (d * 4 + 2 * 16 * 8)
+            n_bytes += n_pop * d * 4 + 512 * (d * 4 + 2 * 16 * 8)
             n_flops += hops_ * 4 * d
         rep = dict(
             agree=float(same.float().mean()), max_abs_err=err_,
@@ -2776,6 +2902,7 @@ def main() -> int:
     ent = torch.full((NQ,), gq_.entry, dtype=torch.int32, device=dev)
     pc_, pd_ = ent, None
     eq_, tot_, err_, kms, pms, byt, flo = 0, 0, 0.0, 0.0, 0.0, 0, 0
+    vecs = []
     for l in range(gq_.max_level, 0, -1):
         fch = gs.rank_fetch(sq.rank_up, sq.dense_up[l - 1])
         st_ = (None, None, None, fch, pc_, pd_)
@@ -2783,24 +2910,34 @@ def main() -> int:
         kms += cuda_ms(lambda: gs.greedy_descent(*st_, scorer=sc_all))
         pms += cuda_ms(lambda: gs.greedy_descent_plain(*st_, scorer=sc_all),
                        1)
-        npc, npd, _, _ = gs.greedy_descent_plain(*st_, scorer=sc_all)
+        npc, npd, _, _ = gs.greedy_descent_plain(*st_, scorer=sc_all,
+                                                 seen=(sn := []))
         same_ = kc_ == npc
         eq_, tot_ = eq_ + int(same_.sum()), tot_ + len(same_)
         if same_.any():
             err_ = max(err_, est_err(kd_[same_], npd[same_]))
-        byt += (int(kh_.sum()) * (fch.width * 4 + 8)
-                + (int(kdc_.sum()) + NQ * (pd_ is None)) * cand_b(False)
-                + NQ * (p_rot + n_c + 1) * 4 + NQ * 16)
+        byt += distinct([a for a, _ in sn]) * (fch.width * 4 + 8)
+        vecs += [v for _, v in sn]
         flo += (int(kdc_.sum()) + NQ * (pd_ is None)) * 2 * p_rot
         pc_, pd_ = npc, npd
+    byt += (distinct(vecs) * cand_b(False) + NQ * (p_rot + n_c + 1) * 4
+            + NQ * 16)
+    fused = descent_pair(
+        (None, None, None, [gs.rank_fetch(sq.rank_up, sq.dense_up[l - 1])
+                            for l in range(gq_.max_level, 0, -1)],
+         gq_.max_level, ent, None), dict(scorer=sc_all), est_err)
     report["greedy_descent.quant"] = dict(
-        agree=eq_ / max(1, tot_), max_abs_err=err_, ms=kms, plain_ms=pms,
-        bound=bound(byt, flo),
+        agree=min(eq_ / max(1, tot_), fused["agree"]),
+        max_abs_err=max(err_, fused["max_abs_err"]), ms=fused["ms"],
+        plain_ms=fused["plain_ms"], per_level_ms=kms,
+        per_level_plain_ms=pms, fused=fused, bound=bound(byt, flo),
         shapes=f"{NQ} queries, levels {gq_.max_level}..1 of the SlimQ graph "
                f"through rank rows, 1-bit estimates ({cand_b(False)} B per "
-               "scored candidate), the entry point scored at the top level; "
-               "max_abs_err relative to 1 + |estimate|")
-    check(report["greedy_descent.quant"]["agree"] >= 0.99,
+               "scored candidate), the entry point scored first: one launch "
+               f"{fused['ms']:.4f} ms, per level {kms:.4f} ms; max_abs_err "
+               "relative to 1 + |estimate|")
+    check(report["greedy_descent.quant"]["agree"] >= 0.99
+          and fused["path_agree"] >= 0.99,
           f"greedy_descent (quant) disagrees with its plain version: "
           f"{report['greedy_descent.quant']}")
 
@@ -3249,7 +3386,7 @@ def main() -> int:
                                     "a main path")
     classes = launch_classes(MAIN_SHAPES)
     say(f"kernel launch classes: {json.dumps(classes)}")
-    for kern in ("beam_search", "rng_prune"):
+    for kern in ("beam_search", "rng_prune", "topk_dist", "greedy_descent"):
         total = sum(p_[kern] for p_ in paths)
         by_class = sum(v for k_, v in classes.items()
                        if k_.startswith(kern + " "))

@@ -586,47 +586,88 @@ struct Quant {
   int C;
 };
 
-// Estimated distance of node `id` by one warp (every lane gets it). qr: the
-// query's q_rot (shared or global memory), ga: its g_add row. Lane j owns
-// dimension j of every word: the word is broadcast from the lane that
-// loaded it and lane j adds q_rot[32 w + j] where bit j is set.
+// Estimated distances of R nodes ids[r] (r < nr; rows r >= nr are not
+// read) by one warp: the code words of all R rows are loaded before any is
+// summed, so a warp has R rows in flight instead of one; the lane sums are
+// reduced by warp_sum_rows, and lane l returns the estimate of row
+// l / (32 / R). qr: the query's q_rot (shared or global memory), ga: its
+// g_add row. Lane j owns dimension j of every word: the word is broadcast
+// from the lane that loaded it and lane j adds q_rot[32 w + j] where bit j
+// is set.
 //   1-bit: f_add + g_add + f_rescale * (<q, bin> - sumq / 2)
 //   ex:    f_add_ex + g_add + f_rescale_ex *
 //          (2^ex <q, bin> + sum_b 2^b <q, ex_b> - (2^ex - 1/2) sumq)
-__device__ __forceinline__ float quant_score(const Quant& z, const float* qr,
-                                             const float* ga, float sumq,
-                                             int id) {
+template <int R>
+__device__ __forceinline__ float quant_score_rows(const Quant& z,
+                                                  const float* qr,
+                                                  const float* ga, float sumq,
+                                                  const int (&ids)[R],
+                                                  int nr) {
   const int lane = threadIdx.x & 31;
-  const uint32_t* row = z.rows + (size_t)id * z.stride;
   const int nb = z.nb;
   const int planes = z.use_ex ? 1 + z.ex_bits : 1;
-  float a_bin = 0.f, a_ex = 0.f;
+  float a_bin[R], a_ex[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) a_bin[r] = a_ex[r] = 0.f;
   for (int p = 0; p < planes; ++p) {
     const float wgt = p ? (float)(1 << (p - 1)) : 1.f;
-    float acc = 0.f;
+    float acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = 0.f;
     for (int w0 = 0; w0 < nb; w0 += 32) {
       const int cnt = min(32, nb - w0);
-      const uint32_t mine = lane < cnt ? __ldg(row + p * nb + w0 + lane) : 0u;
+      uint32_t mine[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        mine[r] = (r < nr && lane < cnt)
+                      ? __ldg(z.rows + (size_t)ids[r] * z.stride + p * nb +
+                              w0 + lane)
+                      : 0u;
       for (int w = 0; w < cnt; ++w) {
-        const uint32_t word = __shfl_sync(HS_FULL, mine, w);
-        if ((word >> lane) & 1u) acc += qr[(w0 + w) * 32 + lane];
+        const float qe = qr[(w0 + w) * 32 + lane];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const uint32_t word = __shfl_sync(HS_FULL, mine[r], w);
+          if ((word >> lane) & 1u) acc[r] += qe;
+        }
       }
     }
-    if (p) a_ex = fmaf(wgt, acc, a_ex); else a_bin = acc;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (p) a_ex[r] = fmaf(wgt, acc[r], a_ex[r]);
+      else a_bin[r] = acc[r];
+    }
   }
-  const uint32_t* tail = row + nb * (1 + z.ex_bits);
-  const float f_add = __uint_as_float(__ldg(tail + (z.use_ex ? 2 : 0)));
-  const float f_rescale = __uint_as_float(__ldg(tail + (z.use_ex ? 3 : 1)));
-  const int cid = static_cast<int>(__ldg(tail + 4));
+  const int me = lane / (32 / R);
+  int id = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (r == me) id = ids[r];
+  const bool ok = me < nr;
+  const uint32_t* tail = z.rows + (size_t)id * z.stride + nb * (1 + z.ex_bits);
+  const float f_add = ok ? __uint_as_float(__ldg(tail + (z.use_ex ? 2 : 0)))
+                         : 0.f;
+  const float f_rescale =
+      ok ? __uint_as_float(__ldg(tail + (z.use_ex ? 3 : 1))) : 0.f;
+  const int cid = ok ? static_cast<int>(__ldg(tail + 4)) : 0;
   const float g = ga[cid];
-  const float ip_bin = warp_sum(a_bin);
+  warp_sum_rows<R>(a_bin);
+  const float ip_bin = a_bin[0];
   if (!z.use_ex) return (f_add + g) + f_rescale * (ip_bin - 0.5f * sumq);
-  const float ip_ex = warp_sum(a_ex);
+  warp_sum_rows<R>(a_ex);
+  const float ip_ex = a_ex[0];
   const float two_ex = (float)(1 << z.ex_bits);
   return (f_add + g) +
          f_rescale * ((two_ex * ip_bin + ip_ex) - (two_ex - 0.5f) * sumq);
 }
 
+// The estimate of one node `id` by one warp (every lane gets it).
+__device__ __forceinline__ float quant_score(const Quant& z, const float* qr,
+                                             const float* ga, float sumq,
+                                             int id) {
+  const int ids[1] = {id};
+  return quant_score_rows<1>(z, qr, ga, sumq, ids, 1);
+}
 
 // Rerank track of the quantized beam (graph/search.py PopTrack; JAX: the
 // pop_hook of index/slimq.py _slimq_search_jit): every popped node's exact

@@ -330,10 +330,10 @@ def _to_dev(a: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 def _build_search(adjs, entry: int, vectors, vn, q, lp_eff: np.ndarray, *,
                   max_level: int, efc: int, max_iters: int, metric: str):
-    """Candidate search of upper-level inserts: greedy descent (Kε) above
-    each point's level lp_eff (host int32[B]), a fresh single-seed buffer at
-    it, and the ef_construction beam (Kβ, pop 1) at and below it, the buffer
-    carried from level to level. Returns per-level buffers (d f32[L+1, B,
+    """Candidate search of upper-level inserts: greedy descent (Kε, one
+    launch for all levels) above each point's level lp_eff (host int32[B]),
+    a fresh single-seed buffer at it, and the ef_construction beam (Kβ, pop
+    1) at and below it, the buffer carried from level to level. Returns per-level buffers (d f32[L+1, B,
     efc], ids i32[L+1, B, efc]), L = max_level; level l's rows matter where
     lp_eff >= l."""
     dev = q.device
@@ -341,12 +341,15 @@ def _build_search(adjs, entry: int, vectors, vn, q, lp_eff: np.ndarray, *,
     cur, curdist = gs.entry_dist(vectors, vn, q, qn, entry, metric)
     buf_d, buf_id = gs.beam_init(cur, curdist, efc)
     lp = _to_dev(lp_eff, dev)
+    # every query's descent (levels above its lp_eff) lies above its beam
+    # levels, so all descents run first, in one Kε launch
+    if (lp_eff < max_level).any():
+        cur, curdist, _, _ = gs.greedy_descent_levels(
+            vectors, q, qn, adjs[max_level:0:-1], max_level, cur, curdist,
+            lp, metric)
     out_d, out_i = [None] * (max_level + 1), [None] * (max_level + 1)
     for l in range(max_level, -1, -1):
         # skip what no query does at this level (the host knows lp_eff)
-        if (lp_eff < l).any():
-            cur, curdist, _, _ = gs.greedy_descent(
-                vectors, q, qn, adjs[l], cur, curdist, lp < l, metric)
         if (lp_eff == l).any():
             buf_d, buf_id = gs.beam_reseed(buf_d, buf_id, cur, curdist,
                                            lp == l)
@@ -365,16 +368,17 @@ INSERT_POP_WIDTH = 8
 def _build_search0(adjs, entry: int, vectors, vn, q, active, *,
                    max_level: int, efc: int, max_iters: int, metric: str):
     """Candidate search of level-0-only inserts (``active`` bool[B]):
-    greedy descent through every upper level (Kε), then one multi-pop
+    greedy descent through every upper level (Kε, one launch), then one
+    multi-pop
     ef_construction beam at level 0 from that seed (Kβ, one launch, pop
     INSERT_POP_WIDTH, no scan cap: the JAX straggler stages leave per-query
     results unchanged and share one global iteration budget). Inactive rows
     come back empty (id -1). Returns (d f32[B, efc], ids i32[B, efc])."""
     qn = sq_norms(q)
     cur, curdist = gs.entry_dist(vectors, vn, q, qn, entry, metric)
-    for l in range(max_level, 0, -1):
-        cur, curdist, _, _ = gs.greedy_descent(
-            vectors, q, qn, adjs[l], cur, curdist, active, metric)
+    cur, curdist, _, _ = gs.greedy_descent_levels(
+        vectors, q, qn, adjs[max_level:0:-1], max_level, cur, curdist,
+        torch.where(active, 0, max_level).to(torch.int32), metric)
     d, ids, _, _ = gs.beam_search(
         vectors, q, qn, adjs[0],
         torch.where(active, curdist, INF)[:, None].contiguous(),

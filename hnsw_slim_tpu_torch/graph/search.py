@@ -3,7 +3,8 @@ path in full, the vanilla HNSW query path and the pieces the insertion build
 uses.
 
 ``chal_search`` is the JAX function of that name: greedy descent (kernel Kε,
-``greedy_descent``) over levels max_level..threshold_level+1, then beams
+``greedy_descent_levels``, one launch) over levels
+max_level..threshold_level+1, then beams
 (kernel Kβ, ``beam_search``) over levels threshold_level..0 on one carried
 buffer. With threshold level 0 and ``seed_width`` > 1 the descent is
 replaced by seeds: the exact top-S of all level>=1 vectors (kernel Kα,
@@ -68,6 +69,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..index.bruteforce import topk_dist, topk_dist_strata
@@ -222,12 +224,15 @@ def beam_search_plain(vectors, q, qn, rows, seed_d, seed_id, *, P: int,
                       ef_eff: int, pop_width: int, cw: int, max_iters: int,
                       k: int, metric: str = "l2", allowed=None, track_d=None,
                       track_id=None, scorer: QuantScorer | None = None,
-                      pop_track: PopTrack | None = None):
+                      pop_track: PopTrack | None = None,
+                      seen: list | None = None):
     """Plain PyTorch Kβ: the JAX lockstep batched beam, step for step.
     ``rows`` is a Fetch or dense rows. Returns (d f32[B, k], ids i32[B, k],
     hops i32[B], dcomp i32[B]); with ``allowed`` (bool[N]) and the incoming
     track (f32/i32[B, P]) two more: the track after the beam; with
-    ``pop_track`` one more: the PopTrack after the beam."""
+    ``pop_track`` one more: the PopTrack after the beam. A ``seen`` list
+    gets, each step, the ids whose rows were fetched and the ids scored
+    (what a bound on the call's traffic counts)."""
     fetch = as_fetch(rows)
     b, S = seed_d.shape
     dev = seed_d.device
@@ -283,6 +288,8 @@ def beam_search_plain(vectors, q, qn, rows, seed_d, seed_id, *, P: int,
                 cand_sorted = torch.where(dup2, BIG, cand_sorted)
             cand_sorted = cand_sorted[:, :cw]
         cand = cand_sorted < BIG
+        if seen is not None:
+            seen.append((pops[pops >= 0], cand_sorted[cand]))
         safe = torch.where(cand, cand_sorted, 0)
         if scorer is not None:
             d = packed_estimate_plain(scorer, safe)
@@ -444,19 +451,23 @@ def _beam_search_quant(fetch, scorer, pop_track, seed_d, seed_id, P, ef_eff,
 
 def greedy_descent_plain(vectors, q, qn, rows, cur, curdist, active=None,
                          metric: str = "l2",
-                         scorer: QuantScorer | None = None):
+                         scorer: QuantScorer | None = None,
+                         seen: list | None = None):
     """Plain PyTorch Kε: JAX ``greedy_level`` step for step (the batch moves
     in lockstep while any query still improves), over a Fetch or dense rows,
     on RaBitQ estimates when ``scorer`` is given (``vectors``, ``q``, ``qn``
     unused; ``curdist`` None: each query starts from the estimate of its
     ``cur``). Returns (cur i32[B], curdist f32[B], hops i32[B] rows fetched,
-    dcomp i32[B] distances)."""
+    dcomp i32[B] distances). A ``seen`` list gets, each step, the ids whose
+    rows were fetched and the ids scored (as beam_search_plain's)."""
     fetch = as_fetch(rows)
     b = cur.shape[0]
     dev = cur.device
     cur = cur.to(torch.int32).clone()
     if curdist is None:
         curdist = packed_estimate_plain(scorer, cur[:, None])[:, 0]
+        if seen is not None:
+            seen.append((cur[:0], cur))
     curdist = curdist.clone()
     changed = (torch.ones(b, dtype=torch.bool, device=dev) if active is None
                else active.clone())
@@ -465,6 +476,8 @@ def greedy_descent_plain(vectors, q, qn, rows, cur, curdist, active=None,
     while bool(changed.any()):
         ids = fetch_rows_plain(fetch, cur)
         valid = (ids >= 0) & changed[:, None]
+        if seen is not None:
+            seen.append((cur[changed], ids[valid]))
         safe = ids.clamp(min=0)
         if scorer is not None:
             d = packed_estimate_plain(scorer, safe)
@@ -486,18 +499,80 @@ def greedy_descent_plain(vectors, q, qn, rows, cur, curdist, active=None,
 def greedy_descent(vectors, q, qn, rows, cur, curdist, active=None,
                    metric: str = "l2", scorer: QuantScorer | None = None):
     """Kε: one level of greedy descent over a Fetch (or dense rows
-    i32[N, W]), one warp per query (csrc/greedy_descent.cu), on RaBitQ
-    estimates when ``scorer`` is given. ``active`` bool[B] (None = all):
-    inactive queries keep (cur, curdist). With a scorer, ``curdist`` None
-    lets the kernel score each query's ``cur`` itself before it descends
-    (the SlimQ search's entry point; with no query active that is all the
-    launch does). CPU tensors run ``greedy_descent_plain``. Same arguments
-    and results."""
+    i32[N, W]), one warp per query (csrc/greedy_descent.cu: the launch of
+    greedy_descent_levels with one level), on RaBitQ estimates when
+    ``scorer`` is given. ``active`` bool[B] (None = all): inactive queries
+    keep (cur, curdist). With a scorer, ``curdist`` None lets the kernel
+    score each query's ``cur`` itself before it descends (the SlimQ search's
+    entry point; with no query active that is all the launch does). CPU
+    tensors run ``greedy_descent_plain``. Same arguments and results."""
     if not cur.is_cuda:
         return greedy_descent_plain(vectors, q, qn, rows, cur, curdist,
                                     active, metric, scorer)
-    fetch = as_fetch(rows)
+    stop = None
+    if active is not None:
+        cuda.require(active, torch.bool, "active", (cur.shape[0],))
+        stop = torch.where(active, 0, 1).to(torch.int32)
+    return _descend(vectors, q, qn, [as_fetch(rows)], 1, cur, curdist, stop,
+                    metric, scorer, "level")
+
+
+MAX_LEVELS = 32  # levels of one fused Kε launch (csrc/greedy_descent.cu)
+
+
+def greedy_descent_levels_plain(vectors, q, qn, fetches, top: int, cur,
+                                curdist, stop=None, metric: str = "l2",
+                                scorer: QuantScorer | None = None):
+    """Plain twin of ``greedy_descent_levels``: greedy_descent_plain level
+    by level, ``fetches[i]`` being level top - i, query b active at level l
+    only if l > stop[b] (stop None: every level). Returns (cur, curdist,
+    hops, dcomp) with hops and dcomp summed over the levels."""
+    cur = cur.to(torch.int32)
+    if curdist is None:
+        curdist = packed_estimate_plain(scorer, cur[:, None])[:, 0]
+    hops = torch.zeros(cur.shape[0], dtype=torch.int32, device=cur.device)
+    dcomp = torch.zeros_like(hops)
+    for i, rows in enumerate(fetches):
+        act = None if stop is None else stop < top - i
+        cur, curdist, h, dc = greedy_descent_plain(vectors, q, qn, rows, cur,
+                                                   curdist, act, metric,
+                                                   scorer)
+        hops, dcomp = hops + h, dcomp + dc
+    return cur, curdist, hops, dcomp
+
+
+def greedy_descent_levels(vectors, q, qn, fetches, top: int, cur, curdist,
+                          stop=None, metric: str = "l2",
+                          scorer: QuantScorer | None = None):
+    """Kε over a run of levels in one launch (csrc/greedy_descent.cu):
+    ``fetches[i]`` (a Fetch or dense rows, at most MAX_LEVELS of them) is
+    level top - i, and query b walks level l only if l > stop[b] (``stop``
+    i32[B], None: every level; at or above ``top``: none), on its own,
+    without waiting for the batch at a level boundary. Same results as greedy_descent level by level (see
+    greedy_descent_levels_plain, which CPU tensors run); with a scorer,
+    ``curdist`` None lets the kernel score each query's ``cur`` first (with
+    no level, that is all the launch does)."""
+    if not cur.is_cuda:
+        return greedy_descent_levels_plain(vectors, q, qn, fetches, top, cur,
+                                           curdist, stop, metric, scorer)
+    fetches = [as_fetch(f) for f in fetches]
+    if not fetches and curdist is not None:
+        zeros = torch.zeros(cur.shape, dtype=torch.int32, device=cur.device)
+        return cur.to(torch.int32), curdist, zeros, zeros.clone()
+    if len(fetches) > MAX_LEVELS:
+        raise ValueError(f"greedy_descent_levels: {len(fetches)} levels, "
+                         f"one launch takes at most {MAX_LEVELS}")
+    return _descend(vectors, q, qn, fetches, top, cur, curdist, stop, metric,
+                    scorer, f"levels {len(fetches)}")
+
+
+def _descend(vectors, q, qn, fetches, top, cur, curdist, stop, metric,
+             scorer, shape):
+    """The Kε launch of greedy_descent_levels on CUDA tensors; ``shape``
+    is its launch class."""
     b = cur.shape[0]
+    dev = cur.device
+    zeros = torch.zeros((b,), dtype=torch.int32, device=dev)
     if scorer is None:
         d = q.shape[1]
         cuda.require(vectors, cuda.ROW_TYPES, "vectors", (-1, d))
@@ -510,32 +585,33 @@ def greedy_descent(vectors, q, qn, rows, cur, curdist, active=None,
     if score_cur:
         if scorer is None:
             raise ValueError("greedy_descent: curdist=None needs a scorer")
-        curdist = torch.empty((b,), dtype=torch.float32, device=cur.device)
-    fargs = _fetch_args(fetch)
-    if active is not None:
-        cuda.require(active, torch.bool, "active", (b,))
+        curdist = torch.empty((b,), dtype=torch.float32, device=dev)
+    fargs = [_fetch_args(f) for f in fetches]
+    ptrs = np.array([[a[0], a[1] or 0] for a in fargs], np.int64)
+    params = np.array([a[2:] for a in fargs], np.int32)
+    if stop is not None:
+        cuda.require(stop, torch.int32, "stop", (b,))
     cur = cur.to(torch.int32).contiguous().clone()
     curdist = curdist.to(torch.float32).contiguous().clone()
     cuda.require(cur, torch.int32, "cur", (b,))
     cuda.require(curdist, torch.float32, "curdist", (b,))
-    hops = torch.zeros((b,), dtype=torch.int32, device=cur.device)
-    dcomp = torch.zeros((b,), dtype=torch.int32, device=cur.device)
-    modes = () if fetch.mode == "dense" else (fetch.mode,)
+    hops, dcomp = zeros, zeros.clone()
+    modes = tuple(sorted({f.mode for f in fetches} - {"dense"}))
+    lvl = (len(fetches), int(top), ptrs.ctypes.data, params.ctypes.data)
+    stop_p = None if stop is None else stop.data_ptr()
     if b and scorer is not None:
         cuda.launch(
-            "greedy_descent", *scorer.args(), *fargs,
-            None if active is None else active.data_ptr(), b, int(score_cur),
+            "greedy_descent", *scorer.args(), *lvl, stop_p, b, int(score_cur),
             cur.data_ptr(), curdist.data_ptr(), hops.data_ptr(),
-            dcomp.data_ptr(), entry="greedy_descent_quant",
-            modes=modes + ("quant",))
+            dcomp.data_ptr(), entry="greedy_levels_quant",
+            modes=modes + ("quant",), shape=shape)
     elif b:
-        entry, modes = cuda.row_type(vectors, "greedy_descent", modes)
+        entry, modes = cuda.row_type(vectors, "greedy_levels", modes)
         cuda.launch(
-            "greedy_descent", vectors.data_ptr(), d, *fargs, q.data_ptr(),
-            qn.data_ptr(), None if active is None else active.data_ptr(), b,
-            int(metric == "ip"), cur.data_ptr(), curdist.data_ptr(),
-            hops.data_ptr(), dcomp.data_ptr(), entry=entry, modes=modes,
-        )
+            "greedy_descent", vectors.data_ptr(), d, *lvl, q.data_ptr(),
+            qn.data_ptr(), stop_p, b, int(metric == "ip"), cur.data_ptr(),
+            curdist.data_ptr(), hops.data_ptr(), dcomp.data_ptr(),
+            entry=entry, modes=modes, shape=shape)
     return cur, curdist, hops, dcomp
 
 
@@ -611,9 +687,9 @@ def level_search(adjs, entry: int, vectors, vn, q, *, max_level: int,
     dcomp count the level-0 beam, as in the JAX package."""
     qn = sq_norms(q)
     cur, curdist = entry_dist(vectors, vn, q, qn, entry, metric)
-    for l in range(max_level, 0, -1):
-        cur, curdist, _, _ = greedy_descent(vectors, q, qn, adjs[l], cur,
-                                            curdist, None, metric)
+    cur, curdist, _, _ = greedy_descent_levels(
+        vectors, q, qn, adjs[max_level:0:-1], max_level, cur, curdist, None,
+        metric)
     kw = dict(P=ef, ef_eff=ef, pop_width=pop_width,
               cw=cand_width(ef, pop_width, adjs[0].shape[1], 0),
               max_iters=max_iters, metric=metric)
@@ -680,21 +756,21 @@ def chal_search(graph_nbr, graph_lvl_off, entry, vectors, vn, q, *,
         dcomp = dcomp + (up_ids >= 0).sum().to(torch.int32)
         seeds = (sd.contiguous(), si.contiguous())
     else:
-        for l in range(max_level, threshold_level, -1):
-            fetch = level_fetch(l)
-            if l == 1 and use_seed:
-                pw = min(4, seed_width)
-                d1, i1, h, dc = beam_search(
-                    vectors, q, qn, fetch, curdist[:, None].contiguous(),
-                    cur[:, None].contiguous(), P=seed_width,
-                    ef_eff=seed_width, pop_width=pw,
-                    cw=cand_width(seed_width, pw, fetch.width, 0),
-                    max_iters=max_iters, k=seed_width, metric=metric)
-                hops, dcomp = hops + h, dcomp + dc
-                seeds = (d1, i1)
-                break
-            cur, curdist, _, _ = greedy_descent(vectors, q, qn, fetch, cur,
-                                                curdist, None, metric)
+        # greedy levels max..lo+1; with seeds and no table, level 1 beams
+        lo = 1 if use_seed else threshold_level
+        cur, curdist, _, _ = greedy_descent_levels(
+            vectors, q, qn, [level_fetch(l) for l in range(max_level, lo, -1)],
+            max_level, cur, curdist, None, metric)
+        if use_seed:
+            fetch = level_fetch(1)
+            pw = min(4, seed_width)
+            d1, i1, h, dc = beam_search(
+                vectors, q, qn, fetch, curdist[:, None].contiguous(),
+                cur[:, None].contiguous(), P=seed_width, ef_eff=seed_width,
+                pop_width=pw, cw=cand_width(seed_width, pw, fetch.width, 0),
+                max_iters=max_iters, k=seed_width, metric=metric)
+            hops, dcomp = hops + h, dcomp + dc
+            seeds = (d1, i1)
     if seeds is not None:
         buf_d, buf_id = seeds
         # the allowed track's seed keys off the best seed

@@ -10,10 +10,13 @@ equal distances put the lower row first, as ``lax.top_k`` does.
 (a bfloat16 store, or the seed table gathered from one). ``topk_estimate``
 is its estimate mode, the seed block of the SlimQ search: the same scan and
 running top-k over the 1-bit RaBitQ estimates of a table of packed code
-rows.
+rows. ``scan_plan`` picks each launch's tile shape, row splits and shared
+memory from the call's shape (a pure function, tested on the CPU).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -58,12 +61,104 @@ def topk_dist_plain(q, x, xn, k: int, metric: str = "l2", n_valid: int = -1,
     return best_d, best_i
 
 
-def _splits(b: int, n: int, sms: int) -> int:
-    """Row splits of the scan grid: enough blocks to cover every SM a few
-    times, never a split under 2048 rows."""
-    qblocks = -(-b // 32)
-    want = -(-4 * sms // qblocks)
-    return int(max(1, min(want, n // 2048, 64)))
+SMEM_MAX = 232448  # dynamic shared bytes one block may take (H100)
+SM_SMEM = 233472  # shared bytes of one SM
+# the scan's tile shapes (csrc/topk_dist.cu): name -> (C id, queries, rows)
+SCAN_TILES = {"L": (0, 128, 128), "M": (1, 64, 128), "U": (2, 16, 128),
+              "T": (3, 64, 32)}
+MAX_SPLITS = 256
+
+
+class ScanPlan(NamedTuple):
+    """One Kα launch: tile shape, row splits (grid.y), dynamic shared
+    bytes a block, blocks that fit on one SM at those bytes, and the dims
+    of the query tile a block holds at once (d padded to a multiple of 32
+    when it is resident; fewer: staged in chunks of that many)."""
+
+    tile: str
+    splits: int
+    smem: int
+    blocks_per_sm: int
+    qdims: int
+
+
+def scan_smem(tile: str, d: int, k: int, c: int = 0,
+              qdims: int | None = None) -> int:
+    """Shared bytes of one scan block: the query tile (``qdims`` dims; by
+    default all d, padded to a multiple of 32), the two slab buffers or the
+    distance tile over them, the top-k lists (32 or 64 slots a query), the
+    thresholds and pass flags, and in estimate mode the tile's g_add rows
+    (c centroids). The kernel holds as many whole 32-dim slabs of the query
+    tile as these bytes leave room for."""
+    _, bq, bn = SCAN_TILES[tile]
+    dq = -(-d // 32) * 32 if qdims is None else qdims
+    kl = 32 if k <= 32 else 64
+    u = -(-max(2 * 32 * bn, bq * (bn + 1)) // 4) * 4
+    return 4 * (dq * bq + u + 2 * bq * kl + 3 * bq + bq * c)
+
+
+def scan_plan(b: int, n: int, d: int, k: int, sms: int, *, strata: int = 0,
+              c: int = 0) -> ScanPlan:
+    """The launch plan of a Kα scan of b queries over n rows of d dims (k
+    results a query; ``strata`` segments, one split each; ``c`` centroids
+    in estimate mode) on a card of ``sms`` SMs.
+
+    Tile: T (64 queries x 32 rows) for tables of at most 32 rows and large
+    batches (the KMeans assignment); above 64 queries L (128 x 128, one
+    block an SM, the most FMAs a shared load) for k <= 16, else M (64 x
+    128, two blocks an SM, so one block's top-k fold overlaps the other's
+    FMAs); U (16 x 128) for at most 64 queries. A tile whose resident
+    query tile does not fit gives way to the next one; where none fits
+    (wide rows), U stages its query tile in chunks of ``qdims`` dims, as
+    many as leave two blocks an SM (the only tile compiled to do so).
+    Splits: the count
+    with the least modelled time, the busiest SM's work (its blocks times
+    the row tiles a split holds) over its throughput (0.6 of the FMA rate
+    with one block resident, all of it with two), plus the merge of the
+    per-split lists; batches of at most 64 queries get a block on every SM
+    where the rows allow."""
+    big = "L" if k <= 16 else "M"
+    if n <= 32 and b >= 1024:
+        order = "T" + big + "U"
+    else:
+        order = big + "U" if b > 64 else "U"
+    qdims = -(-d // 32) * 32
+    for tile in order:
+        smem = scan_smem(tile, d, k, c)
+        if smem <= SMEM_MAX:
+            break
+    else:  # tile is U: chunks that leave two blocks an SM
+        rest = scan_smem(tile, 0, k, c)
+        qdims = (SM_SMEM // 2 - 1024 - rest) // (4 * 16 * 32) * 32
+        if qdims < 32:
+            raise ValueError(f"topk_dist: the scan's lists and g_add rows "
+                             f"(k={k}, {c} centroids) leave no shared "
+                             f"memory for the queries")
+        smem = scan_smem(tile, d, k, c, qdims)
+    _, bq, bn = SCAN_TILES[tile]
+    bps = max(1, min(8, SM_SMEM // (smem + 1024)))
+    if strata:
+        return ScanPlan(tile, strata, smem, bps, qdims)
+    qt = -(-b // bq)
+    tiles = max(1, -(-n // bn))
+    tile_clk = bq * bn * (-(-d // 32) * 32) / 128
+    hi = min(tiles, MAX_SPLITS)
+    lo = min(-(-sms // qt), hi) if b <= 64 and qt * tiles >= sms else 1
+    best = None
+    for s in range(lo, hi + 1):
+        per = -(-(-(-n // s)) // bn)
+        nb = -(-qt * s // sms)
+        work = nb * per * tile_clk / min(1.0, 0.6 * min(nb, bps))
+        merge = 0 if s == 1 else s * -(-k // 32) * 60 * -(-b // (sms * 16))
+        cost = work + merge
+        if best is None or cost < 0.98 * best[0]:
+            best = (cost, s)
+    return ScanPlan(tile, best[1], smem, bps, qdims)
+
+
+def _plan(q: torch.Tensor, n: int, k: int, **kw) -> ScanPlan:
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    return scan_plan(q.shape[0], n, q.shape[1], k, sms, **kw)
 
 
 def topk_dist(q, x, xn, k: int, metric: str = "l2", n_valid: int = -1,
@@ -88,18 +183,21 @@ def topk_dist(q, x, xn, k: int, metric: str = "l2", n_valid: int = -1,
     out_i = torch.empty((b, k), dtype=torch.int32, device=q.device)
     if b == 0:
         return out_d, out_i
-    splits = _splits(
-        b, n, torch.cuda.get_device_properties(q.device).multi_processor_count
-    )
-    part_d = torch.empty((splits, b, k), dtype=torch.float32, device=q.device)
-    part_i = torch.empty((splits, b, k), dtype=torch.int32, device=q.device)
+    plan = _plan(q, n, k)
+    part_d = torch.empty((plan.splits, b, k), dtype=torch.float32,
+                         device=q.device)
+    part_i = torch.empty((plan.splits, b, k), dtype=torch.int32,
+                         device=q.device)
+    kth = torch.empty((b,), dtype=torch.int64, device=q.device)
     entry, modes = cuda.row_type(x, "topk_dist")
     cuda.launch(
         "topk_dist", q.data_ptr(), qn.data_ptr(), x.data_ptr(), xn.data_ptr(),
         None if row_ids is None else row_ids.data_ptr(), b, n, d,
         n if n_valid < 0 else n_valid, self_offset, k, int(metric == "ip"),
-        splits, part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
+        SCAN_TILES[plan.tile][0], plan.splits, plan.smem, part_d.data_ptr(),
+        part_i.data_ptr(), kth.data_ptr(), out_d.data_ptr(),
         out_i.data_ptr(), entry=entry, modes=modes,
+        shape=f"{plan.tile} k{k}",
     )
     return out_d, out_i
 
@@ -168,6 +266,7 @@ def topk_dist_strata(q, x, xn, row_ids, seed_width: int, strata: int,
     out_i = torch.empty((b, strata * sps), dtype=torch.int32, device=q.device)
     if b == 0:
         return out_d, out_i
+    plan = _plan(q, n, sps, strata=strata)
     part_d = torch.empty((strata, b, sps), dtype=torch.float32,
                          device=q.device)
     part_i = torch.empty((strata, b, sps), dtype=torch.int32, device=q.device)
@@ -175,8 +274,9 @@ def topk_dist_strata(q, x, xn, row_ids, seed_width: int, strata: int,
     cuda.launch(
         "topk_dist", q.data_ptr(), qn.data_ptr(), x.data_ptr(), xn.data_ptr(),
         row_ids.data_ptr(), b, n, d, sps, strata, int(metric == "ip"),
-        part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
-        out_i.data_ptr(), entry=entry, modes=modes,
+        SCAN_TILES[plan.tile][0], plan.smem, part_d.data_ptr(),
+        part_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), entry=entry,
+        modes=modes, shape=f"strata {plan.tile} k{sps}",
     )
     return out_d, out_i
 
@@ -221,14 +321,17 @@ def topk_estimate(sc: QuantScorer, row_ids, k: int):
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0:
         return out_d, out_i
-    splits = _splits(
-        b, n, torch.cuda.get_device_properties(dev).multi_processor_count)
-    part_d = torch.empty((splits, b, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((splits, b, k), dtype=torch.int32, device=dev)
+    plan = _plan(sc.q_rot, n, k, c=int(sc.g_add.shape[1]))
+    part_d = torch.empty((plan.splits, b, k), dtype=torch.float32,
+                         device=dev)
+    part_i = torch.empty((plan.splits, b, k), dtype=torch.int32, device=dev)
+    kth = torch.empty((b,), dtype=torch.int64, device=dev)
     cuda.launch(
         "topk_dist", *sargs[:4], *sargs[5:], row_ids.data_ptr(), b, n, k,
-        splits, part_d.data_ptr(), part_i.data_ptr(), out_d.data_ptr(),
-        out_i.data_ptr(), entry="topk_estimate", modes=("estimate",))
+        SCAN_TILES[plan.tile][0], plan.splits, plan.smem, part_d.data_ptr(),
+        part_i.data_ptr(), kth.data_ptr(), out_d.data_ptr(),
+        out_i.data_ptr(), entry="topk_estimate", modes=("estimate",),
+        shape=f"estimate {plan.tile} k{k}")
     return out_d, out_i
 
 

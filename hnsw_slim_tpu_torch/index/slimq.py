@@ -104,14 +104,12 @@ def slimq_search(nbr, lvl_off, entry, q_rot, packed, centroids_rot, dataset,
         dcomp = dcomp + (up_ids >= 0).sum().to(torch.int32)
     else:
         cur = torch.full((b,), int(entry), dtype=torch.int32, device=dev)
-        curdist = None  # Kε scores the entry point at its first level
-        for l in range(max_level, threshold_level, -1):
-            cur, curdist, _, _ = gs.greedy_descent(
-                None, None, None, level_fetch(l), cur, curdist, scorer=scorer)
-        if curdist is None:  # no level to descend: the entry's estimate only
-            cur, curdist, _, _ = gs.greedy_descent(
-                None, None, None, level_fetch(max_level), cur, None,
-                torch.zeros(b, dtype=torch.bool, device=dev), scorer=scorer)
+        # one Kε launch scores the entry point, then descends (no level:
+        # the entry's estimate only)
+        cur, curdist, _, _ = gs.greedy_descent_levels(
+            None, None, None,
+            [level_fetch(l) for l in range(max_level, threshold_level, -1)],
+            max_level, cur, None, scorer=scorer)
         buf_d, buf_id = curdist[:, None].contiguous(), cur[:, None].contiguous()
     track = None
     if dataset is not None:

@@ -18,8 +18,9 @@ of the NN-descent candidates and the ids map of the radix sort) the
 launches made in that mode:
 ``reset_launches`` before a run and read the counts after it to show which
 kernels and modes the run went through. ``launch_shapes`` splits the
-launches of Kβ and Kγ by their shape class (pop width, ef and seeds; prune
-form and width) under a caller's ``tagged`` label.
+launches of Kα, Kβ, Kγ and Kε by their shape class (scan mode, tile and k;
+pop width, ef and seeds; prune form and width; one level or a run of
+levels) under a caller's ``tagged`` label.
 """
 
 from __future__ import annotations
@@ -75,13 +76,15 @@ _FETCH = [P, P, I32, I32, I32, I32]  # rows, aux, mode, W, level, stride
 # C signatures: every function returns a cudaError_t as int
 _SIGNATURES = {
     # q, qn, x, xn, row_ids, B, N, D, n_valid, self_offset, k, metric,
-    # splits, part_d, part_i, out_d, out_i, stream
+    # the plan's tile, splits and smem bytes (index/bruteforce.py
+    # scan_plan), part_d, part_i, the splits' thresholds u64[B], out_d,
+    # out_i, stream
     "hs_topk_dist": [P, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32,
-                     P, P, P, P, P],
+                     I32, I32, P, P, P, P, P, P],
     # q, qn, x, xn, row_ids, B, N, D, seeds per segment, strata, metric,
-    # part_d, part_i, out_d, out_id, stream
-    "hs_topk_strata": [P, P, P, P, P, I32, I32, I32, I32, I32, I32, P, P, P,
-                       P, P],
+    # tile, smem, part_d, part_i, out_d, out_id, stream
+    "hs_topk_strata": [P, P, P, P, P, I32, I32, I32, I32, I32, I32, I32, I32,
+                       P, P, P, P, P],
     # vectors, D, fetch (rows, aux, mode, W, level, stride), q, qn, seed_d,
     # seed_id, B, S, P, ef_eff, E, cw, max_iters, k, metric, allowed,
     # track_d, track_id, out_d, out_id, hops, dcomp, track_d_out,
@@ -98,10 +101,15 @@ _SIGNATURES = {
     # out_ids, out_d, out_nf, inserted, stream
     "hs_cand_merge": [P, P, I32, I32, P, P, P, P, I32, I32, I32, I32, P, P,
                       P, P, P],
-    # vectors, D, fetch (rows, aux, mode, W, level, stride), q, qn, active,
+    # vectors, D, levels, top, level fetch pointers i64[levels, 2] and
+    # (mode, W, level, stride) i32[levels, 4] in host memory, q, qn, stop,
     # B, metric, cur, curdist, hops, dcomp, stream
-    "hs_greedy_descent": [P, I32, P, P, I32, I32, I32, I32, P, P, P, I32,
-                          I32, P, P, P, P, P],
+    "hs_greedy_levels": [P, I32, I32, I32, P, P, P, P, P, I32, I32, P, P, P,
+                         P, P],
+    # scorer, levels, top, the two host arrays, stop, B, score_cur, cur,
+    # curdist, hops, dcomp, stream
+    "hs_greedy_levels_quant": _SCORER + [I32, I32, P, P, P, I32, I32, P, P, P,
+                                         P, P],
     # x, signs, fac, B, D, P, out, stream
     "hs_fht_rotate": [P, P, F32, I32, I32, I32, P, P],
     # q_rot, centroids_rot, B, C, P, metric, sumq, g_add, stream
@@ -112,13 +120,11 @@ _SIGNATURES = {
     "hs_beam_search_quant": _SCORER + _FETCH + [
         P, P, I32, I32, I32, I32, I32, I32, I32, I32, I32, P, I32, P, P, I32,
         P, P, P, P, P, P, P, P, P],
-    # scorer, fetch, active, B, score_cur, cur, curdist, hops, dcomp, stream
-    "hs_greedy_descent_quant": _SCORER + _FETCH + [P, I32, I32, P, P, P, P,
-                                                   P],
     # packed table rows, stride, nb, ex_bits, q_rot, sumq, g_add, C, row_ids,
-    # B, N, k, splits, part_d, part_i, out_d, out_i, stream
+    # B, N, k, tile, splits, smem, part_d, part_i, thresholds, out_d, out_i,
+    # stream
     "hs_topk_estimate": [P, I32, I32, I32, P, P, P, I32, P, I32, I32, I32,
-                         I32, P, P, P, P, P],
+                         I32, I32, I32, P, P, P, P, P, P],
     # us, ps, E, adj, deg, cap, ovf, stream
     "hs_rev_append": [P, P, I32, P, P, I32, P, P],
     # adj, cap, of_u, of_p, E, ut, T, new_w, base, ocand, stream
@@ -151,7 +157,7 @@ _SIGNATURES = {
 # the kernels that read rows of the vector store have a bfloat16 entry
 # point of the same signature (``<name>_bf16``)
 for _name in ("hs_topk_dist", "hs_topk_strata", "hs_beam_search",
-              "hs_rng_prune", "hs_greedy_descent", "hs_point_dist"):
+              "hs_rng_prune", "hs_greedy_levels", "hs_point_dist"):
     _SIGNATURES[_name + "_bf16"] = _SIGNATURES[_name]
 
 _LIB = None

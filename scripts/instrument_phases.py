@@ -1,8 +1,13 @@
 #!/usr/bin/env python3
-"""Instrument a COPY of the port's Kβ and Kγ sources with per-phase clocks.
+"""Instrument a COPY of the port's kernel sources with per-phase clocks.
 
     python3 scripts/instrument_phases.py COPY/hnsw_slim_tpu_torch/csrc \
         --design current      # or --design sort: commit f18965d's kernels
+    python3 scripts/instrument_phases.py COPY/hnsw_slim_tpu_torch/csrc \
+        --target scan_descent --design tile   # or --design current
+
+The default target is Kβ and Kγ (read by scripts/beam_prune_ab.py); the
+scan_descent target is Kα and Kε (read by scripts/scan_descent_ab.py).
 
 Thread 0 of each block adds the clock64 cycles between phase marks to a
 per-block sum, and the block adds its sums to a device array at its end;
@@ -22,7 +27,20 @@ time. Slots (beam_search, then rng_prune):
     15 window step (b); rng_prune counters per block in 0-5: windows,
     members, (member, kept row) pairs, survivors of (a), valid candidates,
     kept rows.
-The patches match the two designs' source text and fail on anything else.
+Slots of the scan_descent target (Kα: thread 0 of each block; Kε: lane 0
+of each warp, each clock read after a value that the phase produced, so a
+load's wait falls in the phase that issued it):
+  tile design (commit 65d9c40's kernels): 0 Kα staging (slab loads +
+    barrier), 1 FMA loop + barrier, 2 epilogue + barrier, 3 top-k fold +
+    barrier; 6 Kε row fetch, 7 vector loads + partial dots of a group of
+    four, 8 reductions + argmin of the group, 9 move;
+  current design: 0 Kα slab stores + barrier, 1 FMA loop (the next slab's
+    loads in flight), 2 epilogue + barrier, 3 top-k fold + barrier; 6 Kε
+    row fetch, 7 vector loads + lane sums of a group of rows, 8
+    reductions + the group's argmin, 9 the warp's argmin + move, 10 hops
+    counted, 11 levels walked; Kα counts of warp 0's folds: 12 candidates
+    offered, 13 chunks with a candidate, 14 chunks merged whole.
+The patches match the designs' source text and fail on anything else.
 """
 
 from __future__ import annotations
@@ -44,6 +62,10 @@ extern "C" int hs_phase_read_%(t)s(unsigned long long* host) {
 #define PH_INIT long long ph_t = clock64(); unsigned long long ph[16] = {0};
 #define PH(k) if (threadIdx.x == 0) { long long ph_n = clock64(); ph[k] += ph_n - ph_t; ph_t = ph_n; }
 #define PH_FLUSH(tag) if (threadIdx.x == 0) { for (int ph_i = 0; ph_i < 16; ++ph_i) if (ph[ph_i]) atomicAdd(&g_phase_##tag[ph_i], ph[ph_i]); }
+#define PHW_INIT long long phw_t = clock64(); unsigned long long phw[16] = {0}; int phw_sink = 0;
+#define PHW(k, v) { asm volatile("add.s32 %%0, %%0, %%1;" : "+r"(phw_sink) : "r"((int)(v))); long long phw_n = clock64(); phw[k] += phw_n - phw_t; phw_t = phw_n; }
+#define PHWF(k, v) PHW(k, __float_as_int(v))
+#define PHW_FLUSH(tag) if ((threadIdx.x & 31) == 0) { for (int ph_i = 0; ph_i < 16; ++ph_i) if (phw[ph_i]) atomicAdd(&g_phase_##tag[ph_i], phw[ph_i]); if (phw_sink == 0x7fffffff) g_phase_##tag[15] += 0; }
 '''
 SORT_BEAM = [
     ("  const int W = f.W;\n  const int ew = E * W;", "  PH_INIT\n  const int W = f.W;\n  const int ew = E * W;"),
@@ -113,6 +135,85 @@ CURRENT_PRUNE = [
     ("  if (tid == 0) cnt_out[b] = cnt;\n", "  PH(12)\n  if (tid == 0) { ph[4] += nvalid; ph[5] += cnt; }\n  PH_FLUSH(p)\n  if (tid == 0) cnt_out[b] = cnt;\n"),
 ]
 
+TILE_SCAN = [
+    ("  float ld[4][2];\n  int li[4][2];", "  PH_INIT\n  float ld[4][2];\n  int li[4][2];"),
+    ("      __syncthreads();\n#pragma unroll 8\n", "      __syncthreads();\n      PH(0)\n#pragma unroll 8\n"),
+    ("          acc[1][j] = fmaf(a1, bv, acc[1][j]);\n        }\n      }\n      __syncthreads();\n", "          acc[1][j] = fmaf(a1, bv, acc[1][j]);\n        }\n      }\n      __syncthreads();\n      PH(1)\n"),
+    ("        dt[ty * 2 + a][tx * 4 + j] = dist;\n      }\n    }\n    __syncthreads();\n", "        dt[ty * 2 + a][tx * 4 + j] = dist;\n      }\n    }\n    __syncthreads();\n    PH(2)\n"),
+    ("        list_offer(ld[r], li[r], dt[ql][col], r0 + col, k, lane);\n      }\n    }\n    __syncthreads();\n", "        list_offer(ld[r], li[r], dt[ql][col], r0 + col, k, lane);\n      }\n    }\n    __syncthreads();\n    PH(3)\n"),
+    ("#pragma unroll\n  for (int r = 0; r < 4; ++r) {\n    const int gq = q0 + warp * 4 + r;\n    if (gq >= B) continue;", "  PH_FLUSH(a)\n#pragma unroll\n  for (int r = 0; r < 4; ++r) {\n    const int gq = q0 + warp * 4 + r;\n    if (gq >= B) continue;"),
+]
+TILE_DESCENT = [
+    ("  int hops = 0, dcomp = 0;\n  bool go", "  PHW_INIT\n  int hops = 0, dcomp = 0;\n  bool go"),
+    ("      const int mine = lane < cnt ? __ldg(row + j0 + lane) : -1;\n", "      const int mine = lane < cnt ? __ldg(row + j0 + lane) : -1;\n      PHW(6, mine)\n"),
+    ("              hs::partial_dot(qs, vec + (size_t)id[g] * D, D, vec4, s[g],\n                              n[g]);\n        }\n", "              hs::partial_dot(qs, vec + (size_t)id[g] * D, D, vec4, s[g],\n                              n[g]);\n        }\n        PHWF(7, s[0] + s[1] + s[2] + s[3] + n[0] + n[1] + n[2] + n[3])\n"),
+    ("            best_id = id[g];\n          }\n        }\n", "            best_id = id[g];\n          }\n        }\n        PHWF(8, best_d)\n"),
+    ("      go = false;\n    }\n  }\n", "      go = false;\n    }\n    PHW(9, c)\n  }\n"),
+    ("  if (lane == 0) {\n    cur[b] = c;", "  PHW_FLUSH(e)\n  if (lane == 0) {\n    cur[b] = c;"),
+]
+CURRENT_SCAN = [
+    ("  const int nslab = Dp / BK, qslab", "  PH_INIT\n  const int nslab = Dp / BK, qslab"),
+    ("        }\n        if (more) {\n          slab_store(Us + ((s + 1) & 1) * BK * BN);\n          __syncthreads();\n        }\n", "        }\n        PH(1)\n        if (more) {\n          slab_store(Us + ((s + 1) & 1) * BK * BN);\n          __syncthreads();\n        }\n        PH(0)\n"),
+    ("      if ((pass >> i) & 1u) Fl[fidx<TQ, BQ>(ty, i)] = 1;\n    __syncthreads();\n", "      if ((pass >> i) & 1u) Fl[fidx<TQ, BQ>(ty, i)] = 1;\n    __syncthreads();\n    PH(2)\n"),
+    ("        const int n = __popc(__ballot_sync(HS_FULL, ok));\n", "        const int n = __popc(__ballot_sync(HS_FULL, ok));\n        if (threadIdx.x == 0) { ph[12] += n; ph[13] += n > 0; ph[14] += n >= MERGE_AT; }\n"),
+    ("          atomicMin(gkth + q0 + ql, pair_key(td, ti));\n      }\n    }\n    __syncthreads();\n", "          atomicMin(gkth + q0 + ql, pair_key(td, ti));\n      }\n    }\n    __syncthreads();\n    PH(3)\n"),
+    ("      slab_store(Us);\n      __syncthreads();\n    }\n  }\n", "      slab_store(Us);\n      __syncthreads();\n    }\n    PH(0)\n  }\n"),
+    ("  for (int ql = warp; ql < BQ; ql += NWARP) {\n    const int gq = q0 + ql;\n    if (gq >= B) break;", "  PH_FLUSH(a)\n  for (int ql = warp; ql < BQ; ql += NWARP) {\n    const int gq = q0 + ql;\n    if (gq >= B) break;"),
+]
+# Kε: the exact scorer's warp_dot_rows spelled out (vec4 rows), with a mark
+# between its loads + lane sums and its reductions
+CURRENT_DESCENT = [
+    ("    int hops = 0, dcomp = 0;\n    const int sb", "    PHW_INIT\n    int hops = 0, dcomp = 0;\n    const int sb"),
+    ("      const hs::Fetch& f = lv.f[li];\n", "      const hs::Fetch& f = lv.f[li];\n      phw[11] += 1;\n"),
+    ("        ++hops;\n", "        ++hops;\n        phw[10] += 1;\n"),
+    ("          const int mine = lane < cnt ? __ldg(row + j0 + lane) : -1;\n", "          const int mine = lane < cnt ? __ldg(row + j0 + lane) : -1;\n          PHW(6, mine)\n"),
+    ("              d = hs::quant_score_rows<R>(z, qs, ga, qnv, ids, nr);\n", "              d = hs::quant_score_rows<R>(z, qs, ga, qnv, ids, nr);\n              PHWF(7, d)\n"),
+    ("              hs::warp_dot_rows<R>(qs, rows, nr, D, vec4, s, n, none);\n", """              if (vec4) {
+                float s_[R], n_[R];
+                for (int r = 0; r < R; ++r) s_[r] = n_[r] = 0.f;
+                for (int e = lane * 4; e < D; e += 128) {
+                  float4 x_[R];
+#pragma unroll
+                  for (int r = 0; r < R; ++r)
+                    x_[r] = r < nr ? hs::load4(rows[r] + e) : make_float4(0.f, 0.f, 0.f, 0.f);
+                  const float4 y = *reinterpret_cast<const float4*>(qs + e);
+#pragma unroll
+                  for (int r = 0; r < R; ++r) {
+                    s_[r] = fmaf(x_[r].x, y.x, s_[r]); s_[r] = fmaf(x_[r].y, y.y, s_[r]);
+                    s_[r] = fmaf(x_[r].z, y.z, s_[r]); s_[r] = fmaf(x_[r].w, y.w, s_[r]);
+                    n_[r] = fmaf(x_[r].x, x_[r].x, n_[r]); n_[r] = fmaf(x_[r].y, x_[r].y, n_[r]);
+                    n_[r] = fmaf(x_[r].z, x_[r].z, n_[r]); n_[r] = fmaf(x_[r].w, x_[r].w, n_[r]);
+                  }
+                }
+                float dep = 0.f;
+#pragma unroll
+                for (int r = 0; r < R; ++r) dep += s_[r] + n_[r];
+                PHWF(7, dep)
+                hs::warp_sum_rows<R>(s_);
+                hs::warp_sum_rows<R>(n_);
+                s = s_[0];
+                n = n_[0];
+              } else {
+                hs::warp_dot_rows<R>(qs, rows, nr, D, vec4, s, n, none);
+              }
+"""),
+    ("              d = metric ? 1.f - s : (qnv + n) - 2.f * s;\n", "              d = metric ? 1.f - s : (qnv + n) - 2.f * s;\n              PHWF(8, d)\n"),
+    ("        if (!(bd < cd)) break;\n", "        PHW(9, bid)\n        if (!(bd < cd)) break;\n"),
+    ("    if (lane == 0) {\n      cur[b] = c;", "    PHW_FLUSH(e)\n    if (lane == 0) {\n      cur[b] = c;"),
+]
+
+SD_READER = """
+extern "C" int hs_phase_read_a(unsigned long long* host);
+extern "C" int hs_phase_read(unsigned long long* host) {
+  unsigned long long a8[16], e8[16];
+  int e = hs_phase_read_a(a8);
+  if (e) return e;
+  e = hs_phase_read_e(e8);
+  for (int i = 0; i < 16; ++i) host[i] = a8[i] + e8[i];
+  return e;
+}
+"""
+
 READER = """
 extern "C" int hs_phase_read_b(unsigned long long* host);
 extern "C" int hs_phase_read(unsigned long long* host) {
@@ -142,16 +243,30 @@ def _patch(path: str, tag: str, reps: list, tail: str = "") -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("copy", help="a copy's hnsw_slim_tpu_torch/csrc")
-    ap.add_argument("--design", choices=("sort", "current"), required=True)
+    ap.add_argument("--target", choices=("beam_prune", "scan_descent"),
+                    default="beam_prune")
+    ap.add_argument("--design", choices=("sort", "tile", "current"),
+                    required=True)
     args = ap.parse_args()
     src_dir = os.path.abspath(args.copy)
     if src_dir == os.path.join(ROOT, "hnsw_slim_tpu_torch", "csrc"):
         raise SystemExit("instrument a copy, not this checkout's sources")
-    beam, prune = ((SORT_BEAM, SORT_PRUNE) if args.design == "sort"
-                   else (CURRENT_BEAM, CURRENT_PRUNE))
-    _patch(os.path.join(src_dir, "beam_search.cu"), "b", beam)
-    _patch(os.path.join(src_dir, "rng_prune.cu"), "p", prune, READER)
-    print(f"instrumented {src_dir} ({args.design})")
+    if args.target == "scan_descent":
+        if args.design == "sort":
+            raise SystemExit("the scan_descent designs are tile and current")
+        scan, descent = ((TILE_SCAN, TILE_DESCENT) if args.design == "tile"
+                         else (CURRENT_SCAN, CURRENT_DESCENT))
+        _patch(os.path.join(src_dir, "topk_dist.cu"), "a", scan)
+        _patch(os.path.join(src_dir, "greedy_descent.cu"), "e", descent,
+               SD_READER)
+    else:
+        if args.design == "tile":
+            raise SystemExit("the beam_prune designs are sort and current")
+        beam, prune = ((SORT_BEAM, SORT_PRUNE) if args.design == "sort"
+                       else (CURRENT_BEAM, CURRENT_PRUNE))
+        _patch(os.path.join(src_dir, "beam_search.cu"), "b", beam)
+        _patch(os.path.join(src_dir, "rng_prune.cu"), "p", prune, READER)
+    print(f"instrumented {src_dir} ({args.target}, {args.design})")
     return 0
 
 

@@ -1598,3 +1598,190 @@ def test_prune_forward_shape_exactly_equal_plain(exact, metric, dtype, c):
                  out_width=30, metric=metric)
     _prune_equal(xs, base, cand, m, keep_all_under_m=False, keep_pruned=True,
                  out_width=30, metric=metric)
+
+
+# ---- Kα and Kε redesigned: ragged shapes on exact data --------------------
+
+SCAN_CASES = [  # (name, b, n, d, k, metric, store, extras)
+    ("server batch", 12, 19993, 128, 32, "l2", "float32", "row_ids"),
+    ("ground truth", 300, 20000, 128, 10, "l2", "float32", ""),
+    ("k1 ip", 100, 20000, 128, 1, "ip", "float32", ""),
+    ("k64 self", 257, 20000, 128, 64, "l2", "float32", "self"),
+    ("d96", 130, 20000, 96, 32, "l2", "float32", "row_ids"),
+    ("d99 scalar loads", 70, 5001, 99, 33, "l2", "float32", ""),
+    ("wide rows", 40, 3000, 1000, 16, "l2", "float32", ""),
+    ("d3072 chunked U", 40, 3000, 3072, 32, "l2", "float32", "row_ids"),
+    ("d4096 chunked U", 12, 3000, 4096, 32, "ip", "float32", ""),
+    ("d4096 chunked 200 queries", 200, 3000, 4096, 10, "l2", "float32", ""),
+    ("d4096 chunked k64 self", 130, 3000, 4096, 64, "l2", "float32", "self"),
+    ("kmeans", 3000, 16, 128, 1, "l2", "float32", ""),
+    ("kmeans ragged", 1025, 27, 128, 3, "l2", "float32", ""),
+    ("k over n", 5, 7, 16, 32, "l2", "float32", ""),
+    ("bf16", 500, 20000, 128, 32, "l2", "bfloat16", "row_ids"),
+    ("bf16 k64 ip", 33, 20000, 128, 64, "ip", "bfloat16", ""),
+]
+
+
+@pytest.mark.parametrize("name,b,n,d,k,metric,store,extra", SCAN_CASES,
+                         ids=[c[0] for c in SCAN_CASES])
+def test_topk_scan_exactly_equal_plain(exact, name, b, n, d, k, metric,
+                                       store, extra):
+    """Kα's tiles (L, M, U, T by the plan) at batches and tables that are
+    no multiple of a tile, k of 1 to 64, n_valid, negative row ids and the
+    self mask, D of 96, 99 (scalar loads), 128, 1000, 3072 and 4096 (U's
+    query tile staged in chunks), fp32 and bf16 rows: distances and rows
+    exactly equal to the plain version's."""
+    from hnsw_slim_tpu_torch.index import bruteforce as bf
+
+    x = exact[0] if d == 128 else _dyadic(max(n, 3000), d, 30 + d)
+    x = x[:n].contiguous()
+    xs = x.to(getattr(torch, store))
+    xn = (xs.float() ** 2).sum(1)
+    q = _dyadic(b, d, 40 + b)
+    kw = {}
+    if extra == "row_ids":
+        ids = torch.arange(n, dtype=torch.int32, device="cuda")
+        kw["row_ids"] = torch.where(ids % 7 == 3, -1, ids)
+    if extra == "self":
+        q = x[1000:1000 + b].contiguous()
+        kw.update(self_offset=1000, n_valid=n - 1000)
+    if d > 1000:  # rows too wide for a resident query tile
+        assert bf._plan(q, n, k).qdims < d
+    kd, ki = bf.topk_dist(q, xs, xn, k, metric, **kw)
+    pd, pi = bf.topk_dist_plain(q, xs.float(), xn, k, metric, **kw)
+    assert torch.equal(ki, pi)
+    assert torch.equal(kd, pd)
+
+
+@pytest.mark.parametrize("store", ["float32", "bfloat16"])
+@pytest.mark.parametrize("strata,width", [(4, 32), (8, 64), (3, 30)])
+def test_topk_strata_exactly_equal_plain(exact, store, strata, width):
+    """Kα in strata mode (one split per segment, then the stable sort of
+    the picks), rows with negative ids: exactly equal to the plain
+    version."""
+    from hnsw_slim_tpu_torch.index import bruteforce as bf
+
+    x, _, q = exact
+    n = 19998 // strata * strata
+    xs = x[:n].to(getattr(torch, store)).contiguous()
+    xn = (xs.float() ** 2).sum(1)
+    ids = torch.arange(n, dtype=torch.int32, device="cuda")
+    ids = torch.where(ids % 5 == 1, -1, ids)
+    kd, ki = bf.topk_dist_strata(q[:300].contiguous(), xs, xn, ids, width,
+                                 strata)
+    pd, pi = bf.topk_dist_strata_plain(q[:300].contiguous(), xs.float(), xn,
+                                       ids, width, strata)
+    assert torch.equal(ki, pi)
+    assert torch.equal(kd, pd)
+
+
+def _level_forms(n, w, top, seed):
+    """Per-level neighbor rows (levels top..1, holes and empty rows) in the
+    three fetch forms: dense rows, rank + dense rows (some nodes without a
+    row), CHAL slices (each node's valid ids in lane order)."""
+    from hnsw_slim_tpu_torch.graph import search as gs
+
+    rng = np.random.default_rng(seed)
+    rows, ranks, dense = {}, {}, {}
+    for lv in range(1, top + 1):
+        r = rng.integers(0, n, (n, w)).astype(np.int32)
+        r[rng.random((n, w)) < 0.15] = -1
+        r[rng.random(n) < 0.03] = -1
+        have = rng.random(n) < 0.9
+        rank = np.full(n, -1, np.int32)
+        rank[have] = np.arange(have.sum(), dtype=np.int32)
+        ranks[lv], dense[lv] = rank, r[have]
+        rows[lv] = np.where(have[:, None], r, -1)
+    cnt = np.stack([(rows[lv] >= 0).sum(1) for lv in range(1, top + 1)],
+                   1)  # [n, top]
+    lvl_off = np.zeros((n, top + 2), np.int64)
+    starts = np.concatenate([[0], np.cumsum(cnt.reshape(-1))])[:-1]
+    lvl_off[:, 1:top + 1] = starts.reshape(n, top)
+    lvl_off[:, 0] = lvl_off[:, 1]
+    lvl_off[:, top + 1] = lvl_off[:, top] + cnt[:, top - 1]
+    nbr = np.concatenate([rows[lv][v][rows[lv][v] >= 0] for v in range(n)
+                          for lv in range(1, top + 1)]).astype(np.int32)
+    t = lambda a: torch.as_tensor(a, device="cuda")  # noqa: E731
+    lvls = range(top, 0, -1)
+    return {
+        "dense": [gs.dense_fetch(t(rows[lv])) for lv in lvls],
+        "rank": [gs.rank_fetch(t(ranks[lv]), t(dense[lv])) for lv in lvls],
+        "chal": [gs.chal_fetch(t(nbr), t(lvl_off.astype(np.int32)), lv, w)
+                 for lv in lvls],
+    }
+
+
+@pytest.mark.parametrize("w", [30, 40])
+@pytest.mark.parametrize("form", ["dense", "rank", "chal", "bf16"])
+@pytest.mark.parametrize("stops", ["per query", "all walk", "none walk"])
+def test_descent_levels_exactly_equal_plain(exact, form, w, stops):
+    """Kε's one-launch descent over three levels of random rows (holes,
+    empty rows, W 30 and 40: more than one 32-lane chunk and one group of
+    16 rows), per-query stop levels, every query walking, none walking:
+    cur, curdist, hops and dcomp exactly equal to the plain twin's and to
+    the per-level launches' sums."""
+    from hnsw_slim_tpu_torch.graph import search as gs
+
+    x, xn, q = exact
+    top, n = 3, len(x)
+    fetches = _level_forms(n, w, top, 50 + w)[
+        "dense" if form == "bf16" else form]
+    xs = x.to(torch.bfloat16) if form == "bf16" else x
+    qn = (q * q).sum(1)
+    rng = np.random.default_rng(w)
+    cur = torch.as_tensor(rng.integers(0, n, len(q)).astype(np.int32),
+                          device="cuda")
+    dist = ((q - xs[cur.long()].float()) ** 2).sum(1)
+    stop = {"per query": rng.integers(0, top + 1, len(q)),
+            "all walk": np.zeros(len(q)),
+            "none walk": np.full(len(q), top)}[stops]
+    stop = torch.as_tensor(stop.astype(np.int32), device="cuda")
+    k_o = gs.greedy_descent_levels(xs, q, qn, fetches, top, cur, dist, stop)
+    p_o = gs.greedy_descent_levels_plain(xs, q, qn, fetches, top, cur, dist,
+                                         stop)
+    for a, b in zip(k_o, p_o):
+        assert torch.equal(a, b)
+    c, dd = cur, dist
+    hops = torch.zeros_like(cur)
+    dcomp = torch.zeros_like(cur)
+    for i, f in enumerate(fetches):
+        c, dd, h, dc = gs.greedy_descent(xs, q, qn, f, c, dd, stop < top - i)
+        hops, dcomp = hops + h, dcomp + dc
+    for a, b in zip(k_o, (c, dd, hops, dcomp)):
+        assert torch.equal(a, b)
+    if stops == "none walk":
+        assert torch.equal(k_o[0], cur) and int(k_o[2].sum()) == 0
+
+
+@pytest.mark.parametrize("use_ex", [False, True])
+def test_descent_levels_quant_on_card(data, slimq_index, use_ex):
+    """Kε's one-launch descent on estimates (the entry point scored by the
+    kernel) over the SlimQ graph's rank rows: equal to the per-level
+    launches' sums, and to the plain twin on >= 99% of queries (the plain
+    estimate sums in another order), hops and dcomp equal where cur is."""
+    from hnsw_slim_tpu_torch.graph import search as gs
+
+    _, _, q = data
+    idx, _ = slimq_index
+    g = idx.graph
+    sc = _scorer(idx, q, use_ex)
+    fetches = [gs.rank_fetch(idx.rank_up, idx.dense_up[lv - 1])
+               for lv in range(g.max_level, 0, -1)]
+    cur = torch.full((len(q),), g.entry, dtype=torch.int32, device="cuda")
+    k_o = gs.greedy_descent_levels(None, None, None, fetches, g.max_level,
+                                   cur, None, scorer=sc)
+    c, dd = cur, None
+    hops = torch.zeros_like(cur)
+    dcomp = torch.zeros_like(cur)
+    for f in fetches:
+        c, dd, h, dc = gs.greedy_descent(None, None, None, f, c, dd,
+                                         scorer=sc)
+        hops, dcomp = hops + h, dcomp + dc
+    for a, b in zip(k_o, (c, dd, hops, dcomp)):
+        assert torch.equal(a, b)
+    p_o = gs.greedy_descent_levels_plain(None, None, None, fetches,
+                                         g.max_level, cur, None, scorer=sc)
+    same = k_o[0] == p_o[0]
+    assert same.float().mean() >= 0.99
+    assert _close(k_o[1][same], p_o[1][same])
+    assert torch.equal(k_o[2][same], p_o[2][same])
