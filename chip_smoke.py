@@ -113,6 +113,27 @@ Phases (one line each on stdout, the kernel table second to last):
      entry distances from both stores (beside the gather + torch.bmm), and
      Kα (strata and exact), Kβ, Kε, Kγ in their bf16 modes, each against
      its plain version;
+ 11. (run after phase 9, before the summary) the strategy CLI, its tools
+     and the reference-graph import, with its own launch counts: phase 2's
+     data written as fvecs, strategy.main in process at the reference's
+     defaults (--m 30 --ef_construction 128 --ef_search 128 --k 10):
+     bruteforce (the 100-NN ground truth, Kα with k = 100 and 128-slot
+     lists), hnsw, hnsw_slim built and saved then loaded (--index_dir,
+     equal recall), hnsw_slimzero, hnsw_slimq (4 bits) plain and --use_ex,
+     each recall beside the same-ef line of phase 2, 3 or 4;
+     tools.recall_knn on hnsw_slim's knn ivecs (equal to the CLI's recall)
+     and tools.prep_data (100,000 rows, byte-equal) into a dataset of their
+     own, with its own ground truth and an hnsw run (NN-descent) under
+     --profile_dir, whose Chrome trace must name Kα, Kβ and Kε launches;
+     reference dumps (parity/ref_harness.cc's formats) of
+     phase 2's Slim graph and of the insertion index's vanilla graph as
+     phase 8 left it, imported (slim_index_from_ref, hnsw_index_from_ref)
+     and searched at ef 64 bit for bit like the in-memory indexes; then Kξ
+     against its plain version on the fp32 store, a bf16 copy and the
+     queries (beside torch.sum(x * x, -1) and torch.linalg.vector_norm),
+     and Kα at k = 100 over all queries (ids equal to the CLI's ground
+     truth, top 10 equal to phase 2's near-ties aside, 64 queries against
+     the plain version, beside a chunked torch.cdist().topk() composite);
  10. Kα's, Kβ's, Kγ's and Kε's main-path launches by shape class (scan
      mode, tile and k; build E 8, upper levels E 1, serving by ef; forward,
      overflow, conversion, NN-descent, and the SlimQ build and update
@@ -168,6 +189,8 @@ ROUTES = {  # kernel: (source, the JAX program it replaces)
                  "hnsw_slim_tpu/graph/nnd.py:152"),
     "rp_window": ("hnsw_slim_tpu_torch/csrc/rp_window.cu",
                   "hnsw_slim_tpu/graph/nnd.py:117"),
+    "row_norms": ("hnsw_slim_tpu_torch/csrc/row_norms.cu",
+                  "hnsw_slim_tpu/ops/distance.py:21"),
 }
 MODE_ROUTES = {  # kernel mode: (kernel, the JAX code that mode replaces)
     "topk_dist.strata": ("topk_dist", "hnsw_slim_tpu/graph/search.py:800"),
@@ -200,27 +223,31 @@ MODE_ROUTES = {  # kernel mode: (kernel, the JAX code that mode replaces)
     "nnd_cand.join": ("nnd_cand", "hnsw_slim_tpu/graph/nnd.py:179"),
     # Kι: the insert apply's three edge sorts on Kκ's ids map
     "radix_sort.ids": ("radix_sort", "hnsw_slim_tpu/graph/revconn.py:90"),
+    # Kα with 128-slot lists (64 < k <= 128): the CLI's 100-NN ground truth
+    "topk_dist.k128": ("topk_dist", "hnsw_slim_tpu/index/bruteforce.py:85"),
+    "row_norms.bf16": ("row_norms", "hnsw_slim_tpu/ops/distance.py:21"),
 }
 INSERT_PATH = ("topk_dist", "beam_search", "rng_prune", "greedy_descent",
-               "rev_connect", "radix_sort.ids")
+               "rev_connect", "radix_sort.ids", "row_norms")
 UPDATE_PATH = ("row_deg", "radix_sort.ids", "rev_connect", "rng_prune",
-               "beam_search", "greedy_descent", "topk_dist")
+               "beam_search", "greedy_descent", "topk_dist", "row_norms")
 UPD_BATCH = 1000  # vectors per update batch (the paper's Table 4)
 SERVER_PATH = ("radix_sort", "run_scatter", "run_scatter.dedup", "nnd_cand",
                "nnd_cand.join", "rp_window", "cand_merge", "rng_prune",
                "topk_dist", "point_dist", "row_deg", "beam_search",
                "beam_search.filtered", "greedy_descent", "radix_sort.ids",
-               "rev_connect")
+               "rev_connect", "row_norms")
 QUERY_PATH = ("topk_dist", "beam_search", "greedy_descent", "rng_prune",
               "topk_dist.strata", "beam_search.chal", "beam_search.rank",
               "beam_search.filtered", "greedy_descent.chal",
-              "greedy_descent.rank")
-SLIMZERO_PATH = ("rng_prune", "rng_prune.guarded", "topk_dist", "beam_search")
+              "greedy_descent.rank", "row_norms")
+SLIMZERO_PATH = ("rng_prune", "rng_prune.guarded", "topk_dist", "beam_search",
+                 "row_norms")
 SLIMQ_PATH = ("fht_rotate", "fht_rotate.g_tables", "topk_dist",
               "topk_dist.estimate", "beam_search.quant",
               "beam_search.quant_ex", "beam_search.rerank",
               "greedy_descent.quant", "greedy_descent.rank", "beam_search",
-              "greedy_descent", "rng_prune", "rev_connect")
+              "greedy_descent", "rng_prune", "rev_connect", "row_norms")
 SHARDS = 4  # round-robin shards of phase 9 (4 x 250,000 at 1M)
 HTTP_PROCS = 4  # client processes of the 64-thread /query run
 SHARD_PATH = ("topk_dist", "topk_dist.strata", "beam_search",
@@ -228,7 +255,16 @@ SHARD_PATH = ("topk_dist", "topk_dist.strata", "beam_search",
               "greedy_descent.rank", "rng_prune", "rev_connect",
               "radix_sort.ids", "point_dist", "shard_merge", "topk_dist.bf16",
               "beam_search.bf16", "greedy_descent.bf16", "rng_prune.bf16",
-              "point_dist.bf16")
+              "point_dist.bf16", "row_norms", "row_norms.bf16")
+# phase 11, the strategy CLI at the reference's defaults
+CLI_PATH = ("topk_dist", "topk_dist.k128", "row_norms", "beam_search",
+            "greedy_descent", "rng_prune", "rng_prune.guarded", "rev_connect",
+            "radix_sort.ids", "fht_rotate", "fht_rotate.g_tables",
+            "beam_search.quant", "beam_search.quant_ex",
+            "beam_search.rerank", "greedy_descent.quant", "beam_search.chal",
+            "greedy_descent.chal")
+CLI_ARGS = ("--m", "30", "--ef_construction", "128", "--ef_search", "128",
+            "--k", "10")
 KM_PAIR = "topk_dist k=1 (KMeans assignment)"
 SLIMQ_EFS = (32, 64, 128, 256)
 EFS = (32, 64, 128, 256, 320)
@@ -414,13 +450,16 @@ def launch_classes(shapes: dict) -> dict:
     overflow re-prune; in a conversion every form is the conversion's; in
     the NN-descent server build the keep-all forms are the NN-descent
     prunes and the rest its conversion; the SlimQ build and the update
-    rounds mix their forms and are counted apart."""
+    rounds mix their forms and are counted apart. Phase 11's launches (tag
+    "cli") are a class of their own, Kα's split by shape."""
     out: dict = {}
     for key, v in shapes.items():
         kern, rest = key.split("[", 1)
         tag, shape = rest.split("] ", 1)
         parts = shape.split()
-        if kern == "beam_search":
+        if tag == "cli":  # phase 11 apart; Kα by its shape there too
+            cls = "cli" + (f" {shape}" if kern == "topk_dist" else "")
+        elif kern == "beam_search":
             e, ef, seeds = parts[0], parts[1], parts[2]
             cls = ("upper E1" if e == "E1" else
                    f"build {e}" if tag and seeds == "S1" else
@@ -1635,6 +1674,374 @@ def server_phase(base, queries, gt, hcfg, make_cfg, report, dev) -> tuple:
     return summary, launch_srv, slim_nnd, built
 
 
+def _runs(counts):
+    """(owner, position) of every element of runs of the given lengths."""
+    import numpy as np
+
+    owner = np.repeat(np.arange(len(counts)), counts)
+    starts = np.cumsum(counts) - counts
+    return owner, np.arange(len(owner)) - starts[owner]
+
+
+def write_slim_dump(path, nbr, lvl_off, level, *, entry, max_level,
+                    threshold_level, cap, cap0) -> None:
+    """A CHAL graph in parity/ref_harness.cc's dump_slim_graph format:
+    header, then per node its level, its total neighbour count, the end
+    offset of each of its levels 0..level, and its ids."""
+    import struct
+
+    import numpy as np
+
+    nbr, level = np.asarray(nbr), np.asarray(level, np.int64)
+    off = np.asarray(lvl_off, np.int64)
+    n = len(level)
+    start = off[:, 0]
+    ends = off[:, 1:] - start[:, None]
+    total = ends[np.arange(n), level]
+    words = 3 + level + total
+    at = np.cumsum(words) - words
+    out = np.empty(int(words.sum()), np.int32)
+    out[at], out[at + 1] = level, total
+    v, l_ = _runs(level + 1)
+    out[at[v] + 2 + l_] = ends[v, l_]
+    v, j = _runs(total)
+    out[at[v] + 3 + level[v] + j] = nbr[start[v] + j]
+    with open(path, "wb") as f:
+        f.write(struct.pack("<IIiIiII", 0x48534C47, n, max_level, entry,
+                            threshold_level, cap, cap0))
+        f.write(out.tobytes())
+
+
+def write_hnsw_dump(path, adjs, level, *, entry, max_level, maxm,
+                    maxm0) -> None:
+    """A per-level adjacency (rows -1 padded) in dump_hnsw_graph's format:
+    header, then per node its level and, for each level 0..level, the count
+    of its ids and the ids."""
+    import struct
+
+    import numpy as np
+
+    level = np.asarray(level, np.int64)
+    n = len(level)
+    cnt = np.zeros((n, max_level + 1), np.int64)
+    for l_, a in enumerate(adjs):
+        cnt[level >= l_, l_] = (np.asarray(a)[level >= l_] >= 0).sum(1)
+    per_level = np.where(np.arange(max_level + 1)[None] <= level[:, None],
+                         1 + cnt, 0)
+    words = 1 + per_level.sum(1)
+    at = np.cumsum(words) - words
+    out = np.empty(int(words.sum()), np.int32)
+    out[at] = level
+    before = 1 + np.cumsum(per_level, axis=1) - per_level
+    for l_, a in enumerate(adjs):
+        rows = np.nonzero(level >= l_)[0]
+        pos = at[rows] + before[rows, l_]
+        out[pos] = cnt[rows, l_]
+        a = np.asarray(a)[rows]
+        keep = a >= 0
+        col = np.cumsum(keep, axis=1) - 1
+        r, c = np.nonzero(keep)
+        out[pos[r] + 1 + col[r, c]] = a[r, c]
+    with open(path, "wb") as f:
+        f.write(struct.pack("<IIiIII", 0x484E5347, n, max_level, entry, maxm,
+                            maxm0))
+        f.write(out.tobytes())
+
+
+def cli_phase(base, queries, gt, h, idx, lines, report, dev) -> tuple:
+    """Phase 11: the strategy CLI (hnsw_slim_tpu_torch.strategy.main, in
+    process) on phase 2's data written as fvecs, at the reference's
+    defaults, with its own launch counts: bruteforce (the 100-NN ground
+    truth on Kα with k = 100), hnsw, hnsw_slim built and saved then loaded
+    again (--index_dir), hnsw_slimzero, hnsw_slimq plain and with --use_ex;
+    the tools (recall_knn on the knn ivecs hnsw_slim wrote; prep_data
+    slicing 100,000 rows into a dataset of their own, which gets its own
+    ground truth and the profiled hnsw run, NN-descent at that size); the
+    import of reference dumps of phase 2's Slim graph and of the insertion
+    index's vanilla graph (as phase 8 left it), searched at ef 64 bit for
+    bit like the in-memory indexes. ``lines`` holds the earlier phases'
+    rows at ef 128 that each CLI recall is printed beside: hnsw must come
+    within 0.01 of vanilla's, hnsw_slim (seed_width 0, CHAL rows) within
+    0.02 of phase 3's seed_width=0 line; SlimZero and SlimQ, which no
+    earlier phase serves at seed_width 0, above 0.1 (random ids score
+    1e-5). Then, outside the counts, Kξ against its plain version on the
+    fp32 store, a bf16 copy and the queries, and Kα at k = 100 against its
+    plain version and beside a chunked torch.cdist().topk() composite.
+    Returns (summary, launches)."""
+    import io
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from hnsw_slim_tpu_torch import strategy, tools
+    from hnsw_slim_tpu_torch.config import SearchConfig
+    from hnsw_slim_tpu_torch.graph import import_ref
+    from hnsw_slim_tpu_torch.index import bruteforce as bf
+    from hnsw_slim_tpu_torch.ops import cuda
+    from hnsw_slim_tpu_torch.ops import distance as dist
+    from hnsw_slim_tpu_torch.utils.io import read_ivecs, write_fvecs
+
+    t_phase = time.perf_counter()
+    n, d = base.shape
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+    data = tmp / "data"
+    files = data / "smoke"
+    files.mkdir(parents=True)
+    t0 = time.perf_counter()
+    write_fvecs(files / "smoke_base.fvecs", base)
+    write_fvecs(files / "smoke_query.fvecs", queries)
+    say(f"cli: {n} x {d} base and {len(queries)} queries written as fvecs "
+        f"in {time.perf_counter() - t0:.2f} s")
+    rows = {}
+
+    def quiet(fn, *a):
+        """fn(*a) with its printed lines kept: (result, {key: value})."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = fn(*a)
+        lines = (ln.partition(": ") for ln in buf.getvalue().splitlines())
+        return out, {k_: v_ for k_, _, v_ in lines if v_}
+
+    def cli(label, *argv, dataset="smoke"):
+        """strategy.main on a dataset's fvecs files; the row of what it
+        printed."""
+        t0 = time.perf_counter()
+        r, printed = quiet(strategy.main, ["--dataset", dataset, "--data_dir",
+                                           str(data), *argv])
+        printed.pop("Recall", None)  # the value main returns
+        rows[label] = {"seconds": round(time.perf_counter() - t0, 2),
+                       "recall@10": r, **printed}
+        say(f"cli {label}: {json.dumps(rows[label])}")
+        return r
+
+    def beside(label, key, tol):
+        """The CLI's recall@10 beside the ef-128 line of an earlier phase,
+        within tol of it."""
+        r, ref = rows[label]["recall@10"], lines[key]["recall@10"]
+        rows[label][f"{key} line recall@10"] = ref
+        check(abs(r - ref) <= tol, f"cli {label}: recall@10 {r} is not "
+                                   f"within {tol} of the {key} line's {ref}")
+
+    from hnsw_slim_tpu_torch.index.hnsw import resolve_build_strategy
+
+    args = tuple(CLI_ARGS)
+    if resolve_build_strategy("auto", n) != "insert":
+        args += ("--build_strategy", "insert")
+        say(f"CUT: cli --build_strategy insert (auto picks NN-descent at "
+            f"N={n})")
+    cuda.reset_launches()
+    with cuda.tagged("cli"):
+        cli("bruteforce", "--solve_strategy", "bruteforce", *args)
+        gt100 = read_ivecs(files / "smoke_groundtruth.ivecs")
+        check(gt100.shape == (len(queries), 100),
+              f"cli bruteforce: ground truth of shape {gt100.shape}")
+        cli("hnsw", "--solve_strategy", "hnsw", *args)
+        beside("hnsw", "vanilla", 0.01)
+        slim_argv = ("--solve_strategy", "hnsw_slim", *args,
+                     "--index_dir", str(tmp / "index"))
+        r_built = cli("hnsw_slim build+save", *slim_argv)
+        r_loaded = cli("hnsw_slim load", *slim_argv)
+        check("build cost" in rows["hnsw_slim build+save"]
+              and "load cost" in rows["hnsw_slim load"],
+              "cli hnsw_slim: the second run did not load the saved index")
+        check(r_loaded == r_built,
+              f"cli hnsw_slim: recall {r_built} built, {r_loaded} loaded")
+        beside("hnsw_slim load", "slim seed_width=0", 0.02)
+        r_tool, _ = quiet(tools.recall_knn, [
+            "--base", str(files / "smoke_base.fvecs"),
+            "--query", str(files / "smoke_query.fvecs"),
+            "--gt", str(files / "smoke_groundtruth.ivecs"),
+            "--knn", str(files / "smoke_knn.ivecs"), "--k", "10"])
+        check(r_tool == r_loaded, f"tools.recall_knn {r_tool} != the CLI's "
+                                  f"recall {r_loaded}")
+        # a 100,000-row dataset cut by prep_data, its own ground truth, and
+        # the profiled run on it
+        part = data / "smoke100k"
+        part.mkdir()
+        _, _ = quiet(tools.prep_data, [
+            "--src", str(files / "smoke_base.fvecs"),
+            "--dst", str(part / "smoke100k_base.fvecs"), "--num", "100000"])
+        with open(files / "smoke_base.fvecs", "rb") as fh:
+            head = fh.read(100000 * (d + 1) * 4)
+        check((part / "smoke100k_base.fvecs").read_bytes() == head,
+              "tools.prep_data: the slice is not the first 100,000 rows")
+        shutil.copy(files / "smoke_query.fvecs",
+                    part / "smoke100k_query.fvecs")
+        cli("bruteforce 100k", "--solve_strategy", "bruteforce", *CLI_ARGS,
+            dataset="smoke100k")
+        prof = tmp / "profile"
+        cli("hnsw 100k profiled", "--solve_strategy", "hnsw", *CLI_ARGS,
+            "--build_strategy", "nnd", "--profile_dir", str(prof),
+            dataset="smoke100k")
+        cli("hnsw_slimzero", "--solve_strategy", "hnsw_slimzero", *args)
+        beside("hnsw_slimzero", "slimzero seeded", 1.0)
+        check(rows["hnsw_slimzero"]["recall@10"] > 0.1,
+              "cli hnsw_slimzero: recall@10 not above 0.1")
+        for ex in ((), ("--use_ex",)):
+            label = "hnsw_slimq" + (" use_ex" if ex else "")
+            check(cli(label, "--solve_strategy", "hnsw_slimq",
+                      "--total_bits", "4", *args, *ex) > 0.1,
+                  f"cli {label}: recall@10 not above 0.1")
+
+        # the reference dumps of the in-memory graphs, imported
+        t0 = time.perf_counter()
+        g, hc = idx.graph, idx._host_chal()
+        write_slim_dump(tmp / "g.slimgraph", hc["nbr"], hc["lvl_off"][:g.n],
+                        hc["level"][:g.n], entry=int(g.entry),
+                        max_level=g.max_level,
+                        threshold_level=g.threshold_level, cap=g.cap,
+                        cap0=g.cap0)
+        nh = h.graph.n
+        write_hnsw_dump(tmp / "g.hnsw", [a[:nh] for a in h.host_adj()],
+                        h.levels[:nh], entry=int(h.graph.entry),
+                        max_level=h.graph.max_level, maxm=h.cfg.maxM,
+                        maxm0=h.cfg.maxM0)
+        t_dump = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rs = import_ref.slim_index_from_ref(str(tmp / "g.slimgraph"), base,
+                                            device=dev)
+        rs.densify_level0()  # the layouts phase 2 and 3 gave idx
+        rs.densify_upper()
+        rh = import_ref.hnsw_index_from_ref(
+            str(tmp / "g.hnsw"), h.vectors[:nh].cpu().numpy(), M=h.cfg.M,
+            ef_construction=h.cfg.ef_construction, device=dev)
+        torch.cuda.synchronize()
+        t_import = time.perf_counter() - t0
+        imports = {}
+        for label, mem, ref, scfg in (
+                ("slim", idx, rs, SearchConfig(ef=64, pop_width=8,
+                                               scan_width=0, seed_width=32)),
+                ("vanilla", h, rh, SearchConfig(ef=64, pop_width=4))):
+            kept = mem.scfg
+            mem.scfg = ref.scfg = scfg
+            d_m, i_m = mem.search(queries, k=10)
+            d_r, i_r = ref.search(queries, k=10)
+            mem.scfg = kept
+            same = bool(np.array_equal(i_m, i_r) and np.array_equal(d_m, d_r))
+            imports[label] = {"equal": same, "recall@10": recall(i_r, gt)}
+            check(same, f"import_ref {label}: the imported graph's ids or "
+                        "distances at ef 64 differ from the in-memory index's")
+        del rs, rh
+    launch_cli = dict(cuda.launches)
+    keep_shapes()
+    say(f"cli import_ref: dumps written in {t_dump:.2f} s, both imported in "
+        f"{t_import:.2f} s, at ef 64 {json.dumps(imports)}")
+    trace = prof / "trace.json"
+    check(trace.exists(), "cli --profile_dir wrote no trace")
+    names = trace.read_text()
+    traced = {k_: names.count(k_) for k_ in ("scan_kernel", "beam_kernel",
+                                             "greedy_kernel")}
+    say(f"cli --profile_dir: {trace.stat().st_size} B of Chrome trace, "
+        f"kernel names {json.dumps(traced)} (Kα scan_kernel, Kβ beam_kernel, "
+        f"Kε greedy_kernel)")
+    check(all(traced.values()), f"the profiled CLI run's trace names no "
+                                f"launch of one of Kα, Kβ, Kε: {traced}")
+    say(f"cli-path launches: {launch_cli}")
+    for name in CLI_PATH:
+        check(launch_cli[name] > 0, f"{name} never launched on the CLI path")
+
+    # ---- Kξ and Kα with 128-slot lists against their plain versions -------
+    xb = torch.as_tensor(base, device=dev)
+    qall = torch.as_tensor(queries, device=dev)
+    xn = dist.sq_norms(xb)
+
+    def norm_part(what, x):
+        kn, pn = dist.sq_norms(x), dist.sq_norms_plain(x)
+        part = dict(
+            what=what, shape=list(x.shape), dtype=str(x.dtype),
+            max_rel_err=float(((kn - pn).abs() / pn.abs()).max()),
+            max_abs_err=float((kn - pn).abs().max()),
+            ms=cuda_ms(lambda: dist.sq_norms(x), 20),
+            plain_ms=cuda_ms(lambda: dist.sq_norms_plain(x), 20),
+            sum_ms=cuda_ms(lambda: torch.sum(x * x, -1), 20),
+            library_ms=cuda_ms(lambda: torch.linalg.vector_norm(
+                x, dim=-1, dtype=torch.float32), 20),
+            bound=bound(x.numel() * x.element_size() + x.shape[0] * 4,
+                        2 * x.numel()))
+        say(f"kernel row_norms part: {json.dumps(part)}")
+        check(bool(((kn - pn).abs() <= 1e-6 * pn.abs()).all()),
+              f"row_norms differs from its plain version by more than 1e-6 "
+              f"relative on {what}: {part}")
+        return part
+
+    n32 = norm_part(f"the {n} x {d} fp32 store", xb)
+    nq = norm_part(f"the {len(queries)} queries", qall)
+    n16 = norm_part(f"a bf16 copy of the store", xb.to(torch.bfloat16))
+    for name, part in (("row_norms", n32), ("row_norms.bf16", n16)):
+        report[name] = dict(
+            agree=1.0, max_abs_err=part["max_abs_err"], ms=part["ms"],
+            plain_ms=part["plain_ms"], library_ms=part["library_ms"],
+            bound=part["bound"], parts=[part] + ([nq] if name == "row_norms"
+                                                 else []),
+            shapes=f"{part['what']}: max relative error "
+                   f"{part['max_rel_err']:.3g}; torch.sum(x * x, -1) "
+                   f"{part['sum_ms']:.4f} ms; the library call is "
+                   "torch.linalg.vector_norm(x, dim=-1, dtype=float32), "
+                   "the root of the same sum")
+
+    kd, ki = bf.topk_dist(qall, xb, xn, 100)
+    ki_np = ki.cpu().numpy()
+    d_ref = kd[:, :11].cpu().numpy()
+    cli_equal = bool(np.array_equal(gt100, ki_np))
+    gt_agree = tie_ok(gt100[:, :10], gt, d_ref, 10)
+    q64 = qall[:64].contiguous()
+    pd_, pi_ = bf.topk_dist_plain(q64, xb, xn, 101)
+    agree = tie_ok(ki_np[:64], pi_.cpu().numpy(), pd_.cpu().numpy(), 100)
+    err = float((kd[:64] - pd_[:, :100]).abs().max())
+
+    def cdist_topk(k, rows_=131072):
+        """torch.cdist + topk over row chunks of the store, with a running
+        top-k (the two-call composite of PERF.md, at a size that fits)."""
+        best_d = best_i = None
+        for s_ in range(0, n, rows_):
+            c_d, c_i = torch.cdist(qall, xb[s_:s_ + rows_]).topk(
+                k, largest=False)
+            c_i = c_i + s_
+            if best_d is not None:
+                c_d, o_ = torch.cat([best_d, c_d], 1).topk(k, largest=False)
+                c_i = torch.gather(torch.cat([best_i, c_i], 1), 1, o_)
+            best_d, best_i = c_d, c_i
+        return best_d, best_i
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        composite_ms = cuda_ms(lambda: cdist_topk(100), 1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    plan = bf._plan(qall, n, 100)
+    report["topk_dist.k128"] = dict(
+        agree=agree, max_abs_err=err,
+        ms=cuda_ms(lambda: bf.topk_dist(qall, xb, xn, 100)),
+        k10_ms=cuda_ms(lambda: bf.topk_dist(qall, xb, xn, 10)),
+        plain_ms=cuda_ms(lambda: bf.topk_dist_plain(qall, xb, xn, 100), 1),
+        cdist_topk_ms=composite_ms,
+        bound=bound(xb.numel() * 4 + n * 4 + qall.numel() * 4
+                    + len(queries) * 100 * 8, 2 * len(queries) * n * d),
+        shapes=f"the CLI's ground truth {len(queries)}x{n} k=100 (plan "
+               f"{plan.tile}, {plan.splits} splits, {plan.smem} B): ids "
+               f"equal to the CLI's {cli_equal}, its top 10 against phase "
+               f"2's {gt_agree:.6f} near-ties aside; against the plain "
+               f"version on 64 queries {agree:.6f}")
+    say(f"kernel topk_dist.k128: {json.dumps(report['topk_dist.k128'])}")
+    check(cli_equal, "the CLI's 100-NN ground truth differs from Kα k=100")
+    check(gt_agree >= 0.999, f"the CLI's top 10 agree with phase 2's ground "
+                             f"truth on {gt_agree} of queries")
+    check(agree >= 0.99 and err <= 1e-4 * (1 + float(pd_.abs().max())),
+          f"topk_dist k=100 disagrees with its plain version: "
+          f"{report['topk_dist.k128']}")
+    tmp_dir.cleanup()
+    summary = {"lines": rows, "import_ref": imports,
+               "profile_trace_kernels": traced,
+               "phase_s": round(time.perf_counter() - t_phase, 1)}
+    say(f"cli phase: {summary['phase_s']} s")
+    return summary, launch_cli
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -1701,7 +2108,7 @@ def main() -> int:
                                        "hist_kernel", "pass_kernel",
                                        "scatter_kernel", "dedup_kernel",
                                        "pivot_kernel", "join_kernel",
-                                       "window_kernel")
+                                       "window_kernel", "row_norms_kernel")
                            if k in fn), "?")
             if kernel in ("hist_kernel", "pass_kernel") and "_kernelI" in fn:
                 # Kκ's instantiations: <digit map, payload>
@@ -3356,12 +3763,20 @@ def main() -> int:
     shard_summary, launch_par = shard_phase(base, queries, gt, slim_ins,
                                             report, dev)
 
+    # ---- 11. the strategy CLI, its tools, the reference-graph import -------
+    cli_summary, launch_cli = cli_phase(
+        base, queries, gt, h, idx,
+        {"vanilla": vanilla[EFS.index(128)],
+         "slim seed_width=0": qs_rows["greedy ef=128"],
+         "slimzero seeded": slim_zero[EFS.index(128)]},
+        report, dev)
+
     for name, rep in report.items():
         say(f"kernel {name}: {json.dumps(rep)}")
 
     # ---- 10. summary -------------------------------------------------------
     paths = (launch_ins, launch_qs, launch_sz, launch_sq, launch_nnd,
-             launch_upd, launch_par)
+             launch_upd, launch_par, launch_cli)
     kernels = [{
         "name": name,
         "route": "cuda",
@@ -3416,6 +3831,7 @@ def main() -> int:
         "server": dict(srv_summary, launches=launch_nnd),
         "updates": dict(upd_summary, launches=launch_upd),
         "shards": dict(shard_summary, launches=launch_par),
+        "cli": dict(cli_summary, launches=launch_cli),
         "launch_classes": classes,
         "nq": NQ, "wall_s": round(time.perf_counter() - t_start, 1)}))
     say(card)

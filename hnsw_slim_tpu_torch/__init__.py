@@ -19,9 +19,11 @@ The index classes and the HTTP server and client resolve lazily, so
 importing the package loads no index or serving module. ``FlatUnionIndex``
 lives in ``parallel/flat_union.py``.
 
-``config.py``, ``utils/data.py`` and ``utils/native.py`` are byte-equal
-copies of the JAX package's jax-free modules (a test holds them equal), so
-the port never imports the JAX package.
+``config.py``, ``utils/data.py``, ``utils/native.py``, ``utils/io.py``,
+``eval/recall.py`` and ``tools.py`` are byte-equal copies of the JAX
+package's jax-free modules (a test holds them equal), so the port never
+imports the JAX package. ``python -m hnsw_slim_tpu_torch.strategy`` is the
+benchmark CLI.
 """
 
 from .config import HnswConfig, QuantConfig, SearchConfig, SlimConfig

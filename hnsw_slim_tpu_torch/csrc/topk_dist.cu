@@ -41,10 +41,11 @@
 // a tile shape changes which thread owns a chain, never the chain. The epilogue writes the BQ x BN distance tile to
 // shared memory (over the slab buffers, idle then) and, in registers, tests
 // each distance against its query's threshold: the k-th entry of the
-// query's top-k list (k <= 64, ordered by (distance, row), in shared
-// memory), flagging the queries with a row that passes. After the first
-// tiles almost nothing passes, and a warp folds only its flagged queries:
-// the list goes into registers (2 entries a lane) and takes a 32-row chunk's
+// query's top-k list (k <= 128 in 32, 64 or 128 slots, ordered by
+// (distance, row), in shared memory), flagging the queries with a row that
+// passes. After the first tiles almost nothing passes, and a warp folds
+// only its flagged queries: the list goes into registers (2 entries a lane,
+// 4 for a list of 128) and takes a 32-row chunk's
 // passing rows one at a time (ballot for the position, shuffle-up to
 // shift), in one bitonic merge when the chunk brings four or more (k <=
 // 32), or by a warp argmin when k = 1. The lists keep the k smallest by
@@ -80,6 +81,8 @@
 // slab is loaded from bf16 (8 bytes a thread) and widened to fp32 as it
 // enters shared memory, so the micro-tiles, norms and lists are as above
 // and the scan streams half the bytes.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -87,6 +90,12 @@ namespace {
 constexpr int BK = 32, THREADS = 256, NWARP = THREADS / 32;
 constexpr int MERGE_AT = 4;  // candidates of a chunk that take the merge
 constexpr int SMEM_MAX = 232448;  // dynamic shared bytes a block may take
+constexpr int MAX_K = 128;  // the longest top-k list
+
+// slots of a query's top-k list in shared memory: 32, 64 or 128
+__host__ __device__ constexpr int list_slots(int k) {
+  return k <= 32 ? 32 : k <= 64 ? 64 : 128;
+}
 
 template <int BQ_, int BN_, int TQ_, int TN_, int MINB_, bool CHUNK_ = false>
 struct Tile {
@@ -94,6 +103,9 @@ struct Tile {
   static constexpr int MINB = MINB_;  // blocks an SM the registers allow
   static constexpr bool CHUNK = CHUNK_;  // the query tile may be chunked
   static constexpr int TY = BQ / TQ, TX = BN / TN;
+  // takes 128-slot lists (k > 64): M and U; the plan gives L only k <= 16
+  // and T only k <= 64, so their folds are compiled for 32 and 64 alone
+  static constexpr bool K128 = BQ <= 64 && BN == 128;
   static constexpr int WX = TX < 8 ? TX : 8;  // lanes of a warp along rows
   static constexpr int WXN = TX / WX;         // warps along rows
   // the slab buffers and, over them, the distance tile
@@ -160,39 +172,57 @@ __device__ __forceinline__ float4 load_dims(const T* p, int d, int D,
                      d + 3 < D ? hs::load1(p + d + 3) : 0.f);
 }
 
-// insert (cd, ci) into a lane-distributed sorted list (slot s of lane l is
-// entry s*32 + l); entries past k are don't-care
-__device__ __forceinline__ void list_insert(float (&ld)[2], int (&li)[2],
+// insert (cd, ci) into a lane-distributed sorted list of NS slots a lane
+// (slot s of lane l is entry s*32 + l); entries past k are don't-care
+template <int NS>
+__device__ __forceinline__ void list_insert(float (&ld)[NS], int (&li)[NS],
                                             float cd, int ci, int lane) {
-  const bool lt0 = hs::pair_less(ld[0], li[0], cd, ci);
-  const bool lt1 = hs::pair_less(ld[1], li[1], cd, ci);
-  const int p = __popc(__ballot_sync(HS_FULL, lt0)) +
-                __popc(__ballot_sync(HS_FULL, lt1));
-  const float u0d = __shfl_up_sync(HS_FULL, ld[0], 1);
-  const int u0i = __shfl_up_sync(HS_FULL, li[0], 1);
-  const float u1d = __shfl_up_sync(HS_FULL, ld[1], 1);
-  const int u1i = __shfl_up_sync(HS_FULL, li[1], 1);
-  const float l0d = __shfl_sync(HS_FULL, ld[0], 31);
-  const int l0i = __shfl_sync(HS_FULL, li[0], 31);
-  if (lane == p) { ld[0] = cd; li[0] = ci; }
-  else if (lane > p) { ld[0] = u0d; li[0] = u0i; }
-  if (lane + 32 == p) { ld[1] = cd; li[1] = ci; }
-  else if (lane + 32 > p) {
-    ld[1] = lane ? u1d : l0d;
-    li[1] = lane ? u1i : l0i;
+  int p = 0;
+#pragma unroll
+  for (int s = 0; s < NS; ++s)
+    p += __popc(__ballot_sync(HS_FULL, hs::pair_less(ld[s], li[s], cd, ci)));
+  float ud[NS], ed[NS];
+  int ui[NS], ei[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    ud[s] = __shfl_up_sync(HS_FULL, ld[s], 1);
+    ui[s] = __shfl_up_sync(HS_FULL, li[s], 1);
+    ed[s] = __shfl_sync(HS_FULL, ld[s], 31);  // the slot's last entry
+    ei[s] = __shfl_sync(HS_FULL, li[s], 31);
+  }
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const int at = s * 32 + lane;
+    if (at == p) {
+      ld[s] = cd;
+      li[s] = ci;
+    } else if (at > p) {  // shift by one: lane 0 takes the slot before's last
+      ld[s] = s == 0 || lane ? ud[s] : ed[s > 0 ? s - 1 : 0];
+      li[s] = s == 0 || lane ? ui[s] : ei[s > 0 ? s - 1 : 0];
+    }
   }
 }
 
-__device__ __forceinline__ void list_kth(const float (&ld)[2],
-                                         const int (&li)[2], int k, float& td,
+template <int NS>
+__device__ __forceinline__ void list_kth(const float (&ld)[NS],
+                                         const int (&li)[NS], int k, float& td,
                                          int& ti) {
   const int s = (k - 1) >> 5, l = (k - 1) & 31;
-  td = __shfl_sync(HS_FULL, s ? ld[1] : ld[0], l);
-  ti = __shfl_sync(HS_FULL, s ? li[1] : li[0], l);
+  float vd = ld[0];
+  int vi = li[0];
+#pragma unroll
+  for (int j = 1; j < NS; ++j)
+    if (s == j) {
+      vd = ld[j];
+      vi = li[j];
+    }
+  td = __shfl_sync(HS_FULL, vd, l);
+  ti = __shfl_sync(HS_FULL, vi, l);
 }
 
 // offer one candidate per lane (in lane order) to the list
-__device__ __forceinline__ void list_offer(float (&ld)[2], int (&li)[2],
+template <int NS>
+__device__ __forceinline__ void list_offer(float (&ld)[NS], int (&li)[NS],
                                            float cd, int ci, int k, int lane) {
   float td;
   int ti;
@@ -260,7 +290,7 @@ scan_kernel(const float* __restrict__ q, const float* __restrict__ qn,
   constexpr int BQ = TL::BQ, BN = TL::BN, TQ = TL::TQ, TN = TL::TN;
   constexpr int NCH = BN * (BK / 4) / THREADS;  // slab chunks a thread
   extern __shared__ __align__(16) float smem[];
-  const int KL = k <= 32 ? 32 : 64;
+  const int KL = list_slots(k);
   const int C = EST ? z.C : 0;
   float* Qs = smem;                       // [Dq][BQ]
   float* Us = Qs + (size_t)Dq * BQ;       // slabs [2][BK][BN] | dt [BQ][BN+1]
@@ -489,70 +519,83 @@ scan_kernel(const float* __restrict__ q, const float* __restrict__ qn,
       if ((pass >> i) & 1u) Fl[fidx<TQ, BQ>(ty, i)] = 1;
     __syncthreads();
 
-    // fold: each warp takes its flagged queries one by one
-    unsigned need = __ballot_sync(
-        HS_FULL, lane < NQW && Fl[warp + NWARP * (lane & (NQW - 1))] != 0);
-    if (lane < NQW) Fl[warp + NWARP * lane] = 0;
-    while (need) {
-      const int m = __ffs(need) - 1;
-      need &= need - 1;
-      const int ql = warp + NWARP * m;
-      const float* drow = dt + ql * (BN + 1);
-      const float td0 = Td[ql];
-      const int ti0 = Ti[ql];
-      float ld[2];
-      int li[2];
+    // fold: each warp takes its flagged queries one by one, the list in
+    // registers as NS slots a lane (2 for lists of 32 or 64, 4 for 128)
+    auto fold = [&](auto ns) {
+      constexpr int NS = decltype(ns)::value;
+      unsigned need = __ballot_sync(
+          HS_FULL, lane < NQW && Fl[warp + NWARP * (lane & (NQW - 1))] != 0);
+      if (lane < NQW) Fl[warp + NWARP * lane] = 0;
+      while (need) {
+        const int m = __ffs(need) - 1;
+        need &= need - 1;
+        const int ql = warp + NWARP * m;
+        const float* drow = dt + ql * (BN + 1);
+        const float td0 = Td[ql];
+        const int ti0 = Ti[ql];
+        float ld[NS];
+        int li[NS];
 #pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        const int at = s * 32 + lane;
-        ld[s] = at < KL ? Ld[ql * KL + at] : HS_INF;
-        li[s] = at < KL ? Li[ql * KL + at] : -1;
-      }
+        for (int s = 0; s < NS; ++s) {
+          const int at = s * 32 + lane;
+          ld[s] = at < KL ? Ld[ql * KL + at] : HS_INF;
+          li[s] = at < KL ? Li[ql * KL + at] : -1;
+        }
 #pragma unroll
-      for (int c0 = 0; c0 < BN; c0 += 32) {
-        const float cd = drow[c0 + lane];
-        const int ci = r0 + c0 + lane;
-        const bool ok = hs::pair_less(cd, ci, td0, ti0);
-        const int n = __popc(__ballot_sync(HS_FULL, ok));
-        if (k == 1 && n) {  // the list is its best entry: a warp argmin
-          float md = ok ? cd : HS_INF;
-          int mi = ok ? ci : -1;
+        for (int c0 = 0; c0 < BN; c0 += 32) {
+          const float cd = drow[c0 + lane];
+          const int ci = r0 + c0 + lane;
+          const bool ok = hs::pair_less(cd, ci, td0, ti0);
+          const int n = __popc(__ballot_sync(HS_FULL, ok));
+          if (k == 1 && n) {  // the list is its best entry: a warp argmin
+            float md = ok ? cd : HS_INF;
+            int mi = ok ? ci : -1;
 #pragma unroll
-          for (int o = 16; o > 0; o >>= 1) {
-            const float od = __shfl_xor_sync(HS_FULL, md, o);
-            const int oi = __shfl_xor_sync(HS_FULL, mi, o);
-            if (hs::pair_less(od, oi, md, mi)) {
-              md = od;
-              mi = oi;
+            for (int o = 16; o > 0; o >>= 1) {
+              const float od = __shfl_xor_sync(HS_FULL, md, o);
+              const int oi = __shfl_xor_sync(HS_FULL, mi, o);
+              if (hs::pair_less(od, oi, md, mi)) {
+                md = od;
+                mi = oi;
+              }
             }
+            if (lane == 0 && hs::pair_less(md, mi, ld[0], li[0])) {
+              ld[0] = md;
+              li[0] = mi;
+            }
+          } else if (KL == 32 && n >= MERGE_AT) {
+            if constexpr (NS == 2)
+              list_merge32(ld, li, ok ? cd : HS_INF, ok ? ci : -1, lane);
+          } else if (n) {
+            list_offer(ld, li, ok ? cd : HS_INF, ok ? ci : -1, k, lane);
           }
-          if (lane == 0 && hs::pair_less(md, mi, ld[0], li[0])) {
-            ld[0] = md;
-            li[0] = mi;
-          }
-        } else if (KL == 32 && n >= MERGE_AT) {
-          list_merge32(ld, li, ok ? cd : HS_INF, ok ? ci : -1, lane);
-        } else if (n) {
-          list_offer(ld, li, ok ? cd : HS_INF, ok ? ci : -1, k, lane);
         }
-      }
 #pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        const int at = s * 32 + lane;
-        if (at < KL) {
-          Ld[ql * KL + at] = ld[s];
-          Li[ql * KL + at] = li[s];
+        for (int s = 0; s < NS; ++s) {
+          const int at = s * 32 + lane;
+          if (at < KL) {
+            Ld[ql * KL + at] = ld[s];
+            Li[ql * KL + at] = li[s];
+          }
+        }
+        float td;
+        int ti;
+        list_kth(ld, li, k, td, ti);
+        if (lane == 0) {
+          Td[ql] = td;
+          Ti[ql] = ti;
+          if (gkth != nullptr && ti >= 0)  // a full list: k real rows
+            atomicMin(gkth + q0 + ql, pair_key(td, ti));
         }
       }
-      float td;
-      int ti;
-      list_kth(ld, li, k, td, ti);
-      if (lane == 0) {
-        Td[ql] = td;
-        Ti[ql] = ti;
-        if (gkth != nullptr && ti >= 0)  // a full list: k real rows
-          atomicMin(gkth + q0 + ql, pair_key(td, ti));
-      }
+    };
+    if constexpr (TL::K128) {
+      if (KL == 128)
+        fold(std::integral_constant<int, 4>{});
+      else
+        fold(std::integral_constant<int, 2>{});
+    } else {
+      fold(std::integral_constant<int, 2>{});
     }
     __syncthreads();
     if (r0 + BN < r_end) {  // the next tile's first slab, held in registers
@@ -573,7 +616,9 @@ scan_kernel(const float* __restrict__ q, const float* __restrict__ qn,
   }
 }
 
-// one warp per query: merge the per-split top-k lists
+// one warp per query: merge the per-split top-k lists (NS list slots a
+// lane: 2 for k <= 64, 4 for k <= 128)
+template <int NS>
 __global__ void __launch_bounds__(256)
 topk_merge(const float* __restrict__ part_d, const int* __restrict__ part_i,
            int splits, int B, int k, float* __restrict__ out_d,
@@ -581,8 +626,13 @@ topk_merge(const float* __restrict__ part_d, const int* __restrict__ part_i,
   const int lane = threadIdx.x & 31;
   const int gq = blockIdx.x * 8 + (threadIdx.x >> 5);
   if (gq >= B) return;  // warp-uniform
-  float ld[2] = {HS_INF, HS_INF};
-  int li[2] = {-1, -1};
+  float ld[NS];
+  int li[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    ld[s] = HS_INF;
+    li[s] = -1;
+  }
   for (int s = 0; s < splits; ++s) {
     const size_t row = ((size_t)s * B + gq) * k;
     for (int c0 = 0; c0 < k; c0 += 32) {
@@ -593,7 +643,7 @@ topk_merge(const float* __restrict__ part_d, const int* __restrict__ part_i,
     }
   }
 #pragma unroll
-  for (int s = 0; s < 2; ++s) {
+  for (int s = 0; s < NS; ++s) {
     const int idx = s * 32 + lane;
     if (idx < k) {
       out_d[(size_t)gq * k + idx] = ld[s];
@@ -651,9 +701,10 @@ int launch_tile(const float* q, const float* qn, const T* x, const float* xn,
                 int rows_per_split, int smem, unsigned long long* gkth,
                 float* od, int* oi, cudaStream_t st) {
   const int Dp = (D + BK - 1) / BK * BK;
-  const size_t rest = scan_smem<TL>(0, k <= 32 ? 32 : 64, EST ? z.C : 0);
+  const size_t rest = scan_smem<TL>(0, list_slots(k), EST ? z.C : 0);
   const size_t slab = sizeof(float) * BK * TL::BQ;
-  if (smem > SMEM_MAX || (size_t)smem < rest + slab)
+  if (smem > SMEM_MAX || (size_t)smem < rest + slab ||
+      (list_slots(k) == 128 && !TL::K128))
     return static_cast<int>(cudaErrorInvalidValue);
   const int Dq = min(Dp, static_cast<int>((smem - rest) / slab) * BK);
   if (Dq < Dp && !TL::CHUNK) return static_cast<int>(cudaErrorInvalidValue);
@@ -681,7 +732,7 @@ int launch_scan(int tile, const float* q, const float* qn, const T* x,
                 int metric, int splits, int rows_per_split, int smem,
                 unsigned long long* gkth, float* od, int* oi,
                 cudaStream_t st) {
-  if (k < 1 || k > 64 || splits < 1)
+  if (k < 1 || k > MAX_K || splits < 1)
     return static_cast<int>(cudaErrorInvalidValue);
 #define HS_TILE(TL)                                                        \
   launch_tile<TL, EST, T>(q, qn, x, xn, z, row_ids, B, N, D, n_valid,      \
@@ -697,6 +748,16 @@ int launch_scan(int tile, const float* q, const float* qn, const T* x,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+void merge_splits(const float* part_d, const int* part_i, int splits, int B,
+                  int k, float* out_d, int* out_i, cudaStream_t st) {
+  if (k > 64)
+    topk_merge<4><<<(B + 7) / 8, 256, 0, st>>>(part_d, part_i, splits, B, k,
+                                               out_d, out_i);
+  else
+    topk_merge<2><<<(B + 7) / 8, 256, 0, st>>>(part_d, part_i, splits, B, k,
+                                               out_d, out_i);
+}
+
 template <class T>
 int launch_topk(const float* q, const float* qn, const T* x, const float* xn,
                 const int* row_ids, int B, int N, int D, int n_valid,
@@ -710,9 +771,7 @@ int launch_topk(const float* q, const float* qn, const T* x, const float* xn,
       k, metric, splits, 0, smem, splits == 1 ? nullptr : gkth,
       splits == 1 ? out_d : part_d, splits == 1 ? out_i : part_i, st);
   if (err) return err;
-  if (splits > 1)
-    topk_merge<<<(B + 7) / 8, 256, 0, st>>>(part_d, part_i, splits, B, k,
-                                            out_d, out_i);
+  if (splits > 1) merge_splits(part_d, part_i, splits, B, k, out_d, out_i, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -802,9 +861,7 @@ extern "C" int hs_topk_estimate(const uint32_t* qrows, int qstride, int nb,
       k, 0, splits, 0, smem, splits == 1 ? nullptr : gkth,
       splits == 1 ? out_d : part_d, splits == 1 ? out_i : part_i, st);
   if (err) return err;
-  if (splits > 1)
-    topk_merge<<<(B + 7) / 8, 256, 0, st>>>(part_d, part_i, splits, B, k,
-                                            out_d, out_i);
+  if (splits > 1) merge_splits(part_d, part_i, splits, B, k, out_d, out_i, st);
   return static_cast<int>(cudaGetLastError());
 }
 

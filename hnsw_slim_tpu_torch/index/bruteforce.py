@@ -11,7 +11,9 @@ equal distances put the lower row first, as ``lax.top_k`` does.
 is its estimate mode, the seed block of the SlimQ search: the same scan and
 running top-k over the 1-bit RaBitQ estimates of a table of packed code
 rows. ``scan_plan`` picks each launch's tile shape, row splits and shared
-memory from the call's shape (a pure function, tested on the CPU).
+memory from the call's shape (a pure function, tested on the CPU). On the
+card k is at most MAX_K = 128, the longest top-k list a scan keeps; a
+launch whose lists take 128 slots (k > 64) is counted as the ``k128`` mode.
 """
 
 from __future__ import annotations
@@ -67,6 +69,18 @@ SM_SMEM = 233472  # shared bytes of one SM
 SCAN_TILES = {"L": (0, 128, 128), "M": (1, 64, 128), "U": (2, 16, 128),
               "T": (3, 64, 32)}
 MAX_SPLITS = 256
+MAX_K = 128  # the longest top-k list a scan keeps (csrc/topk_dist.cu)
+
+
+def list_slots(k: int) -> int:
+    """Slots of a query's top-k list in the scan's shared memory."""
+    return 32 if k <= 32 else 64 if k <= 64 else 128
+
+
+def _check_k(k: int, what: str) -> None:
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"{what}: k={k} outside [1, {MAX_K}]: a scan "
+                         f"keeps top-k lists of at most {MAX_K}")
 
 
 class ScanPlan(NamedTuple):
@@ -86,13 +100,13 @@ def scan_smem(tile: str, d: int, k: int, c: int = 0,
               qdims: int | None = None) -> int:
     """Shared bytes of one scan block: the query tile (``qdims`` dims; by
     default all d, padded to a multiple of 32), the two slab buffers or the
-    distance tile over them, the top-k lists (32 or 64 slots a query), the
-    thresholds and pass flags, and in estimate mode the tile's g_add rows
-    (c centroids). The kernel holds as many whole 32-dim slabs of the query
-    tile as these bytes leave room for."""
+    distance tile over them, the top-k lists (32, 64 or 128 slots a query:
+    ``list_slots``), the thresholds and pass flags, and in estimate mode
+    the tile's g_add rows (c centroids). The kernel holds as many whole
+    32-dim slabs of the query tile as these bytes leave room for."""
     _, bq, bn = SCAN_TILES[tile]
     dq = -(-d // 32) * 32 if qdims is None else qdims
-    kl = 32 if k <= 32 else 64
+    kl = list_slots(k)
     u = -(-max(2 * 32 * bn, bq * (bn + 1)) // 4) * 4
     return 4 * (dq * bq + u + 2 * bq * kl + 3 * bq + bq * c)
 
@@ -103,11 +117,12 @@ def scan_plan(b: int, n: int, d: int, k: int, sms: int, *, strata: int = 0,
     results a query; ``strata`` segments, one split each; ``c`` centroids
     in estimate mode) on a card of ``sms`` SMs.
 
-    Tile: T (64 queries x 32 rows) for tables of at most 32 rows and large
-    batches (the KMeans assignment); above 64 queries L (128 x 128, one
-    block an SM, the most FMAs a shared load) for k <= 16, else M (64 x
-    128, two blocks an SM, so one block's top-k fold overlaps the other's
-    FMAs); U (16 x 128) for at most 64 queries. A tile whose resident
+    Tile: T (64 queries x 32 rows) for tables of at most 32 rows, large
+    batches and k <= 64 (the KMeans assignment); above 64 queries L (128 x
+    128, one block an SM, the most FMAs a shared load) for k <= 16, else M
+    (64 x 128, two blocks an SM, so one block's top-k fold overlaps the
+    other's FMAs; one with 128-slot lists); U (16 x 128) for at most 64
+    queries. Only M and U take 128-slot lists. A tile whose resident
     query tile does not fit gives way to the next one; where none fits
     (wide rows), U stages its query tile in chunks of ``qdims`` dims, as
     many as leave two blocks an SM (the only tile compiled to do so).
@@ -116,9 +131,10 @@ def scan_plan(b: int, n: int, d: int, k: int, sms: int, *, strata: int = 0,
     the row tiles a split holds) over its throughput (0.6 of the FMA rate
     with one block resident, all of it with two), plus the merge of the
     per-split lists; batches of at most 64 queries get a block on every SM
-    where the rows allow."""
+    where the rows allow. k above MAX_K raises."""
+    _check_k(k, "scan_plan")
     big = "L" if k <= 16 else "M"
-    if n <= 32 and b >= 1024:
+    if n <= 32 and b >= 1024 and k <= 64:
         order = "T" + big + "U"
     else:
         order = big + "U" if b > 64 else "U"
@@ -171,8 +187,7 @@ def topk_dist(q, x, xn, k: int, metric: str = "l2", n_valid: int = -1,
                                self_offset)
     b, d = q.shape
     n = x.shape[0]
-    if not 1 <= k <= 64:
-        raise ValueError(f"topk_dist: k={k} outside [1, 64]")
+    _check_k(k, "topk_dist")
     cuda.require(q, torch.float32, "q", (-1, -1))
     cuda.require(x, cuda.ROW_TYPES, "x", (-1, d))
     cuda.require(xn, torch.float32, "xn", (n,))
@@ -189,7 +204,8 @@ def topk_dist(q, x, xn, k: int, metric: str = "l2", n_valid: int = -1,
     part_i = torch.empty((plan.splits, b, k), dtype=torch.int32,
                          device=q.device)
     kth = torch.empty((b,), dtype=torch.int64, device=q.device)
-    entry, modes = cuda.row_type(x, "topk_dist")
+    entry, modes = cuda.row_type(x, "topk_dist",
+                                 ("k128",) if k > 64 else ())
     cuda.launch(
         "topk_dist", q.data_ptr(), qn.data_ptr(), x.data_ptr(), xn.data_ptr(),
         None if row_ids is None else row_ids.data_ptr(), b, n, d,
@@ -312,8 +328,7 @@ def topk_estimate(sc: QuantScorer, row_ids, k: int):
         return topk_estimate_plain(sc, row_ids, k)
     b = sc.q_rot.shape[0]
     n = sc.rows.shape[0]
-    if not 1 <= k <= 64:
-        raise ValueError(f"topk_estimate: k={k} outside [1, 64]")
+    _check_k(k, "topk_estimate")
     sargs = sc.args()
     cuda.require(row_ids, torch.int32, "row_ids", (n,))
     dev = sc.q_rot.device
@@ -330,15 +345,21 @@ def topk_estimate(sc: QuantScorer, row_ids, k: int):
         "topk_dist", *sargs[:4], *sargs[5:], row_ids.data_ptr(), b, n, k,
         SCAN_TILES[plan.tile][0], plan.splits, plan.smem, part_d.data_ptr(),
         part_i.data_ptr(), kth.data_ptr(), out_d.data_ptr(),
-        out_i.data_ptr(), entry="topk_estimate", modes=("estimate",),
+        out_i.data_ptr(), entry="topk_estimate",
+        modes=("estimate",) + (("k128",) if k > 64 else ()),
         shape=f"estimate {plan.tile} k{k}")
     return out_d, out_i
 
 
 class BruteForceIndex:
-    """Exact search over a flat vector array held on ``device``."""
+    """Exact search over a flat vector array held on ``device``.
 
-    def __init__(self, vectors: np.ndarray, metric: str = "l2", device=None):
+    ``chunk`` keeps the JAX signature (its row chunk of the scan); here the
+    scan is one Kα launch over all rows, so it changes no pass and no
+    result. k is at most MAX_K on the card."""
+
+    def __init__(self, vectors: np.ndarray, metric: str = "l2",
+                 chunk: int = 65536, device=None):
         self.metric = metric
         self.device = cuda.resolve_device(device)
         self.x = torch.as_tensor(np.asarray(vectors, np.float32),

@@ -265,13 +265,15 @@ class HnswIndex:
             "overflow": ins.overflow, "touched": len(out)}
         return out
 
-    def replace_points(self, slots: np.ndarray, new_vectors: np.ndarray):
+    def replace_points(self, slots: np.ndarray, new_vectors: np.ndarray,
+                       verbose: bool = False):
         """Reuse deleted slots for new vectors (the reference's
         replace_deleted path): sever every edge from and to a slot,
         overwrite its vector, draw it a fresh level (clamped to the graph's
         max_level, so that a reused slot never adds a level), and re-insert
         it through the host-planned insert batch. Returns (touched row ids,
-        ids whose level changed), and sets ``last_update_stats``."""
+        ids whose level changed), and sets ``last_update_stats``;
+        ``verbose`` prints each batch and the seconds of each step."""
         marks, mark = self._marks()
         dev = self.device
         slots = np.asarray(slots, np.int64)
@@ -318,6 +320,9 @@ class HnswIndex:
             touched.append(ins._insert_batch(
                 slots[s:s + self.max_batch], levels_arr, entry, cur_maxlevel,
                 self.vectors, self.vn, adj_np, adj_dev, spans))
+            if verbose:
+                print(f"  replaced {min(s + self.max_batch, len(slots))}/"
+                      f"{len(slots)}", flush=True)
         mark("insert_batches")
         self.levels = levels_arr
         self.graph = LevelGraph(
@@ -328,6 +333,9 @@ class HnswIndex:
         self.last_update_stats = {"seconds": marks,
                                   "phase_s": spans.totals(),
                                   "touched": len(out)}
+        if verbose:
+            print("  replace_points: " + " ".join(
+                f"{k}={v:.2f}s" for k, v in marks.items()), flush=True)
         return out, level_changed
 
     def host_adj(self) -> list[np.ndarray]:

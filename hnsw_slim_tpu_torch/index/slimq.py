@@ -35,8 +35,8 @@ from ..quant.estimator import QuantScorer
 from ..quant.estimator import unpack_fields as _unpack_fields  # noqa: F401
 from ..quant.kmeans import kmeans
 from ..quant.rabitq import QuantizedCodes, quantize_batch
-from ..quant.rotator import FhtKacRotator, g_tables
-from .bruteforce import topk_estimate
+from ..quant.rotator import FhtKacRotator, g_tables, pad_dim
+from .bruteforce import MAX_K, scan_plan, topk_estimate
 from .hnsw import HnswIndex
 from .slim import HnswSlimIndex
 
@@ -55,6 +55,30 @@ def pack_code_rows(codes: QuantizedCodes, cluster_ids) -> torch.Tensor:
         dim=1).view(torch.int32))
     parts.append(cluster_ids.to(torch.int32)[:, None])
     return torch.cat(parts, dim=1).contiguous()
+
+
+def check_centroids(n_clusters: int, dim: int, k: int) -> None:
+    """Raise ValueError when the SlimQ seed scan (Kα's estimate mode: k
+    seeds over ``dim`` rotated dims) cannot place the g_add rows of
+    ``n_clusters`` centroids in a block's shared memory (``scan_plan``);
+    the message names the most centroids that fit. The index calls it on
+    a CUDA device before any work."""
+    def fits(c: int) -> bool:
+        try:
+            scan_plan(1, 1, dim, k, 1, c=c)
+        except ValueError:
+            return False
+        return True
+
+    if fits(n_clusters):
+        return
+    lo, hi = 0, n_clusters - 1  # the most that fit lies in [lo, hi]
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
+    raise ValueError(
+        f"SlimQ: {n_clusters} centroids do not fit the seed scan's shared "
+        f"memory at {dim} rotated dims and k={k}: at most {lo}")
 
 
 def slimq_search(nbr, lvl_off, entry, q_rot, packed, centroids_rot, dataset,
@@ -166,6 +190,13 @@ class HnswSlimQIndex:
         self.last_stats: dict = {}
         self.build_stats: dict = {}
 
+    def _check_centroids(self, n_clusters: int, dim: int) -> None:
+        """check_centroids at this index's seed width (at least one seed),
+        on a CUDA device."""
+        if self.device.type == "cuda":
+            check_centroids(n_clusters, pad_dim(dim),
+                            min(max(1, self.scfg.seed_width), MAX_K))
+
     densify_level0 = HnswSlimIndex.densify_level0
     densify_upper = HnswSlimIndex.densify_upper
     _host_chal = HnswSlimIndex._host_chal
@@ -184,6 +215,7 @@ class HnswSlimQIndex:
         quant_cfg = quant_cfg or QuantConfig()
         vectors = np.asarray(vectors, np.float32)
         idx = cls(metric=hnsw_cfg.metric, device=device)
+        idx._check_centroids(quant_cfg.num_clusters, vectors.shape[1])
         sync = torch.cuda.synchronize if idx.device.type == "cuda" \
             else (lambda: None)
         split = {}
@@ -236,6 +268,7 @@ class HnswSlimQIndex:
         rotated centroids and the rotator's flip bits — the arrays of the
         checkpoint layout, or those of a JAX-built index."""
         idx = cls(metric=metric, search_cfg=search_cfg, device=device)
+        idx._check_centroids(len(centroids_rot), dim)
         idx.graph = ChalGraph.from_numpy(
             nbr, lvl_off, level, entry=entry, max_level=max_level,
             threshold_level=threshold_level, cap0=cap0, cap=cap,

@@ -14,8 +14,9 @@ wrapper calls that launched it, and per kernel mode (``kernel.mode``: a fetch
 form, the filtered beam, stratified seeds, the guarded prune, the quantized
 scorers and the rerank track of SlimQ, ``bf16`` for rows read from a
 bfloat16 vector store, the dedup mode of the run scatter, the join mode
-of the NN-descent candidates and the ids map of the radix sort) the
-launches made in that mode:
+of the NN-descent candidates, the ids map of the radix sort and ``k128``
+for a scan whose top-k lists take 128 slots) the launches made in that
+mode:
 ``reset_launches`` before a run and read the counts after it to show which
 kernels and modes the run went through. ``launch_shapes`` splits the
 launches of Kα, Kβ, Kγ and Kε by their shape class (scan mode, tile and k;
@@ -42,7 +43,8 @@ BUILD_DIR = PKG / "_build"
 SOURCES = ("topk_dist.cu", "beam_search.cu", "rng_prune.cu", "cand_merge.cu",
            "greedy_descent.cu", "rev_connect.cu", "fht_rotate.cu",
            "row_deg.cu", "point_dist.cu", "shard_merge.cu",
-           "radix_sort.cu", "run_scatter.cu", "nnd_cand.cu", "rp_window.cu")
+           "radix_sort.cu", "run_scatter.cu", "nnd_cand.cu", "rp_window.cu",
+           "row_norms.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -52,14 +54,15 @@ NVCC_FLAGS = (
 KERNELS = ("topk_dist", "beam_search", "rng_prune", "cand_merge",
            "greedy_descent", "rev_connect", "fht_rotate", "row_deg",
            "point_dist", "shard_merge", "radix_sort",
-           "run_scatter", "nnd_cand", "rp_window")
+           "run_scatter", "nnd_cand", "rp_window", "row_norms")
 MODES = ("topk_dist.strata", "beam_search.chal", "beam_search.rank",
          "beam_search.filtered", "greedy_descent.chal", "greedy_descent.rank",
          "rng_prune.guarded", "topk_dist.estimate", "beam_search.quant",
          "beam_search.quant_ex", "beam_search.rerank", "greedy_descent.quant",
          "fht_rotate.g_tables", "topk_dist.bf16", "beam_search.bf16",
          "greedy_descent.bf16", "rng_prune.bf16", "point_dist.bf16",
-         "run_scatter.dedup", "nnd_cand.join", "radix_sort.ids")
+         "run_scatter.dedup", "nnd_cand.join", "radix_sort.ids",
+         "topk_dist.k128", "row_norms.bf16")
 launches = dict.fromkeys(KERNELS + MODES, 0)
 # launches by the shape a wrapper reports (``launch(shape=)``) under the
 # caller's tag (``tagged``): "kernel[tag] shape" -> count
@@ -153,11 +156,14 @@ _SIGNATURES = {
     "hs_nnd_join": [P, P, P, P, I32, I32, I32, I32, I32, P, P],
     # order, rnd, n, n_valid, P, w, R, C, cand, stream
     "hs_rp_window": [P, P, I32, I32, I32, I32, I32, I32, P, P],
+    # x, rows, D, row stride (elements), out, stream
+    "hs_row_norms": [P, I32, I32, I64, P, P],
 }
 # the kernels that read rows of the vector store have a bfloat16 entry
 # point of the same signature (``<name>_bf16``)
 for _name in ("hs_topk_dist", "hs_topk_strata", "hs_beam_search",
-              "hs_rng_prune", "hs_greedy_levels", "hs_point_dist"):
+              "hs_rng_prune", "hs_greedy_levels", "hs_point_dist",
+              "hs_row_norms"):
     _SIGNATURES[_name + "_bf16"] = _SIGNATURES[_name]
 
 _LIB = None

@@ -6,10 +6,13 @@ Same expansion as the JAX code, so near-ties break the same way:
 
 The GEMM forms run as fp32 ``torch.matmul``. The JAX package computes them
 at ``Precision.HIGHEST`` (true fp32), so TF32 is switched off for cuBLAS and
-cuDNN when this module is imported. ``gathered_dist`` and ``point_dist`` are
-kernel K1 (csrc/point_dist.cu) on CUDA tensors and their plain versions on
-CPU tensors; the gathered form inside the other kernels' loops is fused into
-those kernels (beam search, prune, NN-descent merge).
+cuDNN when this module is imported. ``sq_norms`` is kernel Kξ
+(csrc/row_norms.cu) on CUDA tensors, ``gathered_dist`` and ``point_dist``
+are kernel K1 (csrc/point_dist.cu); CPU tensors take their plain versions.
+The gathered form inside the other kernels' loops is fused into those
+kernels (beam search, prune, NN-descent merge). The plain versions of every
+kernel take their norms from ``sq_norms``, so on the card a kernel and its
+plain version see the same norms.
 
 Rows may be fp32 or bfloat16 (a ``store_dtype="bfloat16"`` store): they are
 widened to fp32 element by element and every sum is fp32, as the JAX code
@@ -27,20 +30,41 @@ torch.backends.cudnn.allow_tf32 = False
 
 F32 = torch.float32
 INF = float("inf")
-NORM_CHUNK = 1 << 20  # rows per sq_norms pass over a bfloat16 store
+
+
+def sq_norms_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch Kξ: ‖x‖² per row, f32[x.shape[:-1]] (bfloat16 rows
+    widened to fp32 first)."""
+    x = x.to(F32)
+    return torch.sum(x * x, dim=-1)
 
 
 def sq_norms(x: torch.Tensor) -> torch.Tensor:
-    """‖x‖² per row: f32[...]. A bfloat16 table is reduced in chunks of
-    NORM_CHUNK rows, so its fp32 upcast never exists whole (8 GB at
-    16M × 128)."""
-    if x.dtype == F32:
-        return torch.sum(x * x, dim=-1)
-    if x.dim() != 2 or x.shape[0] <= NORM_CHUNK:
-        x = x.to(F32)
-        return torch.sum(x * x, dim=-1)
-    return torch.cat([sq_norms(x[s:s + NORM_CHUNK])
-                      for s in range(0, x.shape[0], NORM_CHUNK)])
+    """Kξ: ‖x‖² per row, f32[x.shape[:-1]], from fp32 or bfloat16 rows of
+    any width (a 1-D x gives a 0-d tensor). CUDA tensors launch
+    csrc/row_norms.cu: one pass, no temporary beyond the output, 2-D rows
+    may be strided; CPU tensors run sq_norms_plain."""
+    if not x.is_cuda:
+        return sq_norms_plain(x)
+    if x.dtype not in cuda.ROW_TYPES:
+        raise ValueError(f"sq_norms: expected {cuda.ROW_TYPES}, got "
+                         f"{x.dtype}")
+    out = torch.empty(x.shape[:-1], dtype=F32, device=x.device)
+    n, d = out.numel(), x.shape[-1]
+    if n == 0:
+        return out
+    try:
+        rows = x.view(n, d)
+    except RuntimeError as e:
+        raise ValueError(f"sq_norms: x{tuple(x.shape)} is not a view of "
+                         f"[N, D] rows") from e
+    if d > 1 and rows.stride(1) != 1 or n > 1 and rows.stride(0) < d:
+        raise ValueError(f"sq_norms: rows of x{tuple(x.shape)} are not "
+                         f"contiguous, non-overlapping runs of D elements")
+    entry, modes = cuda.row_type(rows, "row_norms")
+    cuda.launch("row_norms", rows.data_ptr(), n, d, rows.stride(0),
+                out.data_ptr(), entry=entry, modes=modes)
+    return out
 
 
 def pairwise_dist(q, x, metric: str = "l2", qn=None, xn=None) -> torch.Tensor:

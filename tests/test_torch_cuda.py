@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (Kα–Kν, and their fetch-form, filtered, strata,
+"""The port's CUDA kernels (Kα–Kξ, and their fetch-form, filtered, strata,
 guarded, quantized-scorer, rerank-track, collect, join and dedup modes)
 against their plain PyTorch versions on the card. Marked ``cuda``; each test skips when no CUDA device is present.
 The machine with the card has no JAX, so run these without the suite's
@@ -1785,3 +1785,75 @@ def test_descent_levels_quant_on_card(data, slimq_index, use_ex):
     assert same.float().mean() >= 0.99
     assert _close(k_o[1][same], p_o[1][same])
     assert torch.equal(k_o[2][same], p_o[2][same])
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(0, 128), (1, 1), (4097, 3), (4097, 100),
+                                 (20000, 128), (3000, 960), (5, 0), (33, 8)])
+def test_row_norms_kernel_matches_plain(dtype, n, d):
+    """Kξ against sq_norms_plain within 1e-6 relative (both sum the fp32
+    squares of the same elements, in another order): contiguous rows,
+    strided rows, rows that start off a 16-byte boundary (the one-element
+    path) and a 1-D row; one launch a call, none for an empty batch."""
+    _card()
+    from hnsw_slim_tpu_torch.ops import cuda
+    from hnsw_slim_tpu_torch.ops import distance as dist
+
+    rng = np.random.default_rng(n * 1009 + d)
+    wide = torch.as_tensor((rng.standard_normal((n, d + 8)) * 3).astype(
+        np.float32)).to(dtype).cuda()
+    flat = torch.as_tensor(rng.standard_normal(n * d + 1).astype(
+        np.float32)).to(dtype).cuda()
+    views = [wide[:, :d].contiguous(), wide[:, :d], flat[1:].view(n, d)]
+    if n:
+        views.append(wide[0, :d])
+    for v in views:
+        before = cuda.launches["row_norms"]
+        got = dist.sq_norms(v)
+        want = dist.sq_norms_plain(v)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == torch.float32
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+        assert cuda.launches["row_norms"] - before == int(got.numel() > 0)
+
+
+@pytest.mark.parametrize("k", [65, 100, 128])
+@pytest.mark.parametrize("b,tile", [(512, "M"), (48, "U")])
+def test_topk_dist_128_slot_lists_match_plain(data, k, b, tile):
+    """Kα with 128-slot lists (64 < k <= 128) in tiles M and U against its
+    plain version; k = 129 raises and names the limit."""
+    from hnsw_slim_tpu_torch.index import bruteforce as bf
+    from hnsw_slim_tpu_torch.ops import cuda
+
+    x, xn, q = data
+    q = q[:b].contiguous()
+    assert bf._plan(q, x.shape[0], k).tile == tile
+    before = cuda.launches["topk_dist.k128"]
+    kd, ki = bf.topk_dist(q, x, xn, k, n_valid=19000)
+    pd, pi = bf.topk_dist_plain(q, x, xn, k, n_valid=19000)
+    assert cuda.launches["topk_dist.k128"] == before + 1
+    assert (ki == pi).float().mean() >= 0.99
+    assert _close(kd, pd) and bool((ki < 19000).all())
+    with pytest.raises(ValueError, match=r"outside \[1, 128\]"):
+        bf.topk_dist(q, x, xn, 129)
+
+
+@pytest.mark.parametrize("k", [65, 100, 128])
+def test_topk_estimate_128_slot_lists_match_plain(data, slimq_index, k):
+    """Kα's estimate mode with 128-slot lists against its plain version."""
+    from hnsw_slim_tpu_torch.index import bruteforce as bf
+
+    _, _, q = data
+    idx, _ = slimq_index
+    rows, up_ids = idx._seed_table()
+    st = _scorer(idx, q, False)._replace(rows=rows)
+    kd, kp = bf.topk_estimate(st, up_ids, k)
+    pd, pp = bf.topk_estimate_plain(st, up_ids, k)
+    assert (kp == pp).float().mean() >= 0.99
+    fin = torch.isfinite(pd)
+    assert torch.equal(torch.isfinite(kd), fin) and _est_close(kd[fin], pd[fin])

@@ -178,11 +178,14 @@ def test_chip_smoke_imports_only_the_port():
 
 
 @pytest.mark.parametrize("rel", ["config.py", "utils/data.py",
-                                 "utils/native.py"])
+                                 "utils/native.py", "eval/__init__.py",
+                                 "eval/recall.py", "utils/io.py",
+                                 "tools.py"])
 def test_shared_module_copy_is_byte_equal(rel):
     """The port keeps its own copy of the JAX package's jax-free modules
     (configuration dataclasses, synthetic data, the native data plane's
-    bindings) so that it never imports the JAX package; each copy stays
-    byte-equal to the reference's file."""
+    bindings, fvecs I/O, recall scoring and the CLI tools) so that it never
+    imports the JAX package; each copy stays byte-equal to the reference's
+    file."""
     ref = (REPO / "hnsw_slim_tpu" / rel).read_bytes()
     assert (REPO / "hnsw_slim_tpu_torch" / rel).read_bytes() == ref

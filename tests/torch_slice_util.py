@@ -10,6 +10,7 @@ JAX insertion build and records one of its batches.
 import dataclasses
 import fcntl
 import os
+import struct
 
 import numpy as np
 import pytest
@@ -665,3 +666,69 @@ def jax_bf16_dir(tmp_path_factory):
         np.savez(d / "rec.tmp.npz", **rec)
         os.replace(d / "rec.tmp.npz", d / "rec.npz")
     return d
+
+
+# ---- reference graph dumps (test_torch_import_ref.py)
+
+def _runs(counts: np.ndarray):
+    """(owner, position) of every element of runs of the given lengths."""
+    owner = np.repeat(np.arange(len(counts)), counts)
+    starts = np.cumsum(counts) - counts
+    return owner, np.arange(len(owner)) - starts[owner]
+
+
+def write_ref_slim_dump(path, nbr, lvl_off, level, *, entry, max_level,
+                        threshold_level, cap, cap0):
+    """A CHAL graph in parity/ref_harness.cc's dump_slim_graph format:
+    header, then per node its level, its total neighbour count, the end
+    offset of each of its levels 0..level, and its ids."""
+    nbr, level = np.asarray(nbr), np.asarray(level, np.int64)
+    off = np.asarray(lvl_off, np.int64)
+    n = len(level)
+    start = off[:, 0]
+    ends = off[:, 1:] - start[:, None]
+    total = ends[np.arange(n), level]
+    words = 3 + level + total
+    at = np.cumsum(words) - words
+    out = np.empty(int(words.sum()), np.int32)
+    out[at], out[at + 1] = level, total
+    v, l = _runs(level + 1)
+    out[at[v] + 2 + l] = ends[v, l]
+    v, j = _runs(total)
+    out[at[v] + 3 + level[v] + j] = nbr[start[v] + j]
+    with open(path, "wb") as f:
+        f.write(struct.pack("<IIiIiII", 0x48534C47, n, max_level, entry,
+                            threshold_level, cap, cap0))
+        f.write(out.tobytes())
+
+
+def write_ref_hnsw_dump(path, adjs, level, *, entry, max_level, maxm,
+                        maxm0):
+    """A per-level adjacency (rows -1 padded) in dump_hnsw_graph's format:
+    header, then per node its level and, for each level 0..level, the count
+    of its ids and the ids."""
+    level = np.asarray(level, np.int64)
+    n = len(level)
+    cnt = np.zeros((n, max_level + 1), np.int64)
+    for l, a in enumerate(adjs):
+        cnt[level >= l, l] = (np.asarray(a)[level >= l] >= 0).sum(1)
+    per_level = np.where(np.arange(max_level + 1)[None] <= level[:, None],
+                         1 + cnt, 0)
+    words = 1 + per_level.sum(1)
+    at = np.cumsum(words) - words
+    out = np.empty(int(words.sum()), np.int32)
+    out[at] = level
+    before = 1 + np.cumsum(per_level, axis=1) - per_level  # level l's block
+    for l, a in enumerate(adjs):
+        rows = np.nonzero(level >= l)[0]
+        pos = at[rows] + before[rows, l]
+        out[pos] = cnt[rows, l]
+        a = np.asarray(a)[rows]
+        keep = a >= 0
+        col = np.cumsum(keep, axis=1) - 1  # rows packed left in the dump
+        r, c = np.nonzero(keep)
+        out[pos[r] + 1 + col[r, c]] = a[r, c]
+    with open(path, "wb") as f:
+        f.write(struct.pack("<IIiIII", 0x484E5347, n, max_level, entry, maxm,
+                            maxm0))
+        f.write(out.tobytes())
