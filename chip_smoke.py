@@ -62,7 +62,10 @@ Phases (one line each on stdout, the kernel table second to last):
      that the main paths make, against its level-by-level plain twin), Kβ
      in build mode and from a carried buffer (with its bound), Kγ and Kζ on
      one 4096-insert batch recorded during the insertion build (its
-     pre-batch graph and inputs), Kα (ground truth, the seed block, and a
+     pre-batch graph and inputs; Kζ's calls host-inclusive and device-only,
+     the whole level-0 apply both ways, and its Kζ calls and Kι sorts,
+     which must be 2 and 1; then one seeded Slim search must launch Kξ
+     once), Kα (ground truth, the seed block, and a
      12-query server batch over the seed table) and Kβ on the serving
      paths, Kγ on the NND build's and conversion's
      prunes, Kδ on an NND chunk, and on inputs of phases 3 and 4 Kβ over
@@ -130,7 +133,8 @@ Phases (one line each on stdout, the kernel table second to last):
      phase 8 left it, imported (slim_index_from_ref, hnsw_index_from_ref)
      and searched at ef 64 bit for bit like the in-memory indexes; then Kξ
      against its plain version on the fp32 store, a bf16 copy and the
-     queries (beside torch.sum(x * x, -1) and torch.linalg.vector_norm),
+     queries (host-inclusive and device-only, beside torch.sum(x * x, -1)
+     and torch.linalg.vector_norm),
      and Kα at k = 100 over all queries (ids equal to the CLI's ground
      truth, top 10 equal to phase 2's near-ties aside, 64 queries against
      the plain version, beside a chunked torch.cdist().topk() composite);
@@ -155,6 +159,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import threading
@@ -221,7 +226,7 @@ MODE_ROUTES = {  # kernel mode: (kernel, the JAX code that mode replaces)
     "point_dist.bf16": ("point_dist", "hnsw_slim_tpu/ops/distance.py:76"),
     "run_scatter.dedup": ("run_scatter", "hnsw_slim_tpu/graph/build.py:233"),
     "nnd_cand.join": ("nnd_cand", "hnsw_slim_tpu/graph/nnd.py:179"),
-    # Kι: the insert apply's three edge sorts on Kκ's ids map
+    # Kι: the insert apply's reverse-edge sort on Kκ's ids map
     "radix_sort.ids": ("radix_sort", "hnsw_slim_tpu/graph/revconn.py:90"),
     # Kα with 128-slot lists (64 < k <= 128): the CLI's 100-NN ground truth
     "topk_dist.k128": ("topk_dist", "hnsw_slim_tpu/index/bruteforce.py:85"),
@@ -301,6 +306,28 @@ def cuda_ms(fn, reps: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20, prep=None) -> float:
+    """Median milliseconds of the card's work for one call: CUDA events
+    around the call, recorded while the card still sleeps
+    (``torch.cuda._sleep``, about 1 ms) so that they time the card and not
+    the wrapper's host code. ``prep`` (untimed) makes each call's input."""
+    import torch
+
+    fn(prep() if prep else None)
+    out = []
+    for _ in range(reps):
+        st = prep() if prep else None
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda._sleep(2_000_000)
+        ev[0].record()
+        fn(st)
+        ev[1].record()
+        ev[1].synchronize()
+        out.append(ev[0].elapsed_time(ev[1]))
+    return statistics.median(out)
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -1955,11 +1982,17 @@ def cli_phase(base, queries, gt, h, idx, lines, report, dev) -> tuple:
             what=what, shape=list(x.shape), dtype=str(x.dtype),
             max_rel_err=float(((kn - pn).abs() / pn.abs()).max()),
             max_abs_err=float((kn - pn).abs().max()),
+            # host-inclusive: 20 eager calls back to back; device-only:
+            # the card's work for one call
             ms=cuda_ms(lambda: dist.sq_norms(x), 20),
+            device_ms=device_ms(lambda _: dist.sq_norms(x)),
             plain_ms=cuda_ms(lambda: dist.sq_norms_plain(x), 20),
             sum_ms=cuda_ms(lambda: torch.sum(x * x, -1), 20),
+            sum_device_ms=device_ms(lambda _: torch.sum(x * x, -1)),
             library_ms=cuda_ms(lambda: torch.linalg.vector_norm(
                 x, dim=-1, dtype=torch.float32), 20),
+            library_device_ms=device_ms(lambda _: torch.linalg.vector_norm(
+                x, dim=-1, dtype=torch.float32)),
             bound=bound(x.numel() * x.element_size() + x.shape[0] * 4,
                         2 * x.numel()))
         say(f"kernel row_norms part: {json.dumps(part)}")
@@ -1981,7 +2014,14 @@ def cli_phase(base, queries, gt, h, idx, lines, report, dev) -> tuple:
                    f"{part['max_rel_err']:.3g}; torch.sum(x * x, -1) "
                    f"{part['sum_ms']:.4f} ms; the library call is "
                    "torch.linalg.vector_norm(x, dim=-1, dtype=float32), "
-                   "the root of the same sum")
+                   "the root of the same sum" + (
+                       f"; the {len(queries)} queries host-inclusive "
+                       f"{nq['ms']:.4f} ms (device {nq['device_ms']:.4f}) "
+                       f"against torch.sum {nq['sum_ms']:.4f} "
+                       f"({nq['sum_device_ms']:.4f}) and vector_norm "
+                       f"{nq['library_ms']:.4f} "
+                       f"({nq['library_device_ms']:.4f})"
+                       if name == "row_norms" else ""))
 
     kd, ki = bf.topk_dist(qall, xb, xn, 100)
     ki_np = ki.cpu().numpy()
@@ -2101,8 +2141,8 @@ def main() -> int:
                                        "strata_sort", "beam_kernel", "prune_kernel",
                                        "shard_merge_kernel",
                                        "merge_kernel", "greedy_kernel",
-                                       "append_kernel", "degree_kernel",
-                                       "rows_kernel", "write_kernel",
+                                       "append_kernel", "settle_kernel",
+                                       "write_kernel",
                                        "fht_kernel", "g_tables_kernel",
                                        "row_deg_kernel", "point_kernel",
                                        "hist_kernel", "pass_kernel",
@@ -2635,17 +2675,15 @@ def main() -> int:
     us, ps = revconn.reverse_edges(a_ids, sel, n_rows)
     pre_a, pre_d = adj0.clone(), deg0.clone()
     forward(pre_a, pre_d)
+    of_t, new_w = kw["of_t"], kw["new_w"]
     ak, dk = pre_a.clone(), pre_d.clone()
     pa, pdg = pre_a.clone(), pre_d.clone()
-    ovf_k = revconn.rev_append(ak, dk, us, ps)
-    ovf_p = revconn.rev_append_plain(pa, pdg, us, ps)
-    z_eq = [bool(torch.equal(ovf_k, ovf_p)), bool(torch.equal(ak, pa)),
-            bool(torch.equal(dk, pdg))]
-    of_u, of_p, ut, of_e, of_tc = revconn.overflow_targets(us, ps, ovf_k,
-                                                           kw["of_t"], n_rows)
-    bk, ck = revconn.overflow_rows(ak, of_u, of_p, ut, kw["new_w"])
-    bp, cp = revconn.overflow_rows_plain(pa, of_u, of_p, ut, kw["new_w"])
-    z_eq += [bool(torch.equal(bk, bp)), bool(torch.equal(ck, cp))]
+    zk = revconn.append_overflow(ak, dk, us, ps, of_t, new_w)
+    zp = revconn.append_overflow_plain(pa, pdg, us, ps, of_t, new_w)
+    # ut, base, candidate rows, both counters; then adj and deg
+    z_eq = [bool(torch.equal(a_, b_)) for a_, b_ in zip(zk, zp)]
+    z_eq += [bool(torch.equal(ak, pa)), bool(torch.equal(dk, pdg))]
+    ut, bk, ck, of_e, of_tc = zk
     n_t = int(of_tc)
     m_of = torch.full((len(ut),), cap0, dtype=torch.int32, device=dev)
     ofw = dict(keep_all_under_m=False, keep_pruned=False, out_width=cap0)
@@ -2655,62 +2693,103 @@ def main() -> int:
     revconn.write_rows_plain(pa, pdg, ut, osel, ocnt)
     z_eq += [bool(torch.equal(ak, pa)), bool(torch.equal(dk, pdg))]
     fa, fd = adj0.clone(), deg0.clone()
+    before = {k_: cuda.launches[k_] for k_ in ("rev_connect", "radix_sort.ids")}
     revconn.apply_insert(fa, fd, x, xn, a_ids, cand, **kw)
+    per_apply = {k_: cuda.launches[k_] - v_ for k_, v_ in before.items()}
     z_eq += [bool(torch.equal(fa, ak)), bool(torch.equal(fd, dk))]
 
-    def zeta_ms(kernel: bool, reps: int = 5) -> float:
-        """Kζ's three calls on fresh copies of the post-forward state: the
-        summed time of the calls alone (CUDA events around each)."""
-        app = revconn.rev_append if kernel else revconn.rev_append_plain
-        rows = revconn.overflow_rows if kernel else \
-            revconn.overflow_rows_plain
+    def pre():
+        return pre_a.clone(), pre_d.clone()
+
+    def zeta_calls(kernel: bool):
+        """Kζ's calls of the apply, on a state from ``pre``: append +
+        settle (one call, two launches), then the write-back of the
+        re-pruned rows."""
+        app = revconn.append_overflow if kernel else \
+            revconn.append_overflow_plain
         wr = revconn.write_rows if kernel else revconn.write_rows_plain
-        tot_ms = 0.0
-        for rep in range(reps + 1):
-            a, g = pre_a.clone(), pre_d.clone()
-            evs = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-            evs[0].record()
-            o = app(a, g, us, ps)
-            evs[1].record()
-            fu, fp, tt, _, _ = revconn.overflow_targets(us, ps, o, kw["of_t"],
-                                                        n_rows)
-            evs[2].record()
-            rows(a, fu, fp, tt, kw["new_w"])
-            evs[3].record()
-            evs[4].record()
+
+        def call(st):
+            a, g = st
+            tt = app(a, g, us, ps, of_t, new_w)[0]
             wr(a, g, tt, osel, ocnt)
-            evs[5].record()
+        return call
+
+    def zeta_ms(kernel: bool, reps: int = 5) -> float:
+        """Kζ's calls on fresh copies of the post-forward state: CUDA
+        events around the calls alone, the host's enqueue included."""
+        call, tot_ms = zeta_calls(kernel), 0.0
+        for rep in range(reps + 1):
+            st = pre()
+            evs = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            evs[0].record()
+            call(st)
+            evs[1].record()
             torch.cuda.synchronize()
             if rep:  # the first pass warms up
-                tot_ms += sum(evs[i].elapsed_time(evs[i + 1])
-                              for i in (0, 2, 4))
+                tot_ms += evs[0].elapsed_time(evs[1])
         return tot_ms / reps
 
+    def apply_host_ms(reps: int = 10) -> float:
+        """The whole level-0 apply, ``reps`` calls back to back on fresh
+        copies of the recorded state (CUDA events around the run)."""
+        sts = [(adj0.clone(), deg0.clone()) for _ in range(reps)]
+        torch.cuda.synchronize()
+        evs = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        evs[0].record()
+        for a, g in sts:
+            revconn.apply_insert(a, g, x, xn, a_ids, cand, **kw)
+        evs[1].record()
+        evs[1].synchronize()
+        return evs[0].elapsed_time(evs[1]) / reps
+
     # the least bytes Kζ's function moves, each once: per edge us and ps
-    # read and its overflow flag written; per target run deg read and
-    # written; per appended edge one adj word; per valid overflow target
-    # (padding rows need no memory) its id, its row and the new edges it
-    # takes read, its candidate row and base id written, the pruned row and
-    # count read, and its row and degree written
+    # read; per target run deg read and written; per appended edge one adj
+    # word; per valid overflow target (padding rows need no memory) its
+    # row and the new edges it takes read, its id, base id and candidate
+    # row written, the pruned row and count read, and its row and degree
+    # written
     e = len(us)
     valid_e = us < 2**30
-    appended = int((~ovf_k & valid_e).sum())
+    appended = int(valid_e.sum()) - int(of_e)
     runs = int(torch.unique(us[valid_e]).numel())
     valid_t = min(n_t, len(ut))
-    new_w = kw["new_w"]
-    vt = ut[:valid_t]
-    taken = int((torch.searchsorted(of_u, vt, right=True)
-                 - torch.searchsorted(of_u, vt)).clamp(max=new_w).sum())
-    z_bytes = (e * 9 + runs * 8 + appended * 4
-               + valid_t * (4 + cap0 * 4 + (cap0 + new_w) * 4 + 4)
+    taken = int((ck[:valid_t, cap0:] >= 0).sum())
+    z_bytes = (e * 8 + runs * 8 + appended * 4
+               + valid_t * (cap0 * 4 + 8 + (cap0 + new_w) * 4)
                + taken * 4 + valid_t * (cap0 * 8 + 8))
     report["rev_connect"] = dict(
         agree=float(all(z_eq)), max_abs_err=0.0 if all(z_eq) else 1.0,
-        ms=zeta_ms(True), plain_ms=zeta_ms(False), bound=bound(z_bytes, 0),
+        ms=zeta_ms(True), plain_ms=zeta_ms(False),
+        device_ms=device_ms(zeta_calls(True), prep=pre),
+        plain_device_ms=device_ms(zeta_calls(False), 5, prep=pre),
+        apply_ms=apply_host_ms(),
+        apply_device_ms=device_ms(
+            lambda st: revconn.apply_insert(*st, x, xn, a_ids, cand, **kw),
+            prep=lambda: (adj0.clone(), deg0.clone())),
+        per_apply=per_apply, bound=bound(z_bytes, 0),
         shapes=f"one level-0 apply of {b4} inserts: {e} reverse edges, "
                f"{appended} appended, {int(of_e)} overflowing into {n_t} "
-               f"targets; equal {z_eq}")
+               f"targets; Kζ's two calls (append + settle, write-back), "
+               f"{per_apply['rev_connect']} rev_connect calls and "
+               f"{per_apply['radix_sort.ids']} radix_sort.ids sort per "
+               f"apply; equal {z_eq}")
+    say(f"kernel rev_connect: level-0 apply {json.dumps(report['rev_connect'])}")
     check(all(z_eq), f"rev_connect differs from its plain version: {z_eq}")
+    check(per_apply == {"rev_connect": 2, "radix_sort.ids": 1},
+          f"a level-0 apply made {per_apply} rev_connect calls and Kι sorts "
+          "(want 2 and 1)")
+    # a seeded Slim search takes its queries' norms from Kξ once: the seed
+    # scan reuses them
+    scfg_was, idx.scfg = idx.scfg, scfg_slim(64)
+    idx.search_async(queries[:512], 10)
+    kxi_0 = cuda.launches["row_norms"]
+    idx.search_async(queries[:512], 10)
+    kxi_per_search = cuda.launches["row_norms"] - kxi_0
+    idx.scfg = scfg_was
+    say(f"row_norms launches in one seeded Slim search: {kxi_per_search}")
+    check(kxi_per_search == 1, f"a seeded Slim search launched Kξ "
+                               f"{kxi_per_search} times (want 1)")
 
     # Kα: ground truth (512 queries over all N) and the seed block (k=32) of
     # the insertion-built Slim index
@@ -3705,12 +3784,12 @@ def main() -> int:
     ux, uxn = h.vectors, h.vn  # the grown table the update index holds
     ek, tk = revconn.apply_insert(ak, dk, ux, uxn, c_a, c_cand, **c_kw)
     kernel_fns = {k_: getattr(revconn, k_) for k_ in (
-        "rng_prune", "kv_sort", "rev_append", "overflow_rows", "write_rows")}
+        "rng_prune", "kv_sort", "append_overflow", "write_rows")}
     plain_fns = dict(
         rng_prune=lambda *a_, m_max=None, **k_: heuristic.rng_prune_plain(
             *a_, **k_),
-        kv_sort=revconn.kv_sort_plain, rev_append=revconn.rev_append_plain,
-        overflow_rows=revconn.overflow_rows_plain,
+        kv_sort=revconn.kv_sort_plain,
+        append_overflow=revconn.append_overflow_plain,
         write_rows=revconn.write_rows_plain)
     ap_, dp_ = c_adj.clone(), c_deg.clone()
     for k_, v_ in plain_fns.items():

@@ -6,8 +6,10 @@
 // (:116), the reverse-edge sort of n*k (target, source) pairs in
 // _nnd_candidates / nnd_round (:171, :253), the two lexsorts of
 // hnsw_slim_tpu/graph/build.py mutual_union (:232, :239; each lexsort is two
-// stable passes of this sort) — and, in its ids map, the three lax.sort
-// programs of hnsw_slim_tpu/graph/revconn.py apply_insert (:90, :110, :117).
+// stable passes of this sort) — and, in its ids map, the reverse-edge
+// lax.sort of hnsw_slim_tpu/graph/revconn.py apply_insert (:90; its sorts at
+// :110 and :117 order lists that are already in order, and Kζ's settle
+// launch numbers them with a scan instead, csrc/rev_connect.cu).
 // Equal keys keep their input order, as lax.sort and jnp.argsort leave them.
 //
 // Digit maps (applied only when a digit is taken; the output holds the input

@@ -151,7 +151,8 @@ def _exact_knn_subset(vectors, vn, sub_ids: np.ndarray, k: int, metric: str):
     out_d = np.full((s, k), np.inf, np.float32)
     for st in range(0, s, 65536):
         e = min(st + 65536, s)
-        d, pos = topk_dist(sv[st:e], sv, svn, k_eff, metric, self_offset=st)
+        d, pos = topk_dist(sv[st:e], sv, svn, k_eff, metric, self_offset=st,
+                           qn=svn[st:e])
         out_i[st:e, :k_eff] = sub_ids[pos.cpu().numpy()]
         out_d[st:e, :k_eff] = d.cpu().numpy()
     return out_i, out_d

@@ -9,13 +9,15 @@ at one level, in the JAX program's order:
 3. the reverse edges u -> p, stably sorted by target u, so that a target's
    new edges come in ascending inserter order (kernel Kι: the ids map of
    the radix sort Kκ);
-4. fitting appends at column deg[u] + rank within the target's run, and the
-   degree update (kernel Kζ);
-5. the overflow edges sorted by target again and the first-of-run targets
-   sorted alone (Kι twice more), then the first ``of_t`` overflow targets
-   in ascending id order re-pruned over
-   {row ∪ their first ``new_w`` new edges} down to the cap: Kζ assembles the
-   candidate rows, Kγ prunes them, Kζ writes them back.
+4. fitting appends at column deg[u] + rank within the target's run, the
+   degree update, and the first ``of_t`` overflow targets in ascending id
+   order with their candidate rows {row ∪ their first ``new_w`` new
+   edges} (kernel Kζ, ``append_overflow``: one call, two launches). The
+   JAX program sorts the overflow edges by target and the first-of-run
+   targets once more; both lists are already in order (a target's
+   overflow edges are the tail of its run), so the kernel numbers them
+   with a scan instead;
+5. the candidate rows re-pruned down to the cap (Kγ) and written back (Kζ).
 
 ``adj`` and ``deg`` are updated in place (the JAX program donates them).
 No step reads a value back to the host, so a batch costs no device sync;
@@ -50,25 +52,6 @@ def rev_append_plain(adj, deg, us, ps):
     return valid & (col >= cap)
 
 
-def rev_append(adj, deg, us, ps):
-    """Kζ append (csrc/rev_connect.cu, two launches: appends, then degrees).
-    CPU tensors run ``rev_append_plain``. Same arguments and result."""
-    if not adj.is_cuda:
-        return rev_append_plain(adj, deg, us, ps)
-    n, cap = adj.shape
-    e = us.shape[0]
-    cuda.require(adj, torch.int32, "adj", (n, cap))
-    cuda.require(deg, torch.int32, "deg", (n,))
-    cuda.require(us, torch.int32, "us", (e,))
-    cuda.require(ps, torch.int32, "ps", (e,))
-    ovf = torch.empty((e,), dtype=torch.bool, device=adj.device)
-    if e:
-        cuda.launch("rev_connect", us.data_ptr(), ps.data_ptr(), e,
-                    adj.data_ptr(), deg.data_ptr(), cap, ovf.data_ptr(),
-                    entry="rev_append")
-    return ovf
-
-
 def overflow_rows_plain(adj, of_u, of_p, ut, new_w: int):
     """Plain PyTorch Kζ row assembly: for each overflow target ut i32[T]
     (2^30 = padding) its row followed by its first new_w new edges from the
@@ -86,27 +69,6 @@ def overflow_rows_plain(adj, of_u, of_p, ut, new_w: int):
         (j < tcnt.clamp(max=new_w)[:, None]) & tvalid[:, None],
         of_p[srcpos], -1)
     return safe_t.to(torch.int32), torch.cat([cur, newmat], dim=1)
-
-
-def overflow_rows(adj, of_u, of_p, ut, new_w: int):
-    """Kζ row assembly, one warp per target (csrc/rev_connect.cu). CPU
-    tensors run ``overflow_rows_plain``. Same arguments and results."""
-    if not adj.is_cuda:
-        return overflow_rows_plain(adj, of_u, of_p, ut, new_w)
-    n, cap = adj.shape
-    e, t = of_u.shape[0], ut.shape[0]
-    cuda.require(adj, torch.int32, "adj", (n, cap))
-    cuda.require(of_u, torch.int32, "of_u", (e,))
-    cuda.require(of_p, torch.int32, "of_p", (e,))
-    cuda.require(ut, torch.int32, "ut", (t,))
-    base = torch.empty((t,), dtype=torch.int32, device=adj.device)
-    cand = torch.empty((t, cap + new_w), dtype=torch.int32, device=adj.device)
-    if t:
-        cuda.launch("rev_connect", adj.data_ptr(), cap, of_u.data_ptr(),
-                    of_p.data_ptr(), e, ut.data_ptr(), t, new_w,
-                    base.data_ptr(), cand.data_ptr(),
-                    entry="rev_overflow_rows")
-    return base, cand
 
 
 def write_rows_plain(adj, deg, ut, osel, ocnt):
@@ -171,20 +133,67 @@ def reverse_edges(a_ids, sel, n=None):
     return kv_sort(u.contiguous(), p.contiguous(), n)
 
 
-def overflow_targets(us, ps, ovf, of_t: int, n=None):
+def overflow_targets_plain(us, ps, ovf, of_t: int):
     """Overflow edges in target order and the first of_t overflow targets in
-    ascending id order (padding 2^30; ``n`` as in ``reverse_edges``).
-    Returns (of_u, of_p, ut, of_edges, of_targets) — the last two are device
-    scalars."""
+    ascending id order (padding 2^30), by the JAX program's two stable
+    sorts (``kv_sort_plain``). Returns (of_u, of_p, ut, of_edges,
+    of_targets) — the last two are 0-d tensors."""
     of_edges = ovf.sum(dtype=torch.int32)
-    of_u, of_p = kv_sort(torch.where(ovf, us, BIG), ps, n)
+    of_u, of_p = kv_sort_plain(torch.where(ovf, us, BIG), ps)
     valid = of_u < BIG
     first = valid.clone()
     first[1:] &= of_u[1:] != of_u[:-1]
     of_targets = first.sum(dtype=torch.int32)
     t = min(of_t, us.shape[0])
-    ut = kv_sort(torch.where(first, of_u, BIG), None, n)[0][:t].contiguous()
+    ut = kv_sort_plain(torch.where(first, of_u, BIG))[0][:t].contiguous()
     return of_u, of_p, ut, of_edges, of_targets
+
+
+def append_overflow_plain(adj, deg, us, ps, of_t: int, new_w: int):
+    """Plain PyTorch Kζ append + settle, the JAX program's composition:
+    ``rev_append_plain``, ``overflow_targets_plain`` (two sorts) and
+    ``overflow_rows_plain``. Returns (ut i32[T], base i32[T],
+    cand i32[T, cap + new_w], of_edges, of_targets) with T = min(of_t, E);
+    adj and deg change in place."""
+    ovf = rev_append_plain(adj, deg, us, ps)
+    of_u, of_p, ut, of_edges, of_targets = overflow_targets_plain(us, ps, ovf,
+                                                                  of_t)
+    base, cand = overflow_rows_plain(adj, of_u, of_p, ut, new_w)
+    return ut, base, cand, of_edges, of_targets
+
+
+SETTLE_TILE = 1024  # edges a tile of rev_connect.cu's settle launch takes
+
+
+def append_overflow(adj, deg, us, ps, of_t: int, new_w: int):
+    """Kζ append + settle (csrc/rev_connect.cu hs_rev_apply, two launches):
+    the fitting appends of the target-sorted edge list (us i32[E], 2^30 =
+    padding; ps i32[E] inserters), the degree update, and the first of_t
+    overflow targets with their candidate rows, numbered by a scan over
+    the runs. CPU tensors run ``append_overflow_plain``. Same arguments and
+    results; the counters are device scalars."""
+    if not adj.is_cuda:
+        return append_overflow_plain(adj, deg, us, ps, of_t, new_w)
+    n, cap = adj.shape
+    e = us.shape[0]
+    cuda.require(adj, torch.int32, "adj", (n, cap))
+    cuda.require(deg, torch.int32, "deg", (n,))
+    cuda.require(us, torch.int32, "us", (e,))
+    cuda.require(ps, torch.int32, "ps", (e,))
+    t = min(of_t, e)
+    tiles = max(1, -(-e // SETTLE_TILE))
+    dev = adj.device
+    cand = torch.empty((t, cap + new_w), dtype=torch.int32, device=dev)
+    # ut, base, the tile ticket (and a pad word), the look-back words (u64)
+    meta = torch.empty((2 * t + 2 + 2 * tiles,), dtype=torch.int32,
+                       device=dev)
+    counters = torch.empty((2,), dtype=torch.int32, device=dev)
+    ptr = meta.data_ptr()
+    cuda.launch("rev_connect", us.data_ptr(), ps.data_ptr(), e,
+                adj.data_ptr(), deg.data_ptr(), cap, t, new_w, ptr,
+                ptr + 4 * t, cand.data_ptr(), ptr + 8 * t, ptr + 8 * t + 8,
+                tiles, counters.data_ptr(), entry="rev_apply")
+    return meta[:t], meta[t:2 * t], cand, counters[0], counters[1]
 
 
 def apply_insert(adj, deg, vecs, vn, a_ids, cand, *, M: int, cap: int,
@@ -204,10 +213,8 @@ def apply_insert(adj, deg, vecs, vn, a_ids, cand, *, M: int, cap: int,
     adj[rows] = torch.nn.functional.pad(sel, (0, cap - M), value=-1)
     deg[rows] = cnt
     us, ps = reverse_edges(a_ids, sel, adj.shape[0])
-    ovf = rev_append(adj, deg, us, ps)
-    of_u, of_p, ut, of_edges, of_targets = overflow_targets(us, ps, ovf, of_t,
-                                                            adj.shape[0])
-    base, ocand = overflow_rows(adj, of_u, of_p, ut, new_w)
+    ut, base, ocand, of_edges, of_targets = append_overflow(
+        adj, deg, us, ps, of_t, new_w)
     osel, ocnt = rng_prune(
         vecs, vn, base, ocand, torch.full((ut.shape[0],), cap,
                                           dtype=torch.int32, device=dev),

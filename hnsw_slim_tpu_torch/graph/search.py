@@ -747,10 +747,10 @@ def chal_search(graph_nbr, graph_lvl_off, entry, vectors, vn, q, *,
     if use_seed and up_vecs is not None:
         if seed_strata > 1:
             sd, si = topk_dist_strata(q, up_vecs, up_vn, up_ids, seed_width,
-                                      seed_strata, metric)
+                                      seed_strata, metric, qn=qn)
         else:
             sd, spos = topk_dist(q, up_vecs, up_vn, seed_width, metric,
-                                 row_ids=up_ids)
+                                 row_ids=up_ids, qn=qn)
             si = torch.where(spos >= 0, up_ids[spos.clamp(min=0).long()], -1)
             si = torch.where(torch.isinf(sd), -1, si).to(torch.int32)
         dcomp = dcomp + (up_ids >= 0).sum().to(torch.int32)

@@ -31,15 +31,18 @@ INF = float("inf")
 
 
 def topk_dist_plain(q, x, xn, k: int, metric: str = "l2", n_valid: int = -1,
-                    row_ids=None, self_offset: int = -1, chunk: int = 65536):
+                    row_ids=None, self_offset: int = -1, chunk: int = 65536,
+                    qn=None):
     """Plain PyTorch Kα: (d f32[B, k], pos i32[B, k]) over rows of x.
 
     Rows at or past n_valid (-1 = all rows valid), rows whose ``row_ids``
     entry is negative, and (self_offset >= 0) row self_offset + i for query i
-    are masked. Missing results are (inf, -1)."""
+    are masked. Missing results are (inf, -1). ``qn``: the queries' squared
+    norms where the caller has them (else ``sq_norms(q)``)."""
     b, n = q.shape[0], x.shape[0]
     nv = n if n_valid < 0 else n_valid
-    qn = sq_norms(q)
+    if qn is None:
+        qn = sq_norms(q)
     best_d = torch.full((b, k), INF, device=q.device)
     best_i = torch.full((b, k), -1, dtype=torch.int32, device=q.device)
     qi = torch.arange(b, device=q.device)
@@ -177,14 +180,24 @@ def _plan(q: torch.Tensor, n: int, k: int, **kw) -> ScanPlan:
     return scan_plan(q.shape[0], n, q.shape[1], k, sms, **kw)
 
 
+def _query_norms(q, qn):
+    """The queries' squared norms for a scan launch: the caller's, checked,
+    or Kξ's."""
+    if qn is None:
+        return sq_norms(q)
+    cuda.require(qn, torch.float32, "qn", (q.shape[0],))
+    return qn
+
+
 def topk_dist(q, x, xn, k: int, metric: str = "l2", n_valid: int = -1,
-              row_ids=None, self_offset: int = -1):
-    """Kα: fused distance + top-k (see topk_dist_plain for the semantics).
-    CUDA tensors run the kernel (csrc/topk_dist.cu), CPU tensors the plain
-    version."""
+              row_ids=None, self_offset: int = -1, qn=None):
+    """Kα: fused distance + top-k (see topk_dist_plain for the semantics;
+    ``qn`` as there: a caller that holds the queries' norms saves Kξ's
+    launch). CUDA tensors run the kernel (csrc/topk_dist.cu), CPU tensors
+    the plain version."""
     if not q.is_cuda:
         return topk_dist_plain(q, x, xn, k, metric, n_valid, row_ids,
-                               self_offset)
+                               self_offset, qn=qn)
     b, d = q.shape
     n = x.shape[0]
     _check_k(k, "topk_dist")
@@ -193,7 +206,7 @@ def topk_dist(q, x, xn, k: int, metric: str = "l2", n_valid: int = -1,
     cuda.require(xn, torch.float32, "xn", (n,))
     if row_ids is not None:
         cuda.require(row_ids, torch.int32, "row_ids", (n,))
-    qn = sq_norms(q).contiguous()
+    qn = _query_norms(q, qn)
     out_d = torch.empty((b, k), dtype=torch.float32, device=q.device)
     out_i = torch.empty((b, k), dtype=torch.int32, device=q.device)
     if b == 0:
@@ -228,17 +241,19 @@ def strata_shape(n: int, seed_width: int, strata: int) -> tuple[int, int]:
 
 
 def topk_dist_strata_plain(q, x, xn, row_ids, seed_width: int, strata: int,
-                           metric: str = "l2"):
+                           metric: str = "l2", qn=None):
     """Plain PyTorch stratified seeds, as the JAX code takes them: the table
     is cut into ``strata`` equal segments, each gives its
     seed_width // strata nearest rows (repeated argmin, lowest row first on
     equal distance; rows with a negative ``row_ids`` entry masked), and the
     picks are sorted by distance, stably in segment-major order. Returns
     (d f32[B, S], ids i32[B, S]) with S = strata * (seed_width // strata);
-    ids come from ``row_ids``, -1 where the distance is inf."""
+    ids come from ``row_ids``, -1 where the distance is inf. ``qn`` as in
+    topk_dist_plain."""
     b, n = q.shape[0], x.shape[0]
     u, sps = strata_shape(n, seed_width, strata)
-    dmat = pairwise_dist(q, x, metric, qn=sq_norms(q), xn=xn)
+    dmat = pairwise_dist(q, x, metric, qn=sq_norms(q) if qn is None else qn,
+                         xn=xn)
     d3 = torch.where((row_ids >= 0)[None, :], dmat, INF).reshape(b, strata, u)
     sds, poss = [], []
     for _ in range(sps):
@@ -259,13 +274,13 @@ def topk_dist_strata_plain(q, x, xn, row_ids, seed_width: int, strata: int,
 
 
 def topk_dist_strata(q, x, xn, row_ids, seed_width: int, strata: int,
-                     metric: str = "l2"):
+                     metric: str = "l2", qn=None):
     """Kα in strata mode (see topk_dist_strata_plain): one scan split per
     segment, then an in-kernel stable sort of the picks. CUDA tensors run
     the kernel (csrc/topk_dist.cu), CPU tensors the plain version."""
     if not q.is_cuda:
         return topk_dist_strata_plain(q, x, xn, row_ids, seed_width, strata,
-                                      metric)
+                                      metric, qn=qn)
     b, d = q.shape
     n = x.shape[0]
     _, sps = strata_shape(n, seed_width, strata)
@@ -276,7 +291,7 @@ def topk_dist_strata(q, x, xn, row_ids, seed_width: int, strata: int,
     cuda.require(x, cuda.ROW_TYPES, "x", (-1, d))
     cuda.require(xn, torch.float32, "xn", (n,))
     cuda.require(row_ids, torch.int32, "row_ids", (n,))
-    qn = sq_norms(q).contiguous()
+    qn = _query_norms(q, qn)
     out_d = torch.empty((b, strata * sps), dtype=torch.float32,
                         device=q.device)
     out_i = torch.empty((b, strata * sps), dtype=torch.int32, device=q.device)

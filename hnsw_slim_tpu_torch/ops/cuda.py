@@ -128,10 +128,10 @@ _SIGNATURES = {
     # stream
     "hs_topk_estimate": [P, I32, I32, I32, P, P, P, I32, P, I32, I32, I32,
                          I32, I32, I32, P, P, P, P, P, P],
-    # us, ps, E, adj, deg, cap, ovf, stream
-    "hs_rev_append": [P, P, I32, P, P, I32, P, P],
-    # adj, cap, of_u, of_p, E, ut, T, new_w, base, ocand, stream
-    "hs_rev_overflow_rows": [P, I32, P, P, I32, P, I32, I32, P, P, P],
+    # us, ps, E, adj, deg, cap, T, new_w, ut, base, ocand, ticket,
+    # look-back words, tiles, counters, stream
+    "hs_rev_apply": [P, P, I32, P, P, I32, I32, I32, P, P, P, P, P, I32, P,
+                     P],
     # adj, deg, cap, ut, T, osel, ocnt, stream
     "hs_rev_write_rows": [P, P, I32, P, I32, P, P, P],
     # a, N, cap, deg, stream
@@ -167,6 +167,12 @@ for _name in ("hs_topk_dist", "hs_topk_strata", "hs_beam_search",
     _SIGNATURES[_name + "_bf16"] = _SIGNATURES[_name]
 
 _LIB = None
+# the C entry points, bound once when the library loads: "name" (without
+# the hs_ prefix) -> the ctypes function with its argtypes set
+_FN: dict = {}
+# the current device's index and its current stream as a raw handle, bound
+# when the library loads (a CPU-only PyTorch has neither)
+_device = _raw_stream = None
 
 
 def _nvcc() -> str:
@@ -234,14 +240,17 @@ def build() -> tuple[float, str]:
 
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
-    global _LIB
+    global _LIB, _device, _raw_stream
     if _LIB is None:
+        _device = torch._C._cuda_getDevice
+        _raw_stream = torch._C._cuda_getCurrentRawStream
         build()
         handle = ctypes.CDLL(str(_lib_path()))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+            _FN[name[3:]] = fn
         handle.hs_error_string.argtypes = [ctypes.c_int]
         handle.hs_error_string.restype = ctypes.c_char_p
         _LIB = handle
@@ -256,20 +265,29 @@ def check(err: int, name: str) -> None:
 
 def launch(name: str, *args, entry: str | None = None,
            modes: tuple = (), shape: str = "") -> None:
-    """Call C entry point ``hs_<entry or name>`` on the current stream, raise
-    on a launch error, and count one launch of kernel ``name``, of each of
-    its ``modes`` this launch ran in and, where given, of its ``shape``
-    under the current tag."""
-    err = getattr(lib(), f"hs_{entry or name}")(
-        *args, torch.cuda.current_stream().cuda_stream
-    )
-    check(err, entry or name)
+    """Call C entry point ``hs_<entry or name>`` on PyTorch's current stream
+    of the current device (where a wrapper's tensors lie: a kernel launches
+    on the current device), raise on a launch error, and count one launch
+    of kernel ``name``, of each of its ``modes`` this launch ran in and,
+    where given, of its ``shape`` under the current tag.
+
+    The lean path every wrapper shares: the bound function comes from a
+    table filled when the library loads, and the stream handle is read as a
+    raw integer, without a ``torch.cuda.Stream`` object a call."""
+    key = entry or name
+    fn = _FN.get(key)
+    if fn is None:
+        lib()
+        fn = _FN[key]
+    err = fn(*args, _raw_stream(_device()))
+    if err:
+        check(err, key)
     launches[name] += 1
     for mode in modes:
-        launches[f"{name}.{mode}"] += 1
+        launches[name + "." + mode] += 1
     if shape:
-        key = f"{name}[{_tag}] {shape}"
-        launch_shapes[key] = launch_shapes.get(key, 0) + 1
+        cls = f"{name}[{_tag}] {shape}"
+        launch_shapes[cls] = launch_shapes.get(cls, 0) + 1
 
 
 def resolve_device(device=None) -> torch.device:

@@ -39,16 +39,31 @@ def sq_norms_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.sum(x * x, dim=-1)
 
 
+# Kξ's C entry point and modes by row type
+_NORM_ENTRY = {torch.float32: ("row_norms", ()),
+               torch.bfloat16: ("row_norms_bf16", ("bf16",))}
+
+
 def sq_norms(x: torch.Tensor) -> torch.Tensor:
     """Kξ: ‖x‖² per row, f32[x.shape[:-1]], from fp32 or bfloat16 rows of
     any width (a 1-D x gives a 0-d tensor). CUDA tensors launch
     csrc/row_norms.cu: one pass, no temporary beyond the output, 2-D rows
-    may be strided; CPU tensors run sq_norms_plain."""
+    may be strided; CPU tensors run sq_norms_plain. A contiguous 2-D batch
+    (every query batch, every store) takes a short path with no view or
+    stride test; the launch is the same."""
     if not x.is_cuda:
         return sq_norms_plain(x)
-    if x.dtype not in cuda.ROW_TYPES:
+    ent = _NORM_ENTRY.get(x.dtype)
+    if ent is None:
         raise ValueError(f"sq_norms: expected {cuda.ROW_TYPES}, got "
                          f"{x.dtype}")
+    if x.dim() == 2 and x.is_contiguous():
+        n, d = x.shape
+        out = x.new_empty(n, dtype=F32)  # the cheapest allocation call
+        if n:
+            cuda.launch("row_norms", x.data_ptr(), n, d, d, out.data_ptr(),
+                        entry=ent[0], modes=ent[1])
+        return out
     out = torch.empty(x.shape[:-1], dtype=F32, device=x.device)
     n, d = out.numel(), x.shape[-1]
     if n == 0:
@@ -61,9 +76,8 @@ def sq_norms(x: torch.Tensor) -> torch.Tensor:
     if d > 1 and rows.stride(1) != 1 or n > 1 and rows.stride(0) < d:
         raise ValueError(f"sq_norms: rows of x{tuple(x.shape)} are not "
                          f"contiguous, non-overlapping runs of D elements")
-    entry, modes = cuda.row_type(rows, "row_norms")
     cuda.launch("row_norms", rows.data_ptr(), n, d, rows.stride(0),
-                out.data_ptr(), entry=entry, modes=modes)
+                out.data_ptr(), entry=ent[0], modes=ent[1])
     return out
 
 

@@ -342,11 +342,8 @@ def main() -> int:
                                                 value=-1)
     deg[a_ids.long()] = cnt
     us, ps = revconn.reverse_edges(a_ids, sel, adj.shape[0])
-    ovf = revconn.rev_append(adj, deg, us, ps)
-    of_u, of_p, ut, _, _ = revconn.overflow_targets(us, ps, ovf,
-                                                    kw_ap["of_t"],
-                                                    adj.shape[0])
-    bk, ck = revconn.overflow_rows(adj, of_u, of_p, ut, kw_ap["new_w"])
+    ut, bk, ck, _, _ = revconn.append_overflow(adj, deg, us, ps,
+                                               kw_ap["of_t"], kw_ap["new_w"])
     prune_case("prune overflow", x, xn, bk, ck,
                torch.full((len(ut),), cap0, dtype=torch.int32, device=dev),
                m_max=cap0, keep_all_under_m=False, keep_pruned=False,

@@ -187,16 +187,13 @@ def test_greedy_descent_kernel_matches_plain(data, insert_index):
                 assert (kh[~active] == 0).all()
 
 
-def test_rev_connect_kernel_matches_plain():
-    """Kζ append, overflow-row assembly and write-back against their plain
-    versions on one synthetic batch whose edges crowd a few hundred
-    targets: adjacency, degrees, flags and rows exactly equal."""
+def _crowded_apply(n, cap, b, m, hot, seed):
+    """A synthetic level apply on the card: (adj, deg, us, ps) after the
+    forward scatter of b inserted nodes (the last b ids) whose m forward
+    edges each (-1 padded) crowd ``hot`` targets, old rows partly full."""
     from hnsw_slim_tpu_torch.graph import revconn
 
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    g = torch.Generator(device="cuda").manual_seed(1)
-    n, cap, b, m = 5000, 16, 512, 8
+    g = torch.Generator(device="cuda").manual_seed(seed)
     old = n - b
     deg = torch.randint(0, cap + 1, (n,), generator=g, device="cuda",
                         dtype=torch.int32)
@@ -205,27 +202,96 @@ def test_rev_connect_kernel_matches_plain():
                         dtype=torch.int32)
     adj[torch.arange(cap, device="cuda")[None, :] >= deg[:, None].long()] = -1
     a_ids = torch.arange(old, n, dtype=torch.int32, device="cuda")
-    hot = torch.rand((b, 300), generator=g, device="cuda").argsort(1)
-    sel = hot[:, :m].to(torch.int32)
-    cnt = torch.randint(0, m + 1, (b, 1), generator=g, device="cuda")
-    sel[torch.arange(m, device="cuda")[None, :] >= cnt] = -1
-    us, ps = revconn.reverse_edges(a_ids, sel)
+    if b:
+        sel = torch.rand((b, hot), generator=g, device="cuda").argsort(1)[
+            :, :m].to(torch.int32)
+        cnt = torch.randint(0, m + 1, (b, 1), generator=g, device="cuda")
+        sel[torch.arange(m, device="cuda")[None, :] >= cnt] = -1
+    else:
+        sel = torch.zeros((0, m), dtype=torch.int32, device="cuda")
+    us, ps = revconn.reverse_edges(a_ids, sel, n)
+    return adj, deg, us, ps
+
+
+def _settle_pair(adj, deg, us, ps, of_t, new_w, seed=0):
+    """Kζ (append + settle, then the write-back of random re-pruned rows)
+    against the plain composition on copies of one state: every output
+    exactly equal. Returns the counters."""
+    from hnsw_slim_tpu_torch.graph import revconn
+    from hnsw_slim_tpu_torch.ops import cuda
+
     ak, dk, ap, dp = adj.clone(), deg.clone(), adj.clone(), deg.clone()
-    ok = revconn.rev_append(ak, dk, us, ps)
-    op = revconn.rev_append_plain(ap, dp, us, ps)
-    assert torch.equal(ok, op) and torch.equal(ak, ap) and torch.equal(dk, dp)
-    assert int(ok.sum()) > 0
-    of_u, of_p, ut, _, n_t = revconn.overflow_targets(us, ps, ok, 4096)
-    bk, ck = revconn.overflow_rows(ak, of_u, of_p, ut, 64)
-    bp, cp = revconn.overflow_rows_plain(ap, of_u, of_p, ut, 64)
-    assert torch.equal(bk, bp) and torch.equal(ck, cp) and int(n_t) > 0
-    osel = torch.randint(-1, old, (ut.shape[0], cap), generator=g,
+    before = cuda.launches["rev_connect"]
+    zk = revconn.append_overflow(ak, dk, us, ps, of_t, new_w)
+    assert cuda.launches["rev_connect"] - before == 1
+    zp = revconn.append_overflow_plain(ap, dp, us, ps, of_t, new_w)
+    torch.cuda.synchronize()
+    for a, b in zip(zk, zp):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert torch.equal(ak, ap) and torch.equal(dk, dp)
+    ut, t = zk[0], zk[0].shape[0]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    osel = torch.randint(-1, adj.shape[0], (t, adj.shape[1]), generator=g,
                          device="cuda", dtype=torch.int32)
-    ocnt = torch.randint(0, cap, (ut.shape[0],), generator=g, device="cuda",
+    ocnt = torch.randint(0, adj.shape[1], (t,), generator=g, device="cuda",
                          dtype=torch.int32)
     revconn.write_rows(ak, dk, ut, osel, ocnt)
     revconn.write_rows_plain(ap, dp, ut, osel, ocnt)
     assert torch.equal(ak, ap) and torch.equal(dk, dp)
+    return int(zk[3]), int(zk[4])
+
+
+def test_rev_connect_kernel_matches_plain():
+    """Kζ append + settle and write-back against their plain versions on one
+    synthetic batch whose edges crowd a few hundred targets: adjacency,
+    degrees, targets, base ids, candidate rows and counters exactly
+    equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    of_e, of_tc = _settle_pair(*_crowded_apply(5000, 16, 512, 8, 300, 1),
+                               4096, 64)
+    assert of_e > 0 and of_tc > 0
+
+
+# (N, cap, inserts, edges a row, hot targets, of_t, new_w): E = inserts x
+# edges; the settle launch takes tiles of 1024 edges
+SETTLE_CASES = {
+    # two targets half the inserts link to: runs of ~3000 edges, 3+ tiles
+    "hub runs over several tiles": (20000, 16, 6000, 2, 2, 4096, 8),
+    # runs of ~30 edges, many across a tile edge
+    "runs straddling tile edges": (20000, 16, 3000, 8, 700, 4096, 32),
+    "E not a multiple of the tile": (9000, 8, 777, 5, 400, 4096, 4),
+    "of_t truncating": (20000, 16, 3000, 8, 700, 40, 32),
+    "of_t padding": (9000, 32, 777, 5, 3000, 100000, 64),
+    "no edges": (500, 8, 0, 4, 100, 4096, 8),
+}
+
+
+@pytest.mark.parametrize("case", list(SETTLE_CASES))
+def test_append_overflow_tiles_match_plain(case):
+    """Kζ's two launches and the write-back against the plain composition
+    (the JAX program's sorts) where the settle launch's tiles and look-back
+    matter: exactly equal outputs."""
+    _card()
+    n, cap, b, m, hot, of_t, new_w = SETTLE_CASES[case]
+    state = _crowded_apply(n, cap, b, m, hot, 3)
+    of_e, of_tc = _settle_pair(*state, of_t, new_w)
+    us, e = state[2], b * m
+    edges = us[1024:e:1024]  # the first edge of every tile but the first
+    if case == "no edges":
+        assert (of_e, of_tc) == (0, 0)
+    else:
+        assert of_tc > 0
+    if case == "hub runs over several tiles":
+        assert int((us == us[0]).sum()) > 2048
+    if case == "runs straddling tile edges":
+        assert int((edges == us[1023:e - 1:1024]).sum()) > 5
+    if case == "E not a multiple of the tile":
+        assert e % 1024 != 0
+    if case == "of_t truncating":
+        assert of_tc > of_t
+    if case == "of_t padding":
+        assert of_tc < min(of_t, e)
 
 
 # ---- fetch forms, the filtered beam, stratified seeds, the guarded prune
@@ -788,15 +854,16 @@ def test_collect_mode_apply_matches_plain(data, insert_index):
     deg_k, deg_p = _row_deg(adj_k), _row_deg(adj_p)
     cuda.reset_launches()
     ek, tk = revconn.apply_insert(adj_k, deg_k, x, xn, a_ids, cand, **kw)
-    assert cuda.launches["radix_sort.ids"] == 3  # Kι's three sorts
-    names = ("rng_prune", "kv_sort", "rev_append", "overflow_rows",
-             "write_rows")
+    # one Kι sort (the reverse edges); Kζ's append + settle and write-back
+    assert cuda.launches["radix_sort.ids"] == 1
+    assert cuda.launches["rev_connect"] == 2
+    names = ("rng_prune", "kv_sort", "append_overflow", "write_rows")
     real = {k: getattr(revconn, k) for k in names}
     plain = dict(
         rng_prune=lambda *a, m_max=None, **k: heuristic.rng_prune_plain(
             *a, **k),
-        kv_sort=revconn.kv_sort_plain, rev_append=revconn.rev_append_plain,
-        overflow_rows=revconn.overflow_rows_plain,
+        kv_sort=revconn.kv_sort_plain,
+        append_overflow=revconn.append_overflow_plain,
         write_rows=revconn.write_rows_plain)
     try:
         for k, v in plain.items():
@@ -1820,6 +1887,66 @@ def test_row_norms_kernel_matches_plain(dtype, n, d):
         assert got.shape == want.shape and got.dtype == torch.float32
         torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
         assert cuda.launches["row_norms"] - before == int(got.numel() > 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ["strided", "odd width", "empty", "1-D",
+                                   "3-D"])
+def test_row_norms_short_path_matches_general_path(dtype, shape):
+    """sq_norms' short path (a contiguous 2-D batch) against its general
+    path on the same rows: bit-equal norms, one launch a non-empty call,
+    the bf16 mode counted for bf16 rows. The strided rows keep 16-byte
+    alignment (a row stride of 136 elements), so both paths load them the
+    same way and sum in the same order (csrc/row_norms.cu)."""
+    _card()
+    from hnsw_slim_tpu_torch.ops import cuda
+    from hnsw_slim_tpu_torch.ops import distance as dist
+
+    rng = np.random.default_rng(5)
+    wide = torch.as_tensor(rng.standard_normal((300, 136)).astype(
+        np.float32)).to(dtype).cuda()
+    general = {"strided": wide[:, :128], "odd width": wide[:, :13][::2],
+               "empty": wide[:0, :128], "1-D": wide[7, :128],
+               "3-D": wide[:, :128].reshape(30, 10, 128)}[shape]
+    rows = general.reshape(-1, general.shape[-1]).contiguous()
+    before = dict(cuda.launches)
+    got = dist.sq_norms(general)
+    short = dist.sq_norms(rows)
+    torch.cuda.synchronize()
+    assert got.shape == general.shape[:-1]
+    assert torch.equal(got.reshape(-1), short)
+    n = int(rows.shape[0] > 0)
+    assert cuda.launches["row_norms"] - before["row_norms"] == 2 * n
+    assert cuda.launches["row_norms.bf16"] - before["row_norms.bf16"] == (
+        2 * n if dtype == torch.bfloat16 else 0)
+
+
+def test_launch_counts_unchanged_by_the_lean_path(data):
+    """One call of a wrapper counts one launch of its kernel, each of its
+    modes and its shape under the current tag, as before the launch table:
+    Kξ, K1, Kα (with its shape class) and Kζ."""
+    from hnsw_slim_tpu_torch.graph import revconn
+    from hnsw_slim_tpu_torch.index import bruteforce as bf
+    from hnsw_slim_tpu_torch.ops import cuda
+    from hnsw_slim_tpu_torch.ops import distance as dist
+
+    x, xn, q = data
+    ids = torch.zeros((q.shape[0], 1), dtype=torch.int32, device="cuda")
+    cuda.reset_launches()
+    with cuda.tagged("lean"):
+        dist.sq_norms(q)
+        dist.sq_norms(q.to(torch.bfloat16))
+        dist.gathered_dist(q, x, qn=dist.sq_norms(q), vn=xn, ids=ids)
+        bf.topk_dist(q, x, xn, 10)
+        revconn.append_overflow(*_crowded_apply(5000, 16, 512, 8, 300, 1),
+                                4096, 64)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in cuda.launches.items() if v}
+    assert got == {"row_norms": 4, "row_norms.bf16": 1, "point_dist": 1,
+                   "topk_dist": 1, "rev_connect": 1, "radix_sort": 1,
+                   "radix_sort.ids": 1}
+    (shape, count), = cuda.launch_shapes.items()
+    assert shape.startswith("topk_dist[lean] ") and count == 1
 
 
 @pytest.mark.parametrize("k", [65, 100, 128])
