@@ -29,17 +29,18 @@ Union edges are one sorted int64 key array per level, key = src << 31 | tgt;
 a directed key exists iff either direction is a stage-2 edge.
 
 All state is host numpy; the prunes run on the device of the vectors they
-are given. ``last_stats`` holds the last call's seconds and set sizes.
+are given. ``last_stats`` holds the last call's set sizes and, for
+``IncrementalSlim``, its seconds by stage and level (``utils/trace.phase``:
+each stage is also a ``reprune.*`` span).
 """
 
 from __future__ import annotations
-
-import time
 
 import numpy as np
 import torch
 
 from ..config import SlimConfig
+from ..utils import trace
 from .heuristic import prune_all, prune_batch, prune_batch_guarded
 from .prune import (_pad_to_len, _sort_row_ids, convert_to_slimzero,
                     degree_thresholds, pack_chal_arrays)
@@ -200,7 +201,6 @@ class IncrementalSlim:
         """Initial convertFromHNSW, capturing the per-level state the update
         path needs. The graph lands on the device of ``vectors``."""
         marks: dict = {}
-        tick = time.perf_counter
         self.levels = np.asarray(levels, np.int32).copy()
         n = len(self.levels)
         self.entry = int(entry)
@@ -215,56 +215,54 @@ class IncrementalSlim:
         self.repair_keys = np.zeros(0, np.int64)
 
         for l in range(self.lmax + 1):
-            t0 = tick()
-            act = np.nonzero(self.levels >= l)[0]
-            a = adj_np[l][act]
-            deg = (a >= 0).sum(axis=1)
-            hi, lo = ((self.cfg.top_M0, self.cfg.low_m0) if l == 0
-                      else (self.cfg.top_M, self.cfg.low_m))
-            out_w = self.out_ws[l]
-            budget_act = np.where(deg > self.thr[l], hi, lo)
-            budgets = np.zeros(n, np.int32)
-            budgets[act] = budget_act
-            self.budgets.append(budgets)
+            with trace.phase("reprune.stage2", marks, f"L{l}.stage2",
+                             level=l):
+                act = np.nonzero(self.levels >= l)[0]
+                a = adj_np[l][act]
+                deg = (a >= 0).sum(axis=1)
+                hi, lo = ((self.cfg.top_M0, self.cfg.low_m0) if l == 0
+                          else (self.cfg.top_M, self.cfg.low_m))
+                out_w = self.out_ws[l]
+                budget_act = np.where(deg > self.thr[l], hi, lo)
+                budgets = np.zeros(n, np.int32)
+                budgets[act] = budget_act
+                self.budgets.append(budgets)
 
-            pruned = self._stage2_prune(vectors, vn, act, a, budget_act,
-                                        out_w)
-            marks[f"L{l}.stage2"] = tick() - t0
-            t0 = tick()
-            s2 = np.full((n, out_w), -1, np.int32)
-            s2[act] = pruned
-            self.stage2.append(s2)
+                pruned = self._stage2_prune(vectors, vn, act, a, budget_act,
+                                            out_w)
+            with trace.phase("reprune.keys", marks, f"L{l}.keys", level=l):
+                s2 = np.full((n, out_w), -1, np.int32)
+                s2[act] = pruned
+                self.stage2.append(s2)
 
-            # sort-based unique on the device, as convert_to_slim does
-            src, tgt = _row_edges(pruned, act)
-            self.keys.append(torch.unique(_dev(np.concatenate(
-                [_keys_of(src, tgt), _keys_of(tgt, src)]), vectors)
-            ).cpu().numpy())
-            marks[f"L{l}.keys"] = tick() - t0
-            t0 = tick()
-
-            fin = np.full((n, self.caps[l]), -1, np.int32)
-            fin[act] = self._stages45(l, act, vectors, vn)
-            marks[f"L{l}.stages45"] = tick() - t0
-            t0 = tick()
+                # sort-based unique on the device, as convert_to_slim does
+                src, tgt = _row_edges(pruned, act)
+                self.keys.append(torch.unique(_dev(np.concatenate(
+                    [_keys_of(src, tgt), _keys_of(tgt, src)]), vectors)
+                ).cpu().numpy())
+            with trace.phase("reprune.stages45", marks, f"L{l}.stages45",
+                             level=l):
+                fin = np.full((n, self.caps[l]), -1, np.int32)
+                fin[act] = self._stages45(l, act, vectors, vn)
             if l == self.cfg.threshold_level:
-                pre = fin[act]
-                post = self._repair(pre, act, vectors)
-                # key sets of the rows the repair changed only: the set
-                # difference over all of a level's edges costs tens of
-                # seconds at 1M, and an untouched row adds no key
-                hit = (pre != post).any(axis=1)
-                self.repair_keys = _added_keys(pre[hit], post[hit], act[hit])
-                fin[act] = post
-                marks[f"L{l}.repair"] = tick() - t0
+                with trace.phase("reprune.repair", marks, f"L{l}.repair",
+                                 level=l):
+                    pre = fin[act]
+                    post = self._repair(pre, act, vectors)
+                    # key sets of the rows the repair changed only: the set
+                    # difference over all of a level's edges costs tens of
+                    # seconds at 1M, and an untouched row adds no key
+                    hit = (pre != post).any(axis=1)
+                    self.repair_keys = _added_keys(pre[hit], post[hit],
+                                                   act[hit])
+                    fin[act] = post
             self.final.append(fin)
             if verbose:
                 print(f"  inc level {l}: thr={self.thr[l]} "
                       f"edges={(fin >= 0).sum()}")
 
-        t0 = tick()
-        graph = _pack(self, vectors.device)
-        marks["pack"] = tick() - t0
+        with trace.phase("reprune.pack", marks, "pack"):
+            graph = _pack(self, vectors.device)
         self.last_stats = {"seconds": marks}
         return graph
 
@@ -282,7 +280,6 @@ class IncrementalSlim:
         final CHAL content differs, the patch membership set."""
         marks: dict = {}
         sizes: dict = {}
-        tick = time.perf_counter
 
         n_old = len(self.levels)
         levels = np.asarray(levels, np.int32)
@@ -314,138 +311,140 @@ class IncrementalSlim:
         changed_all: list[np.ndarray] = []
 
         for l in range(self.lmax + 1):
-            t0 = tick()
-            act_mask = levels >= l
-            hi, lo = ((self.cfg.top_M0, self.cfg.low_m0) if l == 0
-                      else (self.cfg.top_M, self.cfg.low_m))
-            deg_all = (adj_np[l] >= 0).sum(axis=1)
-            budgets_new = np.where(
-                act_mask, np.where(deg_all > thr[l], hi, lo), 0
-            ).astype(np.int32)
+            with trace.phase("reprune.stage2", marks, f"L{l}.stage2",
+                             level=l):
+                act_mask = levels >= l
+                hi, lo = ((self.cfg.top_M0, self.cfg.low_m0) if l == 0
+                          else (self.cfg.top_M, self.cfg.low_m))
+                deg_all = (adj_np[l] >= 0).sum(axis=1)
+                budgets_new = np.where(
+                    act_mask, np.where(deg_all > thr[l], hi, lo), 0
+                ).astype(np.int32)
 
-            # stage-2 set: touched rows + budget flips (threshold drift,
-            # level deactivation via slot reuse -> budget 0)
-            c2_mask = np.zeros(n, bool)
-            c2_mask[touched] = True
-            c2_mask |= budgets_new != self.budgets[l]
-            c2 = np.nonzero(c2_mask)[0]
-            self.budgets[l] = budgets_new
+                # stage-2 set: touched rows + budget flips (threshold drift,
+                # level deactivation via slot reuse -> budget 0)
+                c2_mask = np.zeros(n, bool)
+                c2_mask[touched] = True
+                c2_mask |= budgets_new != self.budgets[l]
+                c2 = np.nonzero(c2_mask)[0]
+                self.budgets[l] = budgets_new
 
-            act_c2 = c2[act_mask[c2]]
-            old_rows = self.stage2[l][c2]
-            new_rows = np.full((len(c2), self.out_ws[l]), -1, np.int32)
-            new_rows[act_mask[c2]] = self._stage2_prune(
-                vectors, vn, act_c2, adj_np[l][act_c2],
-                budgets_new[act_c2], self.out_ws[l])
-            self.stage2[l][c2] = new_rows
-            marks[f"L{l}.stage2"] = tick() - t0
-            t0 = tick()
+                act_c2 = c2[act_mask[c2]]
+                old_rows = self.stage2[l][c2]
+                new_rows = np.full((len(c2), self.out_ws[l]), -1, np.int32)
+                new_rows[act_mask[c2]] = self._stage2_prune(
+                    vectors, vn, act_c2, adj_np[l][act_c2],
+                    budgets_new[act_c2], self.out_ws[l])
+                self.stage2[l][c2] = new_rows
+            with trace.phase("reprune.keys", marks, f"L{l}.keys", level=l):
+                # stage-3 delta: every pair whose directed membership may flip
+                os_, ot = _row_edges(old_rows, c2)
+                ns, nt = _row_edges(new_rows, c2)
+                pair_u = np.concatenate([os_, ot, ns, nt])
+                pair_v = np.concatenate([ot, os_, nt, ns])
+                n_flip = 0
+                if len(pair_u):
+                    cand = np.unique(_keys_of(pair_u, pair_v))
+                    cu = (cand >> _SHIFT).astype(np.int64)
+                    cv = (cand & _LOW).astype(np.int64)
+                    # key (u,v) exists iff v in stage2[u] or u in stage2[v]
+                    want = (
+                        (self.stage2[l][cu] == cv[:, None]).any(axis=1)
+                        | (self.stage2[l][cv] == cu[:, None]).any(axis=1)
+                    )
+                    pos = np.searchsorted(self.keys[l], cand)
+                    have = np.zeros(len(cand), bool)
+                    inb = pos < len(self.keys[l])
+                    have[inb] = self.keys[l][pos[inb]] == cand[inb]
+                    flip = want != have
+                    n_flip = int(flip.sum())
+                    self.keys[l] = _sorted_merge(
+                        self.keys[l], cand[flip & want], cand[flip & ~want])
+                    affected_src = cu[flip]
+                else:
+                    affected_src = np.zeros(0, np.int64)
 
-            # stage-3 delta: every pair whose directed membership may flip
-            os_, ot = _row_edges(old_rows, c2)
-            ns, nt = _row_edges(new_rows, c2)
-            pair_u = np.concatenate([os_, ot, ns, nt])
-            pair_v = np.concatenate([ot, os_, nt, ns])
-            n_flip = 0
-            if len(pair_u):
-                cand = np.unique(_keys_of(pair_u, pair_v))
-                cu = (cand >> _SHIFT).astype(np.int64)
-                cv = (cand & _LOW).astype(np.int64)
-                # key (u,v) exists iff v in stage2[u] or u in stage2[v]
-                want = (
-                    (self.stage2[l][cu] == cv[:, None]).any(axis=1)
-                    | (self.stage2[l][cv] == cu[:, None]).any(axis=1)
-                )
-                pos = np.searchsorted(self.keys[l], cand)
-                have = np.zeros(len(cand), bool)
-                inb = pos < len(self.keys[l])
-                have[inb] = self.keys[l][pos[inb]] == cand[inb]
-                flip = want != have
-                n_flip = int(flip.sum())
-                self.keys[l] = _sorted_merge(
-                    self.keys[l], cand[flip & want], cand[flip & ~want])
-                affected_src = cu[flip]
-            else:
-                affected_src = np.zeros(0, np.int64)
-
-            # stage-5 membership depends on neighbor LEVELS: in-neighbors of
-            # level-changed nodes must re-filter even if their union is intact
-            lvl_extra = np.zeros(0, np.int64)
-            if (level_changed is not None and len(level_changed)
-                    and l != self.cfg.threshold_level and len(self.keys[l])):
-                moved = np.zeros(n, bool)
-                moved[np.asarray(level_changed, np.int64)] = True
-                hitk = moved[self.keys[l] & _LOW]
-                lvl_extra = (self.keys[l][hitk] >> _SHIFT).astype(np.int64)
-            marks[f"L{l}.keys"] = tick() - t0
-            t0 = tick()
-
-            # repair-edge bookkeeping: drop bridges with a deactivated
-            # endpoint (their src rows must be rebuilt to shed the stale id)
-            rep_extra = np.zeros(0, np.int64)
-            if l == self.cfg.threshold_level and len(self.repair_keys):
-                rs = (self.repair_keys >> _SHIFT).astype(np.int64)
-                rt = (self.repair_keys & _LOW).astype(np.int64)
-                alive = act_mask[rs] & act_mask[rt]
-                rep_extra = np.unique(rs[~alive])
-                self.repair_keys = self.repair_keys[alive]
-            # stage-4/5 working set: rows whose UNION actually changed (the
-            # key delta's flipped sources), not all of c2: a touched row
-            # whose stage-2 output re-pruned to the same edges has an intact
-            # union and an intact final row. Inactive c2 rows still pass
-            # through for the clearing path: a node can deactivate without
-            # any key flipping (its reverse membership in others' stage-2
-            # rows keeps the keys alive).
-            c2_inact = c2[~act_mask[c2]]
-            a_all = np.unique(
-                np.concatenate([c2_inact, affected_src, lvl_extra, rep_extra]))
-            a_ids = a_all[act_mask[a_all]]
-            deact = a_all[~act_mask[a_all]]
-            sizes[f"L{l}"] = {"stage2": len(act_c2), "flips": n_flip,
-                              "stages45": len(a_ids)}
-            changed_l = []
-            if len(deact):  # level dropped: clear rows, mark changed
-                had = (self.final[l][deact] >= 0).any(axis=1)
-                self.final[l][deact] = -1
-                changed_l.append(deact[had])
-            if len(a_ids) == 0:
-                changed_all.append(
-                    np.concatenate(changed_l) if changed_l
-                    else np.zeros(0, np.int64))
-                continue
-            new_final = self._stages45(l, a_ids, vectors, vn)
-            if l == self.cfg.threshold_level and len(self.repair_keys):
-                # stage 4/5 rebuilt these rows from the union, which never
-                # held the repair bridges: re-apply them
-                rs = (self.repair_keys >> _SHIFT).astype(np.int64)
-                rt = (self.repair_keys & _LOW).astype(np.int64)
-                lookup = np.full(n, -1, np.int64)
-                lookup[a_ids] = np.arange(len(a_ids))
-                li = lookup[rs]
-                hit = li >= 0
-                for i, t in zip(li[hit], rt[hit]):  # bridges are few
-                    row = new_final[i]
-                    if t in row:
-                        continue
-                    empty = np.nonzero(row < 0)[0]
-                    row[empty[0] if len(empty) else -1] = t
-            changed_rows = (self.final[l][a_ids] != new_final).any(axis=1)
-            self.final[l][a_ids] = new_final
-            marks[f"L{l}.stages45"] = tick() - t0
-            t0 = tick()
+                # stage-5 membership depends on neighbor LEVELS: in-neighbors
+                # of level-changed nodes must re-filter even if their union
+                # is intact
+                lvl_extra = np.zeros(0, np.int64)
+                if (level_changed is not None and len(level_changed)
+                        and l != self.cfg.threshold_level
+                        and len(self.keys[l])):
+                    moved = np.zeros(n, bool)
+                    moved[np.asarray(level_changed, np.int64)] = True
+                    hitk = moved[self.keys[l] & _LOW]
+                    lvl_extra = (self.keys[l][hitk]
+                                 >> _SHIFT).astype(np.int64)
+            with trace.phase("reprune.stages45", marks, f"L{l}.stages45",
+                             level=l) as ph:
+                # repair-edge bookkeeping: drop bridges with a deactivated
+                # endpoint (their src rows must be rebuilt to shed the stale
+                # id)
+                rep_extra = np.zeros(0, np.int64)
+                if l == self.cfg.threshold_level and len(self.repair_keys):
+                    rs = (self.repair_keys >> _SHIFT).astype(np.int64)
+                    rt = (self.repair_keys & _LOW).astype(np.int64)
+                    alive = act_mask[rs] & act_mask[rt]
+                    rep_extra = np.unique(rs[~alive])
+                    self.repair_keys = self.repair_keys[alive]
+                # stage-4/5 working set: rows whose UNION actually changed
+                # (the key delta's flipped sources), not all of c2: a touched
+                # row whose stage-2 output re-pruned to the same edges has an
+                # intact union and an intact final row. Inactive c2 rows
+                # still pass through for the clearing path: a node can
+                # deactivate without any key flipping (its reverse membership
+                # in others' stage-2 rows keeps the keys alive).
+                c2_inact = c2[~act_mask[c2]]
+                a_all = np.unique(np.concatenate(
+                    [c2_inact, affected_src, lvl_extra, rep_extra]))
+                a_ids = a_all[act_mask[a_all]]
+                deact = a_all[~act_mask[a_all]]
+                sizes[f"L{l}"] = {"stage2": len(act_c2), "flips": n_flip,
+                                  "stages45": len(a_ids)}
+                changed_l = []
+                if len(deact):  # level dropped: clear rows, mark changed
+                    had = (self.final[l][deact] >= 0).any(axis=1)
+                    self.final[l][deact] = -1
+                    changed_l.append(deact[had])
+                if len(a_ids) == 0:
+                    changed_all.append(
+                        np.concatenate(changed_l) if changed_l
+                        else np.zeros(0, np.int64))
+                    ph.into = None  # no stage 4/5 at this level: no time
+                    continue
+                new_final = self._stages45(l, a_ids, vectors, vn)
+                if l == self.cfg.threshold_level and len(self.repair_keys):
+                    # stage 4/5 rebuilt these rows from the union, which never
+                    # held the repair bridges: re-apply them
+                    rs = (self.repair_keys >> _SHIFT).astype(np.int64)
+                    rt = (self.repair_keys & _LOW).astype(np.int64)
+                    lookup = np.full(n, -1, np.int64)
+                    lookup[a_ids] = np.arange(len(a_ids))
+                    li = lookup[rs]
+                    hit = li >= 0
+                    for i, t in zip(li[hit], rt[hit]):  # bridges are few
+                        row = new_final[i]
+                        if t in row:
+                            continue
+                        empty = np.nonzero(row < 0)[0]
+                        row[empty[0] if len(empty) else -1] = t
+                changed_rows = (self.final[l][a_ids] != new_final).any(axis=1)
+                self.final[l][a_ids] = new_final
 
             changed_l.append(a_ids[changed_rows])
             if l == self.cfg.threshold_level and self.repair_updates:
-                act = np.nonzero(act_mask)[0]
-                repaired = self._repair(self.final[l][act], act, vectors)
-                rep_changed = (repaired != self.final[l][act]).any(axis=1)
-                self.repair_keys = np.union1d(
-                    self.repair_keys,
-                    _added_keys(self.final[l][act][rep_changed],
-                                repaired[rep_changed], act[rep_changed]))
-                self.final[l][act] = repaired
-                changed_l.append(act[rep_changed])
-                marks[f"L{l}.repair"] = tick() - t0
+                with trace.phase("reprune.repair", marks, f"L{l}.repair",
+                                 level=l):
+                    act = np.nonzero(act_mask)[0]
+                    repaired = self._repair(self.final[l][act], act, vectors)
+                    rep_changed = (repaired != self.final[l][act]).any(axis=1)
+                    self.repair_keys = np.union1d(
+                        self.repair_keys,
+                        _added_keys(self.final[l][act][rep_changed],
+                                    repaired[rep_changed], act[rep_changed]))
+                    self.final[l][act] = repaired
+                    changed_l.append(act[rep_changed])
             changed_all.append(np.unique(np.concatenate(changed_l)))
             if verbose:
                 print(f"  inc-upd level {l}: c2={len(c2)} "
@@ -453,9 +452,8 @@ class IncrementalSlim:
 
         changed = np.unique(np.concatenate(changed_all)) if changed_all else \
             np.zeros(0, np.int64)
-        t0 = tick()
-        out = _pack(self, vectors.device if device_pack else None)
-        marks["pack"] = tick() - t0
+        with trace.phase("reprune.pack", marks, "pack"):
+            out = _pack(self, vectors.device if device_pack else None)
         self.last_stats = {"seconds": marks, "sizes": sizes,
                            "changed": len(changed)}
         return out, changed
@@ -520,7 +518,6 @@ class IncrementalSlimZero:
                verbose: bool = False, device_pack: bool = True):
         """Re-prune after `touched` vanilla rows changed. Returns (graph,
         changed_node_ids): ids whose final CHAL content differs."""
-        t_start = time.perf_counter()
         sizes: dict = {}
         n_old = len(self.levels)
         levels = np.asarray(levels, np.int32)
@@ -624,8 +621,7 @@ class IncrementalSlimZero:
         changed = np.unique(np.concatenate(changed_all)) if changed_all else \
             np.zeros(0, np.int64)
         out = _pack(self, vectors.device if device_pack else None)
-        self.last_stats = {"seconds": time.perf_counter() - t_start,
-                           "sizes": sizes, "changed": len(changed)}
+        self.last_stats = {"sizes": sizes, "changed": len(changed)}
         return out, changed
 
     def _cap_filter(self, l, ids, rows, vectors, vn, cap_l, levels):

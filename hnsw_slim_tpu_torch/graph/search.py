@@ -76,6 +76,7 @@ from ..index.bruteforce import topk_dist, topk_dist_strata
 from ..ops import cuda
 from ..ops.distance import gathered_dist, gathered_dist_plain, sq_norms
 from ..quant.estimator import QuantScorer, packed_estimate_plain
+from ..utils import trace
 
 INF = float("inf")
 BIG = 2**30
@@ -685,22 +686,27 @@ def level_search(adjs, entry: int, vectors, vn, q, *, max_level: int,
     filtered in the kernel when ``allowed`` (bool[N]) is given. Returns
     (dists f32[B, k], ids i32[B, k], hops i32[B], dcomp i32[B]); hops and
     dcomp count the level-0 beam, as in the JAX package."""
-    qn = sq_norms(q)
-    cur, curdist = entry_dist(vectors, vn, q, qn, entry, metric)
-    cur, curdist, _, _ = greedy_descent_levels(
-        vectors, q, qn, adjs[max_level:0:-1], max_level, cur, curdist, None,
-        metric)
-    kw = dict(P=ef, ef_eff=ef, pop_width=pop_width,
-              cw=cand_width(ef, pop_width, adjs[0].shape[1], 0),
-              max_iters=max_iters, metric=metric)
-    seeds = (curdist[:, None].contiguous(), cur[:, None].contiguous())
+    trace.count("index.queries", q.shape[0])
+    with trace.span("index.descent"):
+        qn = sq_norms(q)
+        cur, curdist = entry_dist(vectors, vn, q, qn, entry, metric)
+        cur, curdist, _, _ = greedy_descent_levels(
+            vectors, q, qn, adjs[max_level:0:-1], max_level, cur, curdist,
+            None, metric)
+        kw = dict(P=ef, ef_eff=ef, pop_width=pop_width,
+                  cw=cand_width(ef, pop_width, adjs[0].shape[1], 0),
+                  max_iters=max_iters, metric=metric)
+        seeds = (curdist[:, None].contiguous(), cur[:, None].contiguous())
+        filt = {}
+        if allowed is not None:
+            trk_d, trk_i = filter_track_init(allowed, cur, curdist, ef)
+            filt = dict(allowed=allowed, track_d=trk_d, track_id=trk_i)
+    with trace.span("index.beam"):
+        out = beam_search(vectors, q, qn, adjs[0], *seeds, k=k, **kw, **filt)
+        trace.count("index.beam_dcomp", out[3])
     if allowed is None:
-        return beam_search(vectors, q, qn, adjs[0], *seeds, k=k, **kw)
-    trk_d, trk_i = filter_track_init(allowed, cur, curdist, ef)
-    _, _, hops, dcomp, trk_d, trk_i = beam_search(
-        vectors, q, qn, adjs[0], *seeds, k=k, allowed=allowed, track_d=trk_d,
-        track_id=trk_i, **kw)
-    return trk_d[:, :k], trk_i[:, :k], hops, dcomp
+        return out
+    return out[4][:, :k], out[5][:, :k], out[2], out[3]
 
 
 def chal_search(graph_nbr, graph_lvl_off, entry, vectors, vn, q, *,
@@ -731,69 +737,82 @@ def chal_search(graph_nbr, graph_lvl_off, entry, vectors, vn, q, *,
     if ef >= 256 and not _is_bitonic_width(ef):
         P = bitonic_buffer_width(ef)
     b = q.shape[0]
-    qn = sq_norms(q)
-    cur, curdist = entry_dist(vectors, vn, q, qn, entry, metric)
 
     def level_fetch(l):
         if l > 0 and dense_up is not None and l - 1 < len(dense_up):
             return rank_fetch(rank_up, dense_up[l - 1])
         return chal_fetch(graph_nbr, graph_lvl_off, l, cap if l > 0 else cap0)
 
-    hops = torch.zeros(b, dtype=torch.int32, device=q.device)
-    dcomp = torch.zeros(b, dtype=torch.int32, device=q.device)
     seeds = None
     seed_width = min(seed_width, P)
     use_seed = seed_width > 1 and threshold_level == 0 and max_level >= 1
-    if use_seed and up_vecs is not None:
-        if seed_strata > 1:
-            sd, si = topk_dist_strata(q, up_vecs, up_vn, up_ids, seed_width,
-                                      seed_strata, metric, qn=qn)
+    table = use_seed and up_vecs is not None
+    trace.count("index.queries", b)
+    # up to the base beam: the Kα seed scan, or the Kε descent
+    with trace.span("index.seed" if table else "index.descent"):
+        qn = sq_norms(q)
+        cur, curdist = entry_dist(vectors, vn, q, qn, entry, metric)
+        hops = torch.zeros(b, dtype=torch.int32, device=q.device)
+        dcomp = torch.zeros(b, dtype=torch.int32, device=q.device)
+        if table:
+            if seed_strata > 1:
+                sd, si = topk_dist_strata(q, up_vecs, up_vn, up_ids,
+                                          seed_width, seed_strata, metric,
+                                          qn=qn)
+            else:
+                sd, spos = topk_dist(q, up_vecs, up_vn, seed_width, metric,
+                                     row_ids=up_ids, qn=qn)
+                si = torch.where(spos >= 0,
+                                 up_ids[spos.clamp(min=0).long()], -1)
+                si = torch.where(torch.isinf(sd), -1, si).to(torch.int32)
+            dcomp = dcomp + (up_ids >= 0).sum().to(torch.int32)
+            seeds = (sd.contiguous(), si.contiguous())
         else:
-            sd, spos = topk_dist(q, up_vecs, up_vn, seed_width, metric,
-                                 row_ids=up_ids, qn=qn)
-            si = torch.where(spos >= 0, up_ids[spos.clamp(min=0).long()], -1)
-            si = torch.where(torch.isinf(sd), -1, si).to(torch.int32)
-        dcomp = dcomp + (up_ids >= 0).sum().to(torch.int32)
-        seeds = (sd.contiguous(), si.contiguous())
-    else:
-        # greedy levels max..lo+1; with seeds and no table, level 1 beams
-        lo = 1 if use_seed else threshold_level
-        cur, curdist, _, _ = greedy_descent_levels(
-            vectors, q, qn, [level_fetch(l) for l in range(max_level, lo, -1)],
-            max_level, cur, curdist, None, metric)
-        if use_seed:
-            fetch = level_fetch(1)
-            pw = min(4, seed_width)
-            d1, i1, h, dc = beam_search(
-                vectors, q, qn, fetch, curdist[:, None].contiguous(),
-                cur[:, None].contiguous(), P=seed_width, ef_eff=seed_width,
-                pop_width=pw, cw=cand_width(seed_width, pw, fetch.width, 0),
-                max_iters=max_iters, k=seed_width, metric=metric)
-            hops, dcomp = hops + h, dcomp + dc
-            seeds = (d1, i1)
-    if seeds is not None:
-        buf_d, buf_id = seeds
-        # the allowed track's seed keys off the best seed
-        cur, curdist = buf_id[:, 0], buf_d[:, 0]
-    else:
-        buf_d, buf_id = curdist[:, None].contiguous(), cur[:, None].contiguous()
-    filt = {}
-    if allowed is not None:
-        trk_d, trk_i = filter_track_init(allowed, cur, curdist, P)
-        filt = dict(allowed=allowed, track_d=trk_d, track_id=trk_i)
-    for l in range(min(threshold_level, max_level), -1, -1):
-        fetch = dense_fetch(dense0) if l == 0 and dense0 is not None \
-            else level_fetch(l)
-        out = beam_search(
-            vectors, q, qn, fetch, buf_d, buf_id, P=P, ef_eff=ef_eff,
-            pop_width=pop_width,
-            cw=cand_width(P, pop_width, fetch.width,
-                          0 if allowed is not None else scan_width),
-            max_iters=max_iters, k=P if l > 0 else k, metric=metric, **filt)
-        buf_d, buf_id = out[0], out[1]
-        hops, dcomp = hops + out[2], dcomp + out[3]
+            # greedy levels max..lo+1; with seeds and no table, level 1 beams
+            lo = 1 if use_seed else threshold_level
+            cur, curdist, _, _ = greedy_descent_levels(
+                vectors, q, qn,
+                [level_fetch(l) for l in range(max_level, lo, -1)],
+                max_level, cur, curdist, None, metric)
+            if use_seed:
+                fetch = level_fetch(1)
+                pw = min(4, seed_width)
+                d1, i1, h, dc = beam_search(
+                    vectors, q, qn, fetch, curdist[:, None].contiguous(),
+                    cur[:, None].contiguous(), P=seed_width,
+                    ef_eff=seed_width, pop_width=pw,
+                    cw=cand_width(seed_width, pw, fetch.width, 0),
+                    max_iters=max_iters, k=seed_width, metric=metric)
+                trace.count("index.beam_dcomp", dc)
+                hops, dcomp = hops + h, dcomp + dc
+                seeds = (d1, i1)
+        if seeds is not None:
+            buf_d, buf_id = seeds
+            # the allowed track's seed keys off the best seed
+            cur, curdist = buf_id[:, 0], buf_d[:, 0]
+        else:
+            buf_d = curdist[:, None].contiguous()
+            buf_id = cur[:, None].contiguous()
+        filt = {}
         if allowed is not None:
-            filt.update(track_d=out[4], track_id=out[5])
+            trk_d, trk_i = filter_track_init(allowed, cur, curdist, P)
+            filt = dict(allowed=allowed, track_d=trk_d, track_id=trk_i)
+    with trace.span("index.beam"):
+        for l in range(min(threshold_level, max_level), -1, -1):
+            fetch = dense_fetch(dense0) if l == 0 and dense0 is not None \
+                else level_fetch(l)
+            out = beam_search(
+                vectors, q, qn, fetch, buf_d, buf_id, P=P, ef_eff=ef_eff,
+                pop_width=pop_width,
+                cw=cand_width(P, pop_width, fetch.width,
+                              0 if allowed is not None else scan_width),
+                max_iters=max_iters, k=P if l > 0 else k, metric=metric,
+                **filt)
+            trace.count("index.beam_dcomp", out[3])
+            buf_d, buf_id = out[0], out[1]
+            hops, dcomp = hops + out[2], dcomp + out[3]
+            if allowed is not None:
+                filt.update(track_d=out[4], track_id=out[5])
     if allowed is not None:
         return filt["track_d"][:, :k], filt["track_id"][:, :k], hops, dcomp
     return buf_d, buf_id, hops, dcomp

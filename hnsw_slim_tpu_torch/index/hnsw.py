@@ -19,8 +19,8 @@ object must not be used afterwards.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -34,6 +34,7 @@ from ..graph.prune import _pad_to_len
 from ..graph.types import LevelGraph
 from ..ops import cuda
 from ..ops.distance import sq_norms
+from ..utils import trace
 
 # HnswConfig.store_dtype -> the vector store's torch dtype
 STORE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -93,6 +94,28 @@ def _check(ok, msg: str) -> None:
         raise AssertionError(msg)
 
 
+class LastStats:
+    """``last_stats`` of a search index: {"hops", "distance_computations"}
+    of the last ``search``. A search stores its (hops, dcomp) device
+    tensors; the first read sums them, so a search that nobody asks about
+    pays no reduction and no read-back for them. Any other value (a dict)
+    is kept as it is."""
+
+    def __get__(self, obj, owner=None):
+        if obj is None:
+            return self
+        st = obj.__dict__.get("_last_stats", {})
+        if isinstance(st, tuple):
+            hops, dcomp = st
+            st = obj.__dict__["_last_stats"] = {
+                "hops": int(hops.sum()),
+                "distance_computations": int(dcomp.sum())}
+        return st
+
+    def __set__(self, obj, value) -> None:
+        obj.__dict__["_last_stats"] = value
+
+
 class HnswIndex:
     """Build-once, query-many vanilla HNSW whose vectors and graph live on
     ``device`` (the CUDA card unless the caller passes another).
@@ -100,6 +123,8 @@ class HnswIndex:
     strategy="auto" (default): NN-descent below AUTO_NND_MAX_N points,
     insertion rounds at scale; "nnd" and "insert" force one.
     """
+
+    last_stats = LastStats()
 
     def __init__(self, cfg: HnswConfig, search_cfg: SearchConfig | None = None,
                  max_batch: int = 4096, strategy: str = "auto",
@@ -158,20 +183,14 @@ class HnswIndex:
             del x32, vn32
             self.vn = sq_norms(self.vectors)
 
-    def _marks(self):
-        """A stopwatch for the update flows: mark(name) stores the host
-        seconds since the last mark, the card's queued work included."""
-        marks: dict = {}
-        t = [time.perf_counter()]
-
-        def mark(name: str) -> None:
+    @contextlib.contextmanager
+    def _phase(self, name: str, marks: dict):
+        """One step of the update flows: a span ``insert.<name>`` whose host
+        seconds, the card's queued work included, add into marks[name]."""
+        with trace.phase(f"insert.{name}", marks, name):
+            yield
             if self.device.type == "cuda":
                 torch.cuda.synchronize()
-            now = time.perf_counter()
-            marks[name] = marks.get(name, 0.0) + now - t[0]
-            t[0] = now
-
-        return marks, mark
 
     def _grow_capacity(self, n_new: int, lmax_new: int, bucket: int = 16384):
         """Grow vectors, adjacency and levels to a capacity that is a
@@ -220,45 +239,46 @@ class HnswIndex:
         batch. Returns the ids of every vanilla row the insert wrote (the
         new nodes and their reverse-connect targets), and sets
         ``last_update_stats``."""
-        marks, mark = self._marks()
+        marks: dict = {}
         new_np = np.asarray(new_vectors, np.float32)
         b = len(new_np)
         n_old = self.graph.n
         n_new = n_old + b
-        new_levels = sample_levels(b, self.cfg.mult, self.cfg.seed + n_old)
-        lmax_old = self.graph.max_level
-        lmax = max(lmax_old, int(new_levels.max(initial=0)))
-        adj_np, adj_dev = self._grow_capacity(n_new, lmax)
-        mark("grow")
-        self.levels = self.levels.copy()
-        self.levels[n_old:n_new] = new_levels
-        self.vectors[n_old:n_new] = torch.as_tensor(
-            new_np, device=self.device).to(self.vectors.dtype)
-        self.vn = sq_norms(self.vectors)
-        mark("vectors")
-        # rows are left-packed, so occupancy is the count of ids
-        deg_dev = [_row_deg(a) for a in adj_dev]
-        ins = HnswBuilder(self.cfg, self.max_batch)
-        spans = _Spans(self.device)
-        collect: dict = {}
-        entry, _ = ins._insert_range(
-            n_old, n_new, self.levels, int(self.graph.entry), lmax_old,
-            self.vectors, self.vn, adj_dev, deg_dev, spans, verbose,
-            collect=collect)
-        ins._check_overflow_monitor(verbose)
-        mark("insert_batches")
-        # one host-mirror sync per level over every touched row
-        touched = [np.zeros(0, np.int64)]
-        for l, parts in collect.items():
-            rows = np.unique(np.concatenate(parts))
-            touched.append(rows)
-            adj_np[l][rows] = adj_dev[l][_to_dev(rows, self.device)] \
-                .cpu().numpy()
-        self.graph = LevelGraph(
-            adjs=tuple(adj_dev),
-            level=torch.as_tensor(self.levels, device=self.device),
-            entry=entry, max_level=lmax, n_real=n_new)
-        mark("mirror_sync")
+        with self._phase("grow", marks):
+            new_levels = sample_levels(b, self.cfg.mult,
+                                       self.cfg.seed + n_old)
+            lmax_old = self.graph.max_level
+            lmax = max(lmax_old, int(new_levels.max(initial=0)))
+            adj_np, adj_dev = self._grow_capacity(n_new, lmax)
+        with self._phase("vectors", marks):
+            self.levels = self.levels.copy()
+            self.levels[n_old:n_new] = new_levels
+            self.vectors[n_old:n_new] = torch.as_tensor(
+                new_np, device=self.device).to(self.vectors.dtype)
+            self.vn = sq_norms(self.vectors)
+        with self._phase("insert_batches", marks):
+            # rows are left-packed, so occupancy is the count of ids
+            deg_dev = [_row_deg(a) for a in adj_dev]
+            ins = HnswBuilder(self.cfg, self.max_batch)
+            spans = _Spans(self.device)
+            collect: dict = {}
+            entry, _ = ins._insert_range(
+                n_old, n_new, self.levels, int(self.graph.entry), lmax_old,
+                self.vectors, self.vn, adj_dev, deg_dev, spans, verbose,
+                collect=collect)
+            ins._check_overflow_monitor(verbose)
+        with self._phase("mirror_sync", marks):
+            # one host-mirror sync per level over every touched row
+            touched = [np.zeros(0, np.int64)]
+            for l, parts in collect.items():
+                rows = np.unique(np.concatenate(parts))
+                touched.append(rows)
+                adj_np[l][rows] = adj_dev[l][_to_dev(rows, self.device)] \
+                    .cpu().numpy()
+            self.graph = LevelGraph(
+                adjs=tuple(adj_dev),
+                level=torch.as_tensor(self.levels, device=self.device),
+                entry=entry, max_level=lmax, n_real=n_new)
         out = np.unique(np.concatenate(touched))
         self.last_update_stats = {
             "seconds": marks, "phase_s": spans.totals(),
@@ -274,56 +294,58 @@ class HnswIndex:
         it through the host-planned insert batch. Returns (touched row ids,
         ids whose level changed), and sets ``last_update_stats``;
         ``verbose`` prints each batch and the seconds of each step."""
-        marks, mark = self._marks()
+        marks: dict = {}
         dev = self.device
         slots = np.asarray(slots, np.int64)
         if len(slots) != len(new_vectors):
             raise ValueError("replace_points: one vector per slot")
-        slots_dev = _to_dev(slots, dev)
-        self.vectors[slots_dev] = torch.as_tensor(
-            np.asarray(new_vectors, np.float32), device=dev).to(
-                self.vectors.dtype)
-        levels_arr = np.asarray(self.levels, np.int32).copy()
-        is_slot = torch.zeros(self.vectors.shape[0], dtype=torch.bool,
-                              device=dev)
-        is_slot[slots_dev] = True
-        touched = [slots]
-        adj_np = self.host_adj()
-        adj_dev = list(self.graph.adjs)
-        for l, a in enumerate(adj_dev):
-            # rows holding an edge to a slot; only those and the slots' own
-            # rows change, so only they are compacted and shipped
-            hit = is_slot[a.clamp(min=0).long()] & (a >= 0)
-            in_rows = hit.any(dim=1).nonzero()[:, 0]
-            touched.append(in_rows.cpu().numpy())
-            upd = torch.unique(torch.cat([slots_dev, in_rows]))
-            rows = torch.where(hit[upd], -1, a[upd])
-            rows[is_slot[upd]] = -1
-            rows_np = _compact_rows(rows.cpu().numpy())
-            a[upd] = _to_dev(rows_np, dev)
-            adj_np[l][upd.cpu().numpy()] = rows_np
-        mark("sever")
-        old_levels = levels_arr[slots].copy()
-        lmax = self.graph.max_level
-        levels_arr[slots] = np.minimum(sample_levels(
-            len(slots), self.cfg.mult, self.cfg.seed + int(slots[0])), lmax)
-        level_changed = slots[levels_arr[slots] != old_levels]
-        self.vn = sq_norms(self.vectors)
-        entry = int(self.graph.entry)
-        cur_maxlevel = lmax
-        if bool(is_slot[entry]):  # the entry point was replaced: promote
-            entry = int(np.nonzero(levels_arr == levels_arr.max())[0][0])
-            cur_maxlevel = int(levels_arr[entry])
-        ins = HnswBuilder(self.cfg, self.max_batch)
-        spans = _Spans(dev)
-        for s in range(0, len(slots), self.max_batch):
-            touched.append(ins._insert_batch(
-                slots[s:s + self.max_batch], levels_arr, entry, cur_maxlevel,
-                self.vectors, self.vn, adj_np, adj_dev, spans))
-            if verbose:
-                print(f"  replaced {min(s + self.max_batch, len(slots))}/"
-                      f"{len(slots)}", flush=True)
-        mark("insert_batches")
+        with self._phase("sever", marks):
+            slots_dev = _to_dev(slots, dev)
+            self.vectors[slots_dev] = torch.as_tensor(
+                np.asarray(new_vectors, np.float32), device=dev).to(
+                    self.vectors.dtype)
+            levels_arr = np.asarray(self.levels, np.int32).copy()
+            is_slot = torch.zeros(self.vectors.shape[0], dtype=torch.bool,
+                                  device=dev)
+            is_slot[slots_dev] = True
+            touched = [slots]
+            adj_np = self.host_adj()
+            adj_dev = list(self.graph.adjs)
+            for l, a in enumerate(adj_dev):
+                # rows holding an edge to a slot; only those and the slots'
+                # own rows change, so only they are compacted and shipped
+                hit = is_slot[a.clamp(min=0).long()] & (a >= 0)
+                in_rows = hit.any(dim=1).nonzero()[:, 0]
+                touched.append(in_rows.cpu().numpy())
+                upd = torch.unique(torch.cat([slots_dev, in_rows]))
+                rows = torch.where(hit[upd], -1, a[upd])
+                rows[is_slot[upd]] = -1
+                rows_np = _compact_rows(rows.cpu().numpy())
+                a[upd] = _to_dev(rows_np, dev)
+                adj_np[l][upd.cpu().numpy()] = rows_np
+        with self._phase("insert_batches", marks):
+            old_levels = levels_arr[slots].copy()
+            lmax = self.graph.max_level
+            levels_arr[slots] = np.minimum(sample_levels(
+                len(slots), self.cfg.mult, self.cfg.seed + int(slots[0])),
+                lmax)
+            level_changed = slots[levels_arr[slots] != old_levels]
+            self.vn = sq_norms(self.vectors)
+            entry = int(self.graph.entry)
+            cur_maxlevel = lmax
+            if bool(is_slot[entry]):  # the entry point was replaced: promote
+                entry = int(np.nonzero(levels_arr == levels_arr.max())[0][0])
+                cur_maxlevel = int(levels_arr[entry])
+            ins = HnswBuilder(self.cfg, self.max_batch)
+            spans = _Spans(dev)
+            for s in range(0, len(slots), self.max_batch):
+                touched.append(ins._insert_batch(
+                    slots[s:s + self.max_batch], levels_arr, entry,
+                    cur_maxlevel, self.vectors, self.vn, adj_np, adj_dev,
+                    spans))
+                if verbose:
+                    print(f"  replaced {min(s + self.max_batch, len(slots))}"
+                          f"/{len(slots)}", flush=True)
         self.levels = levels_arr
         self.graph = LevelGraph(
             adjs=tuple(adj_dev),
@@ -353,7 +375,7 @@ class HnswIndex:
                filter_mask: np.ndarray | None = None):
         """(dists f32[B, k], ids i32[B, k]) approximate top-k, ascending, as
         numpy. Sets ``last_stats`` (hops, distance_computations of the
-        level-0 beam).
+        level-0 beam, summed when first read).
 
         filter_mask bool[N]: traverse everything, return only allowed ids,
         keep searching until k allowed results are held (the kernel's
@@ -367,18 +389,18 @@ class HnswIndex:
             allowed = allowed_rows(mask, int(self.vectors.shape[0]),
                                    self.device)
             max_iters = filter_iters(max_iters, mask)
-        q = torch.as_tensor(np.asarray(queries, np.float32),
-                            device=self.device)
-        d, i, hops, dcomp = gs.level_search(
-            g.adjs, g.entry, self.vectors, self.vn, q,
-            max_level=g.max_level, ef=ef, k=k, max_iters=max_iters,
-            metric=self.cfg.metric, pop_width=self.scfg.pop_width,
-            allowed=allowed)
-        d, i = d.cpu().numpy(), i.cpu().numpy()
-        self.last_stats = {
-            "hops": int(hops.sum()),
-            "distance_computations": int(dcomp.sum()),
-        }
+        with trace.span("index.search"):
+            with trace.span("index.upload"):
+                q = torch.as_tensor(np.asarray(queries, np.float32),
+                                    device=self.device)
+            d, i, hops, dcomp = gs.level_search(
+                g.adjs, g.entry, self.vectors, self.vn, q,
+                max_level=g.max_level, ef=ef, k=k, max_iters=max_iters,
+                metric=self.cfg.metric, pop_width=self.scfg.pop_width,
+                allowed=allowed)
+            with trace.span("index.readback"):
+                d, i = d.cpu().numpy(), i.cpu().numpy()
+        self.last_stats = (hops, dcomp)
         return d, i
 
     def check_integrity(self) -> dict:

@@ -33,13 +33,16 @@ from ..graph.types import ChalGraph
 from ..ops import cuda
 from ..ops.distance import sq_norms
 from ..persist.patch import _level_rows, _subset_rows, to_np
+from ..utils import trace
 from .bruteforce import exact_topk
-from .hnsw import HnswIndex, _check, allowed_rows, filter_iters
+from .hnsw import HnswIndex, LastStats, _check, allowed_rows, filter_iters
 
 
 class HnswSlimIndex:
     """Pruned (Slim) index whose graph, vectors and serving layouts live on
     ``device``."""
+
+    last_stats = LastStats()
 
     def __init__(self, metric: str = "l2",
                  search_cfg: SearchConfig | None = None, device=None):
@@ -247,8 +250,9 @@ class HnswSlimIndex:
             allowed = allowed_rows(mask, int(self.vectors.shape[0]),
                                    self.device)
             max_iters = filter_iters(max_iters, mask)
-        q = torch.as_tensor(np.asarray(queries, np.float32),
-                            device=self.device)
+        with trace.span("index.upload"):
+            q = torch.as_tensor(np.asarray(queries, np.float32),
+                                device=self.device)
         return gs.chal_search(
             g.nbr, g.lvl_off, g.entry if entry is None else entry,
             self.vectors, self.vn, q, max_level=g.max_level,
@@ -264,19 +268,20 @@ class HnswSlimIndex:
     def search(self, queries: np.ndarray, k: int,
                filter_mask: np.ndarray | None = None, entry=None):
         """(dists f32[B, k], ids i32[B, k]) as numpy — searchKnn. Sets
-        ``last_stats`` (hops, distance_computations).
+        ``last_stats`` (hops, distance_computations, summed when first
+        read).
 
         filter_mask bool[N]: disallowed ids are traversed but never
         returned; the kernel keeps an allowed-only result track whose worst
         entry sets the stop bound, so a query returns k allowed ids whenever
         k allowed nodes are reachable. entry: per-query entry points i32[B]
         (default: the graph's entry point)."""
-        d, i, hops, dcomp = self.search_async(queries, k, filter_mask, entry)
-        d, i = d.cpu().numpy(), i.cpu().numpy()
-        self.last_stats = {
-            "hops": int(hops.sum()),
-            "distance_computations": int(dcomp.sum()),
-        }
+        with trace.span("index.search"):
+            d, i, hops, dcomp = self.search_async(queries, k, filter_mask,
+                                                  entry)
+            with trace.span("index.readback"):
+                d, i = d.cpu().numpy(), i.cpu().numpy()
+        self.last_stats = (hops, dcomp)
         return d, i
 
     def index_size(self) -> int:

@@ -36,8 +36,9 @@ from ..quant.estimator import unpack_fields as _unpack_fields  # noqa: F401
 from ..quant.kmeans import kmeans
 from ..quant.rabitq import QuantizedCodes, quantize_batch
 from ..quant.rotator import FhtKacRotator, g_tables, pad_dim
+from ..utils import trace
 from .bruteforce import MAX_K, scan_plan, topk_estimate
-from .hnsw import HnswIndex
+from .hnsw import HnswIndex, LastStats
 from .slim import HnswSlimIndex
 
 
@@ -108,49 +109,60 @@ def slimq_search(nbr, lvl_off, entry, q_rot, packed, centroids_rot, dataset,
         P = gs.bitonic_buffer_width(ef)
     b = q_rot.shape[0]
     dev = q_rot.device
-    sumq, g_add = g_tables(q_rot, centroids_rot, metric)
-    scorer = QuantScorer(packed, nb, ex_bits, use_ex, q_rot, sumq, g_add)
 
     def level_fetch(l):
         if l > 0 and dense_up is not None and l - 1 < len(dense_up):
             return gs.rank_fetch(rank_up, dense_up[l - 1])
         return gs.chal_fetch(nbr, lvl_off, l, cap if l > 0 else cap0)
 
-    hops = torch.zeros(b, dtype=torch.int32, device=dev)
-    dcomp = torch.zeros(b, dtype=torch.int32, device=dev)
     seed_width = min(seed_width, P)
-    if (seed_width > 1 and threshold_level == 0 and max_level >= 1
-            and up_rows is not None):
-        sd, pos = topk_estimate(scorer._replace(rows=up_rows, use_ex=False),
-                                up_ids, seed_width)
-        buf_id = torch.where(pos >= 0, up_ids[pos.clamp(min=0).long()], -1)
-        buf_d, buf_id = sd.contiguous(), buf_id.to(torch.int32).contiguous()
-        dcomp = dcomp + (up_ids >= 0).sum().to(torch.int32)
-    else:
-        cur = torch.full((b,), int(entry), dtype=torch.int32, device=dev)
-        # one Kε launch scores the entry point, then descends (no level:
-        # the entry's estimate only)
-        cur, curdist, _, _ = gs.greedy_descent_levels(
-            None, None, None,
-            [level_fetch(l) for l in range(max_level, threshold_level, -1)],
-            max_level, cur, None, scorer=scorer)
-        buf_d, buf_id = curdist[:, None].contiguous(), cur[:, None].contiguous()
-    track = None
-    if dataset is not None:
-        track = gs.pop_track_init(dataset, q_raw, max(k, 16), metric)
-    for l in range(min(threshold_level, max_level), -1, -1):
-        fetch = gs.dense_fetch(dense0) if l == 0 and dense0 is not None \
-            else level_fetch(l)
-        out = gs.beam_search(
-            None, None, None, fetch, buf_d, buf_id, P=P, ef_eff=ef_eff,
-            pop_width=pop_width,
-            cw=gs.cand_width(P, pop_width, fetch.width, scan_width),
-            max_iters=max_iters, k=P, metric=metric, scorer=scorer,
-            pop_track=track)
-        buf_d, buf_id = out[0], out[1]
-        hops, dcomp = hops + out[2], dcomp + out[3]
-        if track is not None:
-            track = out[4]
+    table = (seed_width > 1 and threshold_level == 0 and max_level >= 1
+             and up_rows is not None)
+    trace.count("index.queries", b)
+    # up to the base beam: the Kα estimate scan, or the Kε descent
+    with trace.span("index.seed" if table else "index.descent"):
+        sumq, g_add = g_tables(q_rot, centroids_rot, metric)
+        scorer = QuantScorer(packed, nb, ex_bits, use_ex, q_rot, sumq, g_add)
+        hops = torch.zeros(b, dtype=torch.int32, device=dev)
+        dcomp = torch.zeros(b, dtype=torch.int32, device=dev)
+        if table:
+            sd, pos = topk_estimate(
+                scorer._replace(rows=up_rows, use_ex=False), up_ids,
+                seed_width)
+            buf_id = torch.where(pos >= 0, up_ids[pos.clamp(min=0).long()],
+                                 -1)
+            buf_d = sd.contiguous()
+            buf_id = buf_id.to(torch.int32).contiguous()
+            dcomp = dcomp + (up_ids >= 0).sum().to(torch.int32)
+        else:
+            cur = torch.full((b,), int(entry), dtype=torch.int32, device=dev)
+            # one Kε launch scores the entry point, then descends (no level:
+            # the entry's estimate only)
+            cur, curdist, _, _ = gs.greedy_descent_levels(
+                None, None, None,
+                [level_fetch(l) for l in range(max_level, threshold_level,
+                                               -1)],
+                max_level, cur, None, scorer=scorer)
+            buf_d = curdist[:, None].contiguous()
+            buf_id = cur[:, None].contiguous()
+        track = None
+        if dataset is not None:
+            track = gs.pop_track_init(dataset, q_raw, max(k, 16), metric)
+    with trace.span("index.beam"):
+        for l in range(min(threshold_level, max_level), -1, -1):
+            fetch = gs.dense_fetch(dense0) if l == 0 and dense0 is not None \
+                else level_fetch(l)
+            out = gs.beam_search(
+                None, None, None, fetch, buf_d, buf_id, P=P, ef_eff=ef_eff,
+                pop_width=pop_width,
+                cw=gs.cand_width(P, pop_width, fetch.width, scan_width),
+                max_iters=max_iters, k=P, metric=metric, scorer=scorer,
+                pop_track=track)
+            trace.count("index.beam_dcomp", out[3])
+            buf_d, buf_id = out[0], out[1]
+            hops, dcomp = hops + out[2], dcomp + out[3]
+            if track is not None:
+                track = out[4]
     if track is not None:
         return track.d, track.ids, hops, dcomp
     return buf_d, buf_id, hops, dcomp
@@ -160,6 +172,8 @@ class HnswSlimQIndex:
     """Quantized Slim index whose graph and codes live on ``device``. Raw
     vectors are not stored; the exact rerank uses the dataset given to
     ``set_dataset`` (or kept by ``build``)."""
+
+    last_stats = LastStats()
 
     def __init__(self, metric: str = "l2",
                  search_cfg: SearchConfig | None = None, device=None):
@@ -327,8 +341,9 @@ class HnswSlimQIndex:
             raise NotImplementedError(
                 "dynamic_ef: the port compiles nothing per ef; set ef")
         g, c = self.graph, self.codes
-        q_raw = torch.as_tensor(np.asarray(queries, np.float32),
-                                device=self.device)
+        with trace.span("index.upload"):
+            q_raw = torch.as_tensor(np.asarray(queries, np.float32),
+                                    device=self.device)
         q_rot = self.rotator.rotate(q_raw)
         use_track = rerank and self.dataset is not None
         if self._dataset_dev is None and use_track:
@@ -354,13 +369,13 @@ class HnswSlimQIndex:
     def search(self, queries: np.ndarray, k: int, rerank: bool = True):
         """(dists f32[B, k], ids i32[B, k]) as numpy: exact distances to the
         rerank dataset when there is one and ``rerank`` is set, else
-        estimates. Sets ``last_stats`` (hops, distance_computations)."""
-        d, ids, hops, dcomp = self.search_async(queries, k, rerank)
-        d, ids = d[:, :k].cpu().numpy(), ids[:, :k].cpu().numpy()
-        self.last_stats = {
-            "hops": int(hops.sum()),
-            "distance_computations": int(dcomp.sum()),
-        }
+        estimates. Sets ``last_stats`` (hops, distance_computations, summed
+        when first read)."""
+        with trace.span("index.search"):
+            d, ids, hops, dcomp = self.search_async(queries, k, rerank)
+            with trace.span("index.readback"):
+                d, ids = d[:, :k].cpu().numpy(), ids[:, :k].cpu().numpy()
+        self.last_stats = (hops, dcomp)
         return d, ids
 
     def index_size(self) -> int:

@@ -21,6 +21,7 @@ import torch
 from ..ops.distance import sq_norms
 from ..persist import checkpoint
 from ..persist import patch as patchlib
+from ..utils import trace
 from . import wire
 
 
@@ -63,12 +64,13 @@ class SlimClient:
         """Send a vector batch; returns the first patch chunk and its
         finished flag (zlib request compression, as
         hnsw_slim_client_update.cc:83-84)."""
-        body = wire.encode_update_index_request(ids, vectors)
-        headers = {}
-        if compress:
-            body = zlib.compress(body)
-            headers["Content-Encoding"] = "deflate"
-        data, r = self._request("POST", "/updateIndex", body, headers)
+        with trace.span("client.update"):
+            body = wire.encode_update_index_request(ids, vectors)
+            headers = {}
+            if compress:
+                body = zlib.compress(body)
+                headers["Content-Encoding"] = "deflate"
+            data, r = self._request("POST", "/updateIndex", body, headers)
         return data, r.getheader("X-Patch-Finished") == "1"
 
     def get_last_batch(self):
@@ -102,21 +104,31 @@ class SlimClient:
         """Apply the first patch chunk, then drain /getLastBatch until done
         (hnsw_slim_client_update_patch.cc:177-190). The local index's dense
         serving layouts are rebuilt from the patched graph."""
-        vecs = local_index.vectors[:local_index.graph.n].float().cpu().numpy()
-        graph, vecs = patchlib.apply_patch(local_index.graph, first_chunk,
-                                           vecs)
-        finished = first_finished
-        while not finished:
-            blob, finished = self.get_last_batch()
-            if not blob:
-                break
-            graph, vecs = patchlib.apply_patch(graph, blob, vecs)
-        local_index.graph = graph
-        local_index.host_chal = None  # the graph changed under any mirror
-        local_index.vectors = torch.as_tensor(vecs, device=local_index.device)
-        local_index.vn = sq_norms(local_index.vectors)
-        if local_index.dense0 is not None:
-            local_index.densify_level0()
-        if local_index.dense_up is not None:
-            local_index.densify_upper()
+        with trace.span("client.sync"):
+            with trace.span("client.pull"):
+                vecs = local_index.vectors[:local_index.graph.n].float() \
+                    .cpu().numpy()
+            with trace.span("client.apply"):
+                graph, vecs = patchlib.apply_patch(local_index.graph,
+                                                   first_chunk, vecs)
+            finished = first_finished
+            while not finished:
+                with trace.span("client.fetch"):
+                    blob, finished = self.get_last_batch()
+                if not blob:
+                    break
+                with trace.span("client.apply"):
+                    graph, vecs = patchlib.apply_patch(graph, blob, vecs)
+            local_index.graph = graph
+            local_index.host_chal = None  # the graph changed under any mirror
+            with trace.span("client.upload"):
+                local_index.vectors = torch.as_tensor(
+                    vecs, device=local_index.device)
+            with trace.span("client.norms"):
+                local_index.vn = sq_norms(local_index.vectors)
+            with trace.span("client.densify"):
+                if local_index.dense0 is not None:
+                    local_index.densify_level0()
+                if local_index.dense_up is not None:
+                    local_index.densify_upper()
         return local_index

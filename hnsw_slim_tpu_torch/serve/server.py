@@ -40,6 +40,7 @@ import json
 import threading
 import time
 import zlib
+from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
@@ -53,6 +54,7 @@ from ..index.hnsw import HnswIndex
 from ..index.slim import HnswSlimIndex
 from ..persist import checkpoint
 from ..persist import patch as patchlib
+from ..utils import trace
 from . import wire
 
 
@@ -118,7 +120,8 @@ class _Batcher:
         self.lock = threading.Lock()
         self.busy = threading.Lock()  # held by the fused search in flight
         self.pending: list = []
-        self.batch_sizes: list[int] = []  # one entry per fused search
+        # sizes of the last 4096 fused searches
+        self.batch_sizes: deque = deque(maxlen=4096)
 
     def query(self, vec: np.ndarray, k: int):
         slot = {"vec": vec, "k": k, "done": threading.Event(), "out": None}
@@ -269,103 +272,123 @@ class SlimServer:
         slots are reused first (replace_deleted, deferred reinsert); the
         rest append. Holds the writer lock throughout."""
         with self.rw.write():
-            new_vectors = np.asarray(new_vectors, np.float32)
-            if new_labels is None:
-                new_labels = range(self.next_label,
-                                   self.next_label + len(new_vectors))
-            new_labels = np.asarray(list(new_labels), np.int64)
-            prev_count = self.hnsw.graph.n
-
-            free = np.nonzero(self.deleted)[0]
-            n_reuse = min(len(free), len(new_vectors))
-            reused = free[:n_reuse]
-            touched = [np.asarray(reused, np.int64)]
-            level_changed = np.zeros(0, np.int64)
-            if n_reuse:
-                t, level_changed = self.hnsw.replace_points(
-                    reused, new_vectors[:n_reuse])
-                touched.append(t)
-                self.vectors_np[reused] = new_vectors[:n_reuse]
-                self.labels[reused] = new_labels[:n_reuse]
-                self.deleted[reused] = False
-            if n_reuse < len(new_vectors):
-                touched.append(self.hnsw.add_points(new_vectors[n_reuse:]))
-                n_now = self.hnsw.graph.n
-                self._ensure_host_capacity(n_now)
-                self._vec_buf[prev_count:n_now] = new_vectors[n_reuse:]
-                self._lab_buf[prev_count:n_now] = new_labels[n_reuse:]
-                self._del_buf[prev_count:n_now] = False
-                self.vectors_np = self._vec_buf[:n_now]
-                self.labels = self._lab_buf[:n_now]
-                self.deleted = self._del_buf[:n_now]
-            self.next_label = max(self.next_label,
-                                  int(new_labels.max(initial=0)) + 1)
-
-            # with both dense serving layouts the card never reads the flat
-            # CHAL arrays: the re-prune packs to host arrays only and the
-            # serving graph holds small device placeholders
-            host_chal = self.inc.host_chal
-            host_mode = (self.slim.dense0 is not None
-                         and self.slim.dense_up is not None
-                         and host_chal is not None)
-            chal, changed = self.inc.update(
-                self.hnsw.host_adj(), np.asarray(self.hnsw.levels),
-                int(self.hnsw.graph.entry), self.hnsw.vectors, self.hnsw.vn,
-                touched=np.concatenate(touched), level_changed=level_changed,
-                device_pack=not host_mode)
-            self.chal_unpadded = chal
-            host_chal = self.inc.host_chal
-            if host_mode:
-                # host arrays carry the HNSW capacity padding (level -1
-                # rows); round the level array up to the node bucket, as
-                # pad_chal_nodes does
-                n_src = len(host_chal["level"])
-                n_pad = -(-n_src // self.node_bucket) * self.node_bucket
-                lvl_pad = np.full(n_pad, -1, np.int32)
-                lvl_pad[:n_src] = host_chal["level"]
-                if self._placeholders is None:
-                    self._placeholders = (
-                        torch.zeros(8, dtype=torch.int32, device=self.device),
-                        torch.zeros((8, 8), dtype=torch.int32,
-                                    device=self.device))
-                self.slim.graph = dataclasses.replace(
-                    chal, nbr=self._placeholders[0],
-                    lvl_off=self._placeholders[1],
-                    level=torch.as_tensor(lvl_pad, device=self.device),
-                    n_real=chal.n)
-                self.slim.host_chal = host_chal
-            else:
-                self.slim.graph = pad_chal_nodes(chal, self.node_bucket)
-                self.slim.host_chal = None
-            self.slim.vectors = self.hnsw.vectors
-            self.slim.vn = self.hnsw.vn
-            if self.slim.dense0 is not None:
-                if host_chal is not None:
-                    # refresh only the rows whose CHAL content changed, plus
-                    # the appended and reused slots
-                    upd_ids = np.concatenate([
-                        changed,
-                        np.arange(prev_count, self.hnsw.graph.n,
-                                  dtype=np.int64),
-                        np.asarray(reused, np.int64)])
-                    self.slim.update_dense0(host_chal, upd_ids)
-                    if self.slim.dense_up is not None:
-                        self.slim.update_dense_upper(host_chal, upd_ids)
-                else:
-                    self.slim.densify_level0()
-                    if self.slim.dense_up is not None:
-                        self.slim.densify_upper()
-            # reused slots must ship their new vectors: classify as new
-            reused_set = set(int(v) for v in reused)
-            changed_old = sorted(int(v) for v in changed
-                                 if v < prev_count and int(v) not in reused_set)
-            changed_new = sorted(set(range(prev_count, self.hnsw.graph.n))
-                                 | reused_set)
-            writer = patchlib.PatchWriter(chal, changed_old, changed_new,
-                                          vectors=self.vectors_np,
-                                          host_chal=host_chal)
+            with trace.span("server.insert"):
+                reused, touched, level_changed, prev_count = self._insert(
+                    new_vectors, new_labels)
+            with trace.span("server.reprune"):
+                # with both dense serving layouts the card never reads the
+                # flat CHAL arrays: the re-prune packs to host arrays only
+                # and the serving graph holds small device placeholders
+                host_mode = (self.slim.dense0 is not None
+                             and self.slim.dense_up is not None
+                             and self.inc.host_chal is not None)
+                chal, changed = self.inc.update(
+                    self.hnsw.host_adj(), np.asarray(self.hnsw.levels),
+                    int(self.hnsw.graph.entry), self.hnsw.vectors,
+                    self.hnsw.vn, touched=touched,
+                    level_changed=level_changed, device_pack=not host_mode)
+                self.chal_unpadded = chal
+            with trace.span("server.dense_refresh"):
+                self._refresh_serving(chal, changed, host_mode, prev_count,
+                                      reused)
+            with trace.span("server.patch_encode"):
+                # reused slots must ship their new vectors: classify as new
+                reused_set = set(int(v) for v in reused)
+                changed_old = sorted(
+                    int(v) for v in changed
+                    if v < prev_count and int(v) not in reused_set)
+                changed_new = sorted(set(range(prev_count,
+                                               self.hnsw.graph.n))
+                                     | reused_set)
+                writer = patchlib.PatchWriter(
+                    chal, changed_old, changed_new, vectors=self.vectors_np,
+                    host_chal=self.inc.host_chal)
             self.pending_writer = writer
             return writer
+
+    def _insert(self, new_vectors, new_labels):
+        """update_index's insert: slots reused first, the rest appended, the
+        host mirrors kept in step. Returns (reused slots, touched vanilla
+        rows, ids whose level changed, the node count before)."""
+        new_vectors = np.asarray(new_vectors, np.float32)
+        if new_labels is None:
+            new_labels = range(self.next_label,
+                               self.next_label + len(new_vectors))
+        new_labels = np.asarray(list(new_labels), np.int64)
+        prev_count = self.hnsw.graph.n
+
+        free = np.nonzero(self.deleted)[0]
+        n_reuse = min(len(free), len(new_vectors))
+        reused = free[:n_reuse]
+        touched = [np.asarray(reused, np.int64)]
+        level_changed = np.zeros(0, np.int64)
+        if n_reuse:
+            t, level_changed = self.hnsw.replace_points(
+                reused, new_vectors[:n_reuse])
+            touched.append(t)
+            self.vectors_np[reused] = new_vectors[:n_reuse]
+            self.labels[reused] = new_labels[:n_reuse]
+            self.deleted[reused] = False
+        if n_reuse < len(new_vectors):
+            touched.append(self.hnsw.add_points(new_vectors[n_reuse:]))
+            n_now = self.hnsw.graph.n
+            self._ensure_host_capacity(n_now)
+            self._vec_buf[prev_count:n_now] = new_vectors[n_reuse:]
+            self._lab_buf[prev_count:n_now] = new_labels[n_reuse:]
+            self._del_buf[prev_count:n_now] = False
+            self.vectors_np = self._vec_buf[:n_now]
+            self.labels = self._lab_buf[:n_now]
+            self.deleted = self._del_buf[:n_now]
+        self.next_label = max(self.next_label,
+                              int(new_labels.max(initial=0)) + 1)
+        return reused, np.concatenate(touched), level_changed, prev_count
+
+    def _refresh_serving(self, chal, changed, host_mode: bool,
+                         prev_count: int, reused) -> None:
+        """update_index's serving graph and dense layouts: the rows whose
+        CHAL content changed, the appended and the reused slots refreshed
+        in place, or the layouts rebuilt without a host mirror."""
+        host_chal = self.inc.host_chal
+        if host_mode:
+            # host arrays carry the HNSW capacity padding (level -1
+            # rows); round the level array up to the node bucket, as
+            # pad_chal_nodes does
+            n_src = len(host_chal["level"])
+            n_pad = -(-n_src // self.node_bucket) * self.node_bucket
+            lvl_pad = np.full(n_pad, -1, np.int32)
+            lvl_pad[:n_src] = host_chal["level"]
+            if self._placeholders is None:
+                self._placeholders = (
+                    torch.zeros(8, dtype=torch.int32, device=self.device),
+                    torch.zeros((8, 8), dtype=torch.int32,
+                                device=self.device))
+            self.slim.graph = dataclasses.replace(
+                chal, nbr=self._placeholders[0],
+                lvl_off=self._placeholders[1],
+                level=torch.as_tensor(lvl_pad, device=self.device),
+                n_real=chal.n)
+            self.slim.host_chal = host_chal
+        else:
+            self.slim.graph = pad_chal_nodes(chal, self.node_bucket)
+            self.slim.host_chal = None
+        self.slim.vectors = self.hnsw.vectors
+        self.slim.vn = self.hnsw.vn
+        if self.slim.dense0 is not None:
+            if host_chal is not None:
+                # refresh only the rows whose CHAL content changed, plus
+                # the appended and reused slots
+                upd_ids = np.concatenate([
+                    changed,
+                    np.arange(prev_count, self.hnsw.graph.n,
+                              dtype=np.int64),
+                    np.asarray(reused, np.int64)])
+                self.slim.update_dense0(host_chal, upd_ids)
+                if self.slim.dense_up is not None:
+                    self.slim.update_dense_upper(host_chal, upd_ids)
+            else:
+                self.slim.densify_level0()
+                if self.slim.dense_up is not None:
+                    self.slim.densify_upper()
 
     def mark_delete(self, labels) -> int:
         """markDelete by external label (hnsw_slim_server_patch.cc:230-241).
@@ -429,19 +452,15 @@ class SlimServer:
 
             def _query(self):
                 # per-phase counters, reference hnsw_server.cc:41-95
-                t0 = time.perf_counter()
-                vec, k = wire.decode_query_request(self._body())
-                t1 = time.perf_counter()
-                d, labels = server.query(vec, k or 10)
-                t2 = time.perf_counter()
-                blob = wire.encode_query_response(labels, d)
-                t3 = time.perf_counter()
-                self._send(blob)
                 c = server.query_cost
-                c["parse"] += t1 - t0
-                c["search"] += t2 - t1
-                c["serialize"] += t3 - t2
-                c["resp"] += time.perf_counter() - t3
+                with trace.phase("server.parse", c, "parse"):
+                    vec, k = wire.decode_query_request(self._body())
+                with trace.phase("server.search", c, "search"):
+                    d, labels = server.query(vec, k or 10)
+                with trace.phase("server.serialize", c, "serialize"):
+                    blob = wire.encode_query_response(labels, d)
+                with trace.phase("server.send", c, "resp"):
+                    self._send(blob)
                 c["n"] += 1
                 if c["n"] % 10000 == 0:
                     print(f"query {c['n']}: parse={c['parse']:.2f}s "
@@ -449,29 +468,52 @@ class SlimServer:
                           f"serialize={c['serialize']:.2f}s "
                           f"resp={c['resp']:.2f}s (cumulative)", flush=True)
 
+            def _update(self):
+                with trace.span("server.decode"):
+                    ids, vecs = wire.decode_update_index_request(
+                        self._body())
+                    dim = server.vectors_np.shape[1]
+                    vecs = (np.stack(vecs).astype(np.float32) if vecs
+                            else np.zeros((0, dim), np.float32))
+                # proto3 id 0 on every entry means the client set no ids:
+                # the server assigns them
+                writer = server.update_index(
+                    vecs, new_labels=None if all(i == 0 for i in ids)
+                    else ids)
+                with trace.span("server.patch_encode"):
+                    blob, finished = writer.next_chunk(
+                        server.patch_chunk_bytes)
+                trace.count("server.patch_bytes", len(blob))
+                with trace.span("server.send"):
+                    self._send(blob, extra={
+                        "X-Patch-Finished": str(int(finished))})
+
+            def _last_batch(self):
+                w = server.pending_writer
+                if w is None:
+                    self._send(b"", extra={"X-Patch-Finished": "1"})
+                    return
+                with trace.span("server.patch_encode"):
+                    blob, finished = w.next_chunk(server.patch_chunk_bytes)
+                if finished:
+                    server.pending_writer = None
+                trace.count("server.patch_bytes", len(blob))
+                with trace.span("server.send"):
+                    self._send(blob, extra={
+                        "X-Patch-Finished": str(int(finished))})
+
             def do_POST(self):
                 try:
                     if self.path == "/query":
-                        self._query()
+                        with trace.span("server.query"):
+                            self._query()
                     elif self.path == "/setEf":
                         ef = wire.decode_set_ef_request(self._body())
                         server.set_ef(ef)
                         self._send(wire.encode_set_ef_response("ok", ef))
                     elif self.path == "/updateIndex":
-                        ids, vecs = wire.decode_update_index_request(
-                            self._body())
-                        dim = server.vectors_np.shape[1]
-                        vecs = (np.stack(vecs).astype(np.float32) if vecs
-                                else np.zeros((0, dim), np.float32))
-                        # proto3 id 0 on every entry means the client set no
-                        # ids: the server assigns them
-                        writer = server.update_index(
-                            vecs, new_labels=None if all(i == 0 for i in ids)
-                            else ids)
-                        blob, finished = writer.next_chunk(
-                            server.patch_chunk_bytes)
-                        self._send(blob, extra={
-                            "X-Patch-Finished": str(int(finished))})
+                        with trace.span("server.update"):
+                            self._update()
                     elif self.path == "/markDelete":
                         n = server.mark_delete(json.loads(self._body()))
                         self._send(json.dumps({"deleted": n}).encode(),
@@ -497,16 +539,8 @@ class SlimServer:
                                    extra={"X-Dim": str(arr.shape[1]),
                                           "X-Count": str(arr.shape[0])})
                     elif self.path == "/getLastBatch":
-                        w = server.pending_writer
-                        if w is None:
-                            self._send(b"", extra={"X-Patch-Finished": "1"})
-                            return
-                        blob, finished = w.next_chunk(
-                            server.patch_chunk_bytes)
-                        if finished:
-                            server.pending_writer = None
-                        self._send(blob, extra={
-                            "X-Patch-Finished": str(int(finished))})
+                        with trace.span("server.get_last_batch"):
+                            self._last_batch()
                     elif self.path == "/stats":
                         self._send(json.dumps(server.stats()).encode(),
                                    "application/json")

@@ -14,12 +14,15 @@ The flags are the JAX CLI's, plus ``--device``: the indexes live on the
 CUDA card unless it names another device (``--device cpu``). Costs are host
 milliseconds after the card has finished the step's work.
 ``--profile_dir`` writes a torch.profiler Chrome trace of ``solve()``
-(CPU and, on the card, CUDA activity) into that directory.
+(CPU and, on the card, CUDA activity) into that directory, with the
+program's spans (``utils/trace.py``: ``cli.build``, ``cli.convert``,
+``cli.load``, ``cli.search`` and the index's own) on the trace's clock.
 """
 
 from __future__ import annotations
 
 import argparse
+import time
 from pathlib import Path
 
 import numpy as np
@@ -34,6 +37,7 @@ from .index.slimq import HnswSlimQIndex
 from .index.slimzero import HnswSlimZeroIndex
 from .ops.cuda import resolve_device
 from .persist import checkpoint
+from .utils import trace
 from .utils.io import Timer, read_fvecs, read_ivecs, write_ivecs
 
 
@@ -79,9 +83,11 @@ class BruteForceStrategy(SolveStrategy):
 
     def solve(self):
         t = Timer()
-        bf = BruteForceIndex(self.base, metric=self.args.metric,
-                             device=self.device)
-        _, ids = bf.search(self.queries, k=min(self.BRUTE_K, len(self.base)))
+        with trace.span("cli.search"):
+            bf = BruteForceIndex(self.base, metric=self.args.metric,
+                                 device=self.device)
+            _, ids = bf.search(self.queries,
+                               k=min(self.BRUTE_K, len(self.base)))
         print(f"solve cost: {self.ms(t):.1f} ms")
         write_ivecs(self.args.gt_path, ids)
         self.knn = ids[:, : self.k]
@@ -93,20 +99,24 @@ class HnswStrategy(SolveStrategy):
         idx_path = Path(a.index_path) if a.index_path else None
         t = Timer()
         if idx_path and idx_path.exists():
-            self.index = checkpoint.load_hnsw(idx_path, device=self.device)
+            with trace.span("cli.load"):
+                self.index = checkpoint.load_hnsw(idx_path,
+                                                  device=self.device)
             print(f"load cost: {self.ms(t):.1f} ms")
         else:
-            self.index = HnswIndex(
-                _hnsw_cfg(a), max_batch=a.max_batch, strategy=a.build_strategy,
-                device=self.device,
-            )
-            self.index.build(self.base, verbose=a.verbose)
+            with trace.span("cli.build"):
+                self.index = HnswIndex(
+                    _hnsw_cfg(a), max_batch=a.max_batch,
+                    strategy=a.build_strategy, device=self.device,
+                )
+                self.index.build(self.base, verbose=a.verbose)
             print(f"build cost: {self.ms(t):.1f} ms")
             if idx_path:
                 checkpoint.save_hnsw(idx_path, self.index)
         self.index.set_ef(a.ef_search)
         t = Timer()
-        _, self.knn = self.index.search(self.queries, k=self.k)
+        with trace.span("cli.search"):
+            _, self.knn = self.index.search(self.queries, k=self.k)
         print(f"solve cost: {self.ms(t):.1f} ms")
 
 
@@ -120,25 +130,30 @@ class HnswSlimStrategy(SolveStrategy):
         idx_path = Path(a.index_path) if a.index_path else None
         if idx_path and idx_path.exists():
             t = Timer()
-            self.index = checkpoint.load_slim(idx_path, device=self.device)
+            with trace.span("cli.load"):
+                self.index = checkpoint.load_slim(idx_path,
+                                                  device=self.device)
             print(f"load cost: {self.ms(t):.1f} ms")
         else:
             t = Timer()
-            hnsw = HnswIndex(
-                _hnsw_cfg(a), max_batch=a.max_batch, strategy=a.build_strategy,
-                device=self.device,
-            )
-            hnsw.build(self.base, verbose=a.verbose)
+            with trace.span("cli.build"):
+                hnsw = HnswIndex(
+                    _hnsw_cfg(a), max_batch=a.max_batch,
+                    strategy=a.build_strategy, device=self.device,
+                )
+                hnsw.build(self.base, verbose=a.verbose)
             print(f"build cost: {self.ms(t):.1f} ms")
             t = Timer()
-            self.index = self.slim_cls.from_hnsw(hnsw, _slim_cfg(a))
+            with trace.span("cli.convert"):
+                self.index = self.slim_cls.from_hnsw(hnsw, _slim_cfg(a))
             print(f"convert cost: {self.ms(t):.1f} ms")
             if idx_path:
                 checkpoint.save_slim(idx_path, self.index)
         print(f"index size: {self.index.index_size()} bytes")
         self.index.set_ef(a.ef_search)
         t = Timer()
-        _, self.knn = self.index.search(self.queries, k=self.k)
+        with trace.span("cli.search"):
+            _, self.knn = self.index.search(self.queries, k=self.k)
         print(f"solve cost: {self.ms(t):.1f} ms")
 
 
@@ -157,16 +172,18 @@ class HnswSlimQStrategy(SolveStrategy):
     def solve(self):
         a = self.args
         t = Timer()
-        self.index = HnswSlimQIndex.build(
-            self.base, _hnsw_cfg(a), _slim_cfg(a),
-            QuantConfig(total_bits=a.total_bits), device=self.device,
-        )
+        with trace.span("cli.build"):
+            self.index = HnswSlimQIndex.build(
+                self.base, _hnsw_cfg(a), _slim_cfg(a),
+                QuantConfig(total_bits=a.total_bits), device=self.device,
+            )
         print(f"build cost: {self.ms(t):.1f} ms")
         print(f"index size: {self.index.index_size()} bytes")
         self.index.set_ef(a.ef_search)
         self.index.use_ex = a.use_ex  # searchBaseLayerST<use_ex> toggle
         t = Timer()
-        _, self.knn = self.index.search(self.queries, k=self.k)
+        with trace.span("cli.search"):
+            _, self.knn = self.index.search(self.queries, k=self.k)
         print(f"solve cost: {self.ms(t):.1f} ms")
 
 
@@ -258,19 +275,27 @@ def resolve_paths(a) -> None:
 
 def profiled(strat: SolveStrategy, profile_dir: str) -> None:
     """strat.solve() under torch.profiler; the Chrome trace goes to
-    ``profile_dir``/trace.json (CUDA activity only on a CUDA device)."""
-    from torch.profiler import ProfilerActivity, profile
+    ``profile_dir``/trace.json (CPU activity, and CUDA activity on a CUDA
+    device), with the program's spans of the solve placed on its clock by
+    an anchor range entered at a known host time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     acts = [ProfilerActivity.CPU]
     if strat.device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     out = Path(profile_dir)
     out.mkdir(parents=True, exist_ok=True)
+    trace.drain()  # only this solve's spans
     with profile(activities=acts) as prof:
+        t0 = time.monotonic_ns()
+        with record_function(trace.ANCHOR):
+            pass
         strat.solve()
         if strat.device.type == "cuda":
             torch.cuda.synchronize(strat.device)
-    prof.export_chrome_trace(str(out / "trace.json"))
+    path = out / "trace.json"
+    prof.export_chrome_trace(str(path))
+    trace.add_to_chrome_trace(path, trace.drain()["spans"], t0)
 
 
 def main(argv=None) -> float:
