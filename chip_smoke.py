@@ -196,6 +196,9 @@ ROUTES = {  # kernel: (source, the JAX program it replaces)
                   "hnsw_slim_tpu/graph/nnd.py:117"),
     "row_norms": ("hnsw_slim_tpu_torch/csrc/row_norms.cu",
                   "hnsw_slim_tpu/ops/distance.py:21"),
+    # the reference's patch apply is host numpy, no device program
+    "patch_apply": ("hnsw_slim_tpu_torch/csrc/patch_apply.cu",
+                    "hnsw_slim_tpu/persist/patch.py:173"),
 }
 MODE_ROUTES = {  # kernel mode: (kernel, the JAX code that mode replaces)
     "topk_dist.strata": ("topk_dist", "hnsw_slim_tpu/graph/search.py:800"),
@@ -235,13 +238,14 @@ MODE_ROUTES = {  # kernel mode: (kernel, the JAX code that mode replaces)
 INSERT_PATH = ("topk_dist", "beam_search", "rng_prune", "greedy_descent",
                "rev_connect", "radix_sort.ids", "row_norms")
 UPDATE_PATH = ("row_deg", "radix_sort.ids", "rev_connect", "rng_prune",
-               "beam_search", "greedy_descent", "topk_dist", "row_norms")
+               "beam_search", "greedy_descent", "topk_dist", "row_norms",
+               "patch_apply")
 UPD_BATCH = 1000  # vectors per update batch (the paper's Table 4)
 SERVER_PATH = ("radix_sort", "run_scatter", "run_scatter.dedup", "nnd_cand",
                "nnd_cand.join", "rp_window", "cand_merge", "rng_prune",
                "topk_dist", "point_dist", "row_deg", "beam_search",
                "beam_search.filtered", "greedy_descent", "radix_sort.ids",
-               "rev_connect", "row_norms")
+               "rev_connect", "row_norms", "patch_apply")
 QUERY_PATH = ("topk_dist", "beam_search", "greedy_descent", "rng_prune",
               "topk_dist.strata", "beam_search.chal", "beam_search.rank",
               "beam_search.filtered", "greedy_descent.chal",
@@ -1268,6 +1272,57 @@ def http_client_proc(port, qs, rows, threads, go, conn) -> None:
     conn.close()
 
 
+def kpi_pair(graph, chunks, synced) -> dict:
+    """Kπ (``persist/patch.py repack``) against its plain version
+    (``repack_plain``, on the card) on ``chunks`` staged as ``apply_patch``
+    stages them, from ``graph``, chunk after chunk: every array equal
+    after each, the last equal to ``synced`` (the copy sync_patches made);
+    the timings and the byte bound of the first (largest) chunk."""
+    import torch
+
+    from hnsw_slim_tpu_torch.persist import patch as patchlib
+
+    agree, err, first = True, 0.0, None
+    for blob in chunks:
+        dec = patchlib.decode_records(blob)
+        win = patchlib._last_of_each(dec["ids"])
+        lmax = max(graph.max_level, int(dec["levels"][win].max(initial=-1)))
+        n_total = max(dec["cur_count"], graph.n)
+        rec = patchlib.stage_records(dec, lmax, graph.level.device)
+        args = (graph, rec, n_total, lmax)
+        kout, pout = patchlib.repack(*args), patchlib.repack_plain(*args)
+        for a in ("nbr", "lvl_off", "level"):
+            ka, pa = getattr(kout, a), getattr(pout, a)
+            same = ka.shape == pa.shape
+            agree &= same and torch.equal(ka, pa)
+            err = max(err, float((ka - pa).abs().max()) if same and
+                      ka.numel() else (0.0 if same else float("inf")))
+        agree &= (kout.n_real, kout.max_level) == (pout.n_real,
+                                                  pout.max_level)
+        if first is None:
+            moved = (graph.lvl_off.numel() + graph.level.numel()
+                     + int(graph.lvl_off[graph.n - 1, -1])
+                     + sum(t.numel() for t in rec.values())
+                     + kout.lvl_off.numel() + kout.level.numel()
+                     + kout.nbr.numel())
+            first = dict(
+                ms=cuda_ms(lambda: patchlib.repack(*args), 10),
+                plain_ms=cuda_ms(lambda: patchlib.repack_plain(*args), 2),
+                bound=bound(4 * moved, 0),
+                shapes=f"{n_total} nodes, levels 0..{lmax}, one "
+                       f"{len(blob)}-byte chunk of {len(dec['ids'])} "
+                       "records from /getLastBatch (the warm 1000-vector "
+                       "batch), staged as apply_patch stages them; ms: the "
+                       "three launches and the one read-back (CUDA "
+                       "events); bound: old offsets, levels and ids, the "
+                       "records, new offsets, levels and ids, once each")
+        graph = kout
+    agree &= all(torch.equal(getattr(graph, a), getattr(synced, a))
+                 for a in ("nbr", "lvl_off", "level"))
+    return dict(first, agree=float(agree), max_abs_err=err,
+                chunks=len(chunks))
+
+
 def server_phase(base, queries, gt, hcfg, make_cfg, report, dev) -> tuple:
     """Phase 6: the HTTP server on an NN-descent-built index, with its own
     launch counts: SlimServer(base, build_strategy="nnd") (the NND build on
@@ -1276,15 +1331,17 @@ def server_phase(base, queries, gt, hcfg, make_cfg, report, dev) -> tuple:
     /query from 1 and 64 client threads (latency, QPS, the batches the
     _Batcher formed, recall@10 at ef 64), /getIndex, a cold and a warm
     1000-vector /updateIndex (zlib), /getLastBatch chunks and sync_patches
-    onto the bootstrapped client copy (equal to the server's graph and
-    vectors), /markDelete of 1000 labels (none served after), /getIndex and
+    onto the bootstrapped client copy (Kπ on the card, three launches a
+    chunk; equal to the server's graph and vectors), /markDelete of 1000 labels (none served after), /getIndex and
     /getVectors again. Then, outside the path's counts: at min(n, 100000)
     points the NN-descent build with the kernels against the build with
     every plain twin, row for row; the new kernels against their plain
     versions on the inputs recorded from the server's build (into
     ``report``); and the build once more under torch.profiler. Returns
     (summary, the path's launch counts, the seeded sweep's rows, the NND
-    index as it was built: vectors, vn, graph, levels)."""
+    index as it was built: vectors, vn, graph, levels). Kπ is held against
+    its plain version on the warm batch's chunks as the copy received
+    them."""
     import types
 
     import numpy as np
@@ -1411,7 +1468,7 @@ def server_phase(base, queries, gt, hcfg, make_cfg, report, dev) -> tuple:
 
     def counted():
         blob, fin = fetch()
-        chunks.append(len(blob))
+        chunks.append(blob)
         return blob, fin
 
     client.get_last_batch = counted
@@ -1424,12 +1481,15 @@ def server_phase(base, queries, gt, hcfg, make_cfg, report, dev) -> tuple:
         t0 = time.perf_counter()
         blob, fin = client.update_index(range(lo, lo + UPD_BATCH), vecs)
         t_http = time.perf_counter() - t0
-        chunks.append(len(blob))
+        chunks.append(blob)
         ust = h2.last_update_stats
+        pre, kpi0 = local.graph, cuda.launches["patch_apply"]
         t0 = time.perf_counter()
         local = client.sync_patches(local, blob, fin)
         torch.cuda.synchronize()
         t_sync = time.perf_counter() - t0
+        kpi_launches = cuda.launches["patch_apply"] - kpi0
+        kpi_in = (pre, list(chunks), local.graph)
         n_now = h2.graph.n
         equal = (same_graph(patchlib.to_np(local.graph), local.graph.n,
                             server.inc.host_chal, n_now)
@@ -1442,14 +1502,19 @@ def server_phase(base, queries, gt, hcfg, make_cfg, report, dev) -> tuple:
                "insert_s": round(sum(ust["seconds"].values()), 3),
                "inc_update_s": round(sum(
                    server.inc.last_stats["seconds"].values()), 3),
-               "patch_bytes": sum(chunks), "patch_chunks": len(chunks),
+               "patch_bytes": sum(len(c_) for c_ in chunks),
+               "patch_chunks": len(chunks),
                "sync_patches_s": round(t_sync, 3),
+               "patch_apply_launches": kpi_launches,
                "client_equals_server": bool(equal),
                "self_hit@1": round(float(
                    (hit[:, 0] == np.arange(lo, lo + n_hit)).mean()), 4)}
         say(f"server /updateIndex: {json.dumps(row)}")
         check(equal, f"{row['batch']} update: the patched client differs "
                      "from the server's graph or vectors")
+        check(kpi_launches == 3 * len(chunks) and local.graph.nbr.is_cuda,
+              f"{row['batch']} update: the copy was not patched on the card "
+              f"by Kπ ({kpi_launches} launches for {len(chunks)} chunks)")
         check(row["self_hit@1"] >= ef64_recall - 0.05,
               f"{row['batch']} update: self-hit@1 {row['self_hit@1']} more "
               f"than 0.05 under the index's recall@10 {ef64_recall} at ef 64")
@@ -1491,6 +1556,11 @@ def server_phase(base, queries, gt, hcfg, make_cfg, report, dev) -> tuple:
           "nnd_cand's pivot mode or run_scatter's scatter mode never "
           "launched on the server path")
     server.shutdown()
+    report["patch_apply"] = kpi_pair(*kpi_in)
+    say(f"kernel patch_apply: {json.dumps(report['patch_apply'])}")
+    check(report["patch_apply"]["agree"] == 1.0,
+          f"patch_apply differs from its plain version on the warm batch's "
+          f"chunks: {report['patch_apply']}")
     summary = {"n": n, "server_s": round(t_server, 2),
                "build_s": round(t_build, 2), "convert_s": round(t_conv, 2),
                "nnd_rounds": rec.rounds, "integrity": integ,

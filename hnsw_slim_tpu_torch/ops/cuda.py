@@ -44,7 +44,7 @@ SOURCES = ("topk_dist.cu", "beam_search.cu", "rng_prune.cu", "cand_merge.cu",
            "greedy_descent.cu", "rev_connect.cu", "fht_rotate.cu",
            "row_deg.cu", "point_dist.cu", "shard_merge.cu",
            "radix_sort.cu", "run_scatter.cu", "nnd_cand.cu", "rp_window.cu",
-           "row_norms.cu")
+           "row_norms.cu", "patch_apply.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -54,7 +54,8 @@ NVCC_FLAGS = (
 KERNELS = ("topk_dist", "beam_search", "rng_prune", "cand_merge",
            "greedy_descent", "rev_connect", "fht_rotate", "row_deg",
            "point_dist", "shard_merge", "radix_sort",
-           "run_scatter", "nnd_cand", "rp_window", "row_norms")
+           "run_scatter", "nnd_cand", "rp_window", "row_norms",
+           "patch_apply")
 MODES = ("topk_dist.strata", "beam_search.chal", "beam_search.rank",
          "beam_search.filtered", "greedy_descent.chal", "greedy_descent.rank",
          "rng_prune.guarded", "topk_dist.estimate", "beam_search.quant",
@@ -158,6 +159,18 @@ _SIGNATURES = {
     "hs_rp_window": [P, P, I32, I32, I32, I32, I32, I32, P, P],
     # x, rows, D, row stride (elements), out, stream
     "hs_row_norms": [P, I32, I32, I64, P, P],
+    # record ids, R, rec_of, n_total, look-back words, tiles, stream
+    "hs_patch_map": [P, I32, P, I32, P, I32, P],
+    # rec_of, the records (levels, rel, its columns, starts, ids), the old
+    # graph (nbr, lvl_off, its columns, level, count, max level, row
+    # width), n_total, new level, new lvl_off, its columns, look-back
+    # words, tiles, counters, stream
+    "hs_patch_scan": [P, P, P, I32, P, P, P, P, I32, P, I32, I32, I32, I32,
+                      P, P, I32, P, I32, P, P],
+    # as scan up to the new lvl_off's columns, then the new max level, new
+    # nbr, the id total, its padded length, stream
+    "hs_patch_copy": [P, P, P, I32, P, P, P, P, I32, P, I32, I32, I32, I32,
+                      P, P, I32, I32, P, I64, I64, P],
 }
 # the kernels that read rows of the vector store have a bfloat16 entry
 # point of the same signature (``<name>_bf16``)

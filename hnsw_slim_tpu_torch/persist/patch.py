@@ -1,12 +1,13 @@
 """Incremental-update patch protocol: diff, chunked encode, apply (port of
-hnsw_slim_tpu/persist/patch.py; host numpy throughout, bytes identical to
-the JAX package's).
+hnsw_slim_tpu/persist/patch.py; diff and encode in host numpy, bytes
+identical to the JAX package's).
 
 The reference detects changed nodes by comparing each node's CHAL block with
 the previous one, streams them in size-limited chunks with a `finished`
 flag, and applies records in place. Here the comparison is logical
 (per-level neighbor id sets in canonical sorted order) and application
-rebuilds the flat CHAL arrays, on the device of the graph it is given.
+rebuilds the flat CHAL arrays on the graph's device: by Kπ
+(csrc/patch_apply.cu) on the card, by its plain version on the CPU.
 
 Record wire format (little-endian), preserving the reference's
 [id][header][offsets][neighbor ids][optional vector] field order:
@@ -21,12 +22,20 @@ from __future__ import annotations
 import struct
 
 import numpy as np
+import torch
 
+from ..graph.build import _to_dev
+from ..graph.prune import _next_pow2
 from ..graph.types import ChalGraph
+from ..ops import cuda
+from ..utils import trace
 
 MAGIC = 0x48534C50  # 'HSLP'
 VERSION = 1
 _HDR = struct.Struct("<IIQIBBHI")
+LEVEL_CAP = 16  # the highest record level the decoder takes
+MAX_WIDTH = 1024  # the widest level row (max(cap0, cap)) Kπ sorts
+SCAN_TILE = 1024  # nodes a tile of Kπ's scan launch
 
 
 def node_slices(chal_np: dict, v: int) -> list[np.ndarray]:
@@ -167,98 +176,255 @@ class PatchWriter:
         return hdr + body, finished
 
 
-def apply_patch(
-    chal: ChalGraph, patch: bytes, vectors: np.ndarray | None = None
-) -> tuple[ChalGraph, np.ndarray | None]:
-    """The reference's patchFromStream: overwrite or extend node records and
-    rebuild the flat arrays on the device of ``chal``. Idempotent:
-    re-applying gives the same graph. ``vectors`` (host f32[N, d]) grows by
-    the records that carry one."""
-    magic, ver, cur_count, n_records, has_vec, _fin, _, dim = _HDR.unpack_from(
-        patch, 0
-    )
+def decode_records(patch: bytes) -> dict:
+    """A chunk's records as arrays: ids, levels, is_new (per record), rel
+    i32[R, LEVEL_CAP + 2] (each level's end among the record's ids, levels
+    past its own repeating its last), nbr (the ids, concatenated), nbr_off
+    i64[R + 1] and vecs f32[R, dim] (rows of is_new records when the chunk
+    has vectors). Native decoder, else a struct loop giving the same
+    arrays. ValueError if ``patch`` is not a chunk."""
+    magic, ver, cur_count, n, has_vec, _fin, _, dim = _HDR.unpack_from(patch,
+                                                                      0)
     if magic != MAGIC or ver != VERSION:
         raise ValueError("bad patch header")
-    pos = _HDR.size
-
-    c = to_np(chal)
-    prev_count = chal.n  # logical count (serving graphs may be node-padded)
-    slices = {}  # v -> (level, [np arrays per level])
-    new_vecs = {}
+    has_vec = bool(has_vec)
+    body = memoryview(patch)[_HDR.size:]
     from ..utils import native
 
-    dec = native.patch_decode(
-        patch[pos:], bool(has_vec), dim, max_level_cap=16,
-        max_records=n_records,
-    ) if n_records else None
-    if dec is not None:
-        for r in range(len(dec["ids"])):
-            v, lv = int(dec["ids"][r]), int(dec["levels"][r])
-            seg = dec["nbr"][dec["nbr_off"][r] : dec["nbr_off"][r + 1]]
-            rel = dec["rel"][r, : lv + 1]
-            starts = np.concatenate([[0], rel[:-1]]).astype(np.int64)
-            slices[v] = (lv, [seg[s:e] for s, e in zip(starts, rel)])
-            if dec["is_new"][r] and has_vec:
-                new_vecs[v] = dec["vecs"][r]
-    else:
-        for _ in range(n_records):
-            (is_new,) = struct.unpack_from("<B", patch, pos)
-            pos += 1
-            v, lv, total = struct.unpack_from("<iii", patch, pos)
-            pos += 12
-            rel = np.frombuffer(patch, np.uint32, lv + 1, pos)
+    dec = native.patch_decode(body, has_vec, dim,
+                              max_level_cap=LEVEL_CAP,
+                              max_records=n) if n else None
+    if dec is None:
+        dec = dict(ids=np.empty(n, np.int32), levels=np.empty(n, np.int32),
+                   rel=np.empty((n, LEVEL_CAP + 2), np.int32),
+                   nbr_off=np.zeros(n + 1, np.int64),
+                   vecs=np.empty((n, dim if has_vec else 1), np.float32),
+                   is_new=np.empty(n, np.uint8))
+        parts, pos = [], 0
+        for r in range(n):
+            isn, v, lv, total = struct.unpack_from("<Biii", body, pos)
+            pos += 13
+            if not 0 <= lv <= LEVEL_CAP or total < 0:
+                raise RuntimeError(f"patch_decode failed: record {r}")
+            dec["rel"][r, :lv + 1] = np.frombuffer(body, np.int32, lv + 1,
+                                                   pos)
+            dec["rel"][r, lv + 1:] = dec["rel"][r, lv]
             pos += 4 * (lv + 1)
-            ids = np.frombuffer(patch, np.int32, total, pos)
+            parts.append(np.frombuffer(body, np.int32, total, pos))
             pos += 4 * total
-            starts = np.concatenate([[0], rel[:-1]]).astype(np.int64)
-            slices[v] = (lv, [ids[s:e] for s, e in zip(starts, rel)])
-            if is_new and has_vec:
-                new_vecs[v] = np.frombuffer(patch, np.float32, dim, pos)
+            dec["nbr_off"][r + 1] = dec["nbr_off"][r] + total
+            dec["ids"][r], dec["levels"][r], dec["is_new"][r] = v, lv, isn
+            if isn and has_vec:
+                dec["vecs"][r] = np.frombuffer(body, np.float32, dim, pos)
                 pos += 4 * dim
+        dec["nbr"] = np.concatenate(parts) if parts else np.zeros(0,
+                                                                  np.int32)
+    dec.update(cur_count=cur_count, has_vec=has_vec, dim=dim)
+    return dec
 
-    n_total = max(int(cur_count), prev_count)
-    lmax_new = max(
-        [chal.max_level] + [lv for lv, _ in slices.values()]
-    )
-    width = max(chal.cap0, chal.cap)
-    levels = np.zeros(n_total, np.int32)
-    levels[:prev_count] = c["level"][:prev_count]
-    # bulk-copy untouched nodes per level (vectorized; above level 0 only
-    # the nodes that reach the level hold a row), then overwrite the patched
-    # records
-    per_level = []
-    for l in range(lmax_new + 1):
-        rows = np.full((n_total, width), -1, np.int32)
-        if l == 0:
-            rows[:prev_count] = _level_rows(c, l, prev_count, width)
-        elif l <= chal.max_level:
-            at = np.nonzero(c["level"][:prev_count] >= l)[0]
-            rows[at] = _subset_rows(c, l, at, width)
-        per_level.append(rows)
-    for v, (lv, vrows) in slices.items():
-        levels[v] = lv
-        for l in range(lmax_new + 1):
-            row = vrows[l] if l < len(vrows) else np.zeros(0, np.int32)
-            per_level[l][v] = -1
-            per_level[l][v, : len(row)] = row
 
-    if vectors is not None and new_vecs:
-        d = vectors.shape[1]
+def apply_patch(chal: ChalGraph, patch: bytes, vectors=None):
+    """The reference's patchFromStream: overwrite or extend node records.
+    Idempotent: re-applying gives the same graph. Returns (graph, vectors):
+    the store grows by the records that carry a vector.
+
+    Nothing leaves the graph's device: the chunk is decoded on the host (no
+    per-record Python), its records staged in one upload, the CHAL arrays
+    repacked by ``repack`` (Kπ on the card, counted as
+    ``client.apply_device``; ``repack_plain`` for CPU tensors) and the store
+    (f32[N, d]: a host array or a tensor) grown where it lives, the shipped
+    rows scattered by id. The one read-back is the new id total, inside
+    ``repack``."""
+    with trace.span("apply.decode"):
+        dec = decode_records(patch)
+        ids, levels = dec["ids"], dec["levels"]
+        n_total = max(dec["cur_count"], chal.n)
+        if len(ids) and (ids.min() < 0 or ids.max() >= n_total):
+            raise ValueError("patch record id out of range")
+        win = _last_of_each(ids)  # the record applied to each id
+        lmax_new = max(chal.max_level, int(levels[win].max(initial=-1)))
+        rel = dec["rel"][:, :lmax_new + 1]
+        seg = np.diff(rel, axis=1, prepend=0)
+        if (seg < 0).any() or (rel[:, -1] > np.diff(dec["nbr_off"])).any():
+            raise ValueError("malformed patch record")
+        if (seg[win] > max(chal.cap0, chal.cap)).any():
+            raise ValueError("a patched row is wider than the graph's")
+        if chal.nbr.shape[0] + int(dec["nbr_off"][-1]) >= 1 << 31:
+            raise ValueError("patched graph too large for int32 offsets")
+        grow = None
+        if vectors is not None and dec["has_vec"]:
+            new = np.nonzero(dec["is_new"])[0]
+            if len(new):  # an id's row comes from its last new record
+                take = new[_last_of_each(ids[new])]
+                grow = ids[take], dec["vecs"][take]
+    if chal.level.is_cuda:
+        trace.count("client.apply_device", 1)
+    with trace.span("apply.stage"):
+        rec = stage_records(dec, lmax_new, chal.level.device)
+    with trace.span("apply.pack"):
+        graph = repack(chal, rec, n_total, lmax_new)
+    if grow is not None:
+        with trace.span("apply.grow"):
+            vectors = _grow_store(vectors, n_total, *grow)
+    return graph, vectors
+
+
+def _last_of_each(ids: np.ndarray) -> np.ndarray:
+    """The position of the last occurrence of each distinct id."""
+    _, last = np.unique(ids[::-1], return_index=True)
+    return len(ids) - 1 - last
+
+
+def stage_records(dec: dict, lmax_new: int, dev) -> dict:
+    """The decoded records on ``dev`` in one upload, as int32 views: ids,
+    lv, start (i32[R + 1]), rel (levels [0, lmax_new]) and nbr."""
+    n_rec = len(dec["ids"])
+    rel = dec["rel"][:, :lmax_new + 1]
+    host = np.concatenate([dec["ids"], dec["levels"],
+                           dec["nbr_off"].astype(np.int32), rel.reshape(-1),
+                           dec["nbr"][:int(dec["nbr_off"][-1])]])
+    staged = _to_dev(host.astype(np.int32, copy=False), dev)
+    cut = np.cumsum([n_rec, n_rec, n_rec + 1, rel.size])
+    return dict(ids=staged[:cut[0]], lv=staged[cut[0]:cut[1]],
+                start=staged[cut[1]:cut[2]],
+                rel=staged[cut[2]:cut[3]].view(n_rec, lmax_new + 1),
+                nbr=staged[cut[3]:])
+
+
+def _grow_store(vectors, n_total: int, ids: np.ndarray, rows: np.ndarray):
+    """The store f32[n_total, d] where ``vectors`` lives (a host array or a
+    tensor): the old rows, zeros past them, then the shipped rows at their
+    ids."""
+    n, d = vectors.shape
+    if rows.shape[1] != d or n > n_total:
+        raise ValueError(f"cannot grow a store of {tuple(vectors.shape)} to "
+                         f"{n_total} rows of {rows.shape[1]}")
+    if not isinstance(vectors, torch.Tensor):
         grown = np.zeros((n_total, d), np.float32)
-        grown[: len(vectors)] = vectors
-        for v, vec in new_vecs.items():
-            grown[v] = vec
-        vectors = grown
+        grown[:n] = vectors
+        grown[ids] = rows
+        return grown
+    dev = vectors.device
+    grown = torch.empty((n_total, d), dtype=torch.float32, device=dev)
+    grown[:n].copy_(vectors)
+    grown[n:].zero_()
+    grown.index_copy_(0, _to_dev(ids.astype(np.int64), dev),
+                      _to_dev(rows, dev))
+    return grown
 
-    from ..graph.prune import pack_chal_arrays
 
-    new_chal = pack_chal_arrays(
-        per_level, levels,
-        entry=int(chal.entry),
-        max_level=lmax_new,
-        threshold_level=chal.threshold_level,
-        cap0=chal.cap0,
-        cap=chal.cap,
-        device=chal.level.device,
-    )
-    return new_chal, vectors
+def repack(chal: ChalGraph, rec: dict, n_total: int,
+           lmax_new: int) -> ChalGraph:
+    """Kπ (csrc/patch_apply.cu, three launches): the CHAL arrays of
+    ``chal`` with the staged records ``rec`` (ids, lv, start, rel, nbr:
+    int32 tensors on its device) applied, for nodes [0, n_total) and levels
+    [0, lmax_new]. CPU tensors run ``repack_plain``; on the card, rows
+    wider than ``MAX_WIDTH`` raise. The host reads back one pair of scalars
+    (the new id total, the nodes with a level) to size ``nbr``."""
+    if not chal.level.is_cuda:
+        return repack_plain(chal, rec, n_total, lmax_new)
+    dev = chal.level.device
+    width = max(chal.cap0, chal.cap)
+    if width > MAX_WIDTH:
+        raise ValueError(f"Kπ sorts rows of up to {MAX_WIDTH} ids, not "
+                         f"{width}")
+    old = (chal.nbr, chal.lvl_off, chal.level)
+    for t, name in zip(old, ("nbr", "lvl_off", "level")):
+        cuda.require(t, torch.int32, name)
+    n_rec = rec["ids"].shape[0]
+    tiles = max(1, -(-n_total // SCAN_TILE))
+    rec_of = torch.empty(n_total, dtype=torch.int32, device=dev)
+    status = torch.empty(tiles + 1, dtype=torch.int64, device=dev)
+    counters = torch.empty(2, dtype=torch.int32, device=dev)
+    level = torch.empty(n_total, dtype=torch.int32, device=dev)
+    lvl_off = torch.empty((n_total, lmax_new + 2), dtype=torch.int32,
+                          device=dev)
+    recs = (rec["lv"].data_ptr(), rec["rel"].data_ptr(), lmax_new + 1,
+            rec["start"].data_ptr(), rec["nbr"].data_ptr())
+    olds = (chal.nbr.data_ptr(), chal.lvl_off.data_ptr(),
+            chal.lvl_off.shape[1], chal.level.data_ptr(), chal.n,
+            chal.max_level, width, n_total)
+    cuda.launch("patch_apply", rec["ids"].data_ptr(), n_rec,
+                rec_of.data_ptr(), n_total, status.data_ptr(), tiles,
+                entry="patch_map")
+    cuda.launch("patch_apply", rec_of.data_ptr(), *recs, *olds,
+                level.data_ptr(), lvl_off.data_ptr(), lmax_new + 2,
+                status.data_ptr(), tiles, counters.data_ptr(),
+                entry="patch_scan")
+    total, n_real = counters.tolist()
+    e_pad = max(1024, _next_pow2(total))
+    nbr = torch.empty(e_pad, dtype=torch.int32, device=dev)
+    cuda.launch("patch_apply", rec_of.data_ptr(), *recs, *olds,
+                level.data_ptr(), lvl_off.data_ptr(), lmax_new + 2, lmax_new,
+                nbr.data_ptr(), total, e_pad, entry="patch_copy")
+    return _graph_like(chal, nbr, lvl_off, level, lmax_new, n_real)
+
+
+def _graph_like(chal, nbr, lvl_off, level, max_level, n_real) -> ChalGraph:
+    return ChalGraph(nbr, lvl_off, level, int(chal.entry), int(max_level),
+                     int(chal.threshold_level), int(chal.cap0),
+                     int(chal.cap), int(n_real))
+
+
+def repack_plain(chal: ChalGraph, rec: dict, n_total: int,
+                 lmax_new: int) -> ChalGraph:
+    """Kπ's plain version, its three phases in PyTorch: (a) each node's
+    last record (a max over record positions) and its new level; its rows
+    per level: the shipped ones as shipped, an untouched node's first
+    ``width`` old ids ascending (negative ones dropped), (b) the scan of
+    the nodes' id counts into offsets, (c) the ids compacted in node and
+    level order, ``-1`` past the total up to max(1024, next_pow2(total)).
+    Runs on any device (the wrapper takes it for CPU tensors)."""
+    prev, width = chal.n, max(chal.cap0, chal.cap)
+    dev = chal.level.device
+    big = torch.iinfo(torch.int32).max
+    ids = rec["ids"].long()
+    n_rec = ids.shape[0]
+    rec_of = torch.full((n_total,), -1, dtype=torch.int64, device=dev)
+    rec_of.scatter_reduce_(0, ids, torch.arange(n_rec, device=dev), "amax")
+    hit = rec_of >= 0
+    r_hit = rec_of[hit]
+    level = torch.zeros(n_total, dtype=torch.int32, device=dev)
+    level[:prev] = chal.level[:prev]
+    level[hit] = rec["lv"][r_hit]
+    old_off = chal.lvl_off[:prev].long()
+    kept_old = ~hit[:prev]
+    cols = torch.arange(width, device=dev)
+    r_start = rec["start"][r_hit].long()
+    shipped = torch.nn.functional.pad(rec["nbr"], (0, 1), value=-1)
+    rows = []
+    for l in range(lmax_new + 1):
+        row = torch.full((n_total, width), -1, dtype=torch.int32,
+                         device=dev)
+        if l <= chal.max_level:
+            a, b = old_off[:, l], old_off[:, l + 1]
+            at = a[:, None] + cols
+            seg = chal.nbr[at.clamp(0, chal.nbr.shape[0] - 1)]
+            seg = torch.where((at < b[:, None]) & (seg >= 0), seg, big)
+            seg = seg.sort(dim=1).values
+            seg = torch.where(seg == big, -1, seg)
+            keep = kept_old & (chal.level[:prev] >= l)
+            row[:prev][keep] = seg[keep]
+        if n_rec:
+            rel = rec["rel"][r_hit].long()
+            s = rel[:, l - 1] if l else torch.zeros_like(r_start)
+            e = rel[:, l]
+            at = ((r_start + s)[:, None] + cols).clamp(max=len(shipped) - 1)
+            row[hit] = torch.where(cols < (e - s)[:, None], shipped[at], -1)
+        rows.append(row)
+    # (b) counts and offsets; (c) the ids in node, level, slot order
+    mask = [(r >= 0) & (level >= l)[:, None] for l, r in enumerate(rows)]
+    counts = torch.stack([m.sum(1) for m in mask], 1)
+    lvl_off = torch.zeros((n_total, lmax_new + 2), dtype=torch.int64,
+                          device=dev)
+    lvl_off[:, 1:] = counts.cumsum(1)
+    lvl_off += (counts.sum(1).cumsum(0) - counts.sum(1))[:, None]
+    total = int(counts.sum())
+    nbr = torch.full((max(1024, _next_pow2(total)),), -1, dtype=torch.int32,
+                     device=dev)
+    for l, (r, m) in enumerate(zip(rows, mask)):
+        slot = lvl_off[:, l:l + 1] + m.long().cumsum(1) - 1
+        nbr[slot[m]] = r[m]
+    return _graph_like(chal, nbr, lvl_off.to(torch.int32), level, lmax_new,
+                       int((level >= 0).sum()))
+

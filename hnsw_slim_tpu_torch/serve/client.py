@@ -102,12 +102,12 @@ class SlimClient:
     def sync_patches(self, local_index, first_chunk: bytes,
                      first_finished: bool):
         """Apply the first patch chunk, then drain /getLastBatch until done
-        (hnsw_slim_client_update_patch.cc:177-190). The local index's dense
-        serving layouts are rebuilt from the patched graph."""
+        (hnsw_slim_client_update_patch.cc:177-190). The graph and the fp32
+        store are patched where they live (on the card: Kπ, nothing
+        pulled); the local index's dense serving layouts are rebuilt from
+        the patched graph."""
         with trace.span("client.sync"):
-            with trace.span("client.pull"):
-                vecs = local_index.vectors[:local_index.graph.n].float() \
-                    .cpu().numpy()
+            vecs = local_index.vectors[:local_index.graph.n].float()
             with trace.span("client.apply"):
                 graph, vecs = patchlib.apply_patch(local_index.graph,
                                                    first_chunk, vecs)
@@ -121,9 +121,8 @@ class SlimClient:
                     graph, vecs = patchlib.apply_patch(graph, blob, vecs)
             local_index.graph = graph
             local_index.host_chal = None  # the graph changed under any mirror
-            with trace.span("client.upload"):
-                local_index.vectors = torch.as_tensor(
-                    vecs, device=local_index.device)
+            local_index.vectors = torch.as_tensor(vecs,
+                                                  device=local_index.device)
             with trace.span("client.norms"):
                 local_index.vn = sq_norms(local_index.vectors)
             with trace.span("client.densify"):

@@ -1984,3 +1984,185 @@ def test_topk_estimate_128_slot_lists_match_plain(data, slimq_index, k):
     assert (kp == pp).float().mean() >= 0.99
     fin = torch.isfinite(pd)
     assert torch.equal(torch.isfinite(kd), fin) and _est_close(kd[fin], pd[fin])
+
+
+# ---- Kπ patch_apply: a patch chunk applied on the card
+
+
+def _port_update_chunks():
+    """(graph before, {name: chunks}, store before) of one update round of
+    the port on the CPU: 3000 points, 300 added; PatchWriter's chunks at a
+    3000-byte limit and in one."""
+    from hnsw_slim_tpu_torch.config import HnswConfig, SlimConfig
+    from hnsw_slim_tpu_torch.graph.incremental import IncrementalSlim
+    from hnsw_slim_tpu_torch.index.hnsw import HnswIndex
+    from hnsw_slim_tpu_torch.persist import patch as tpatch
+
+    base, _ = clustered(3300, 16, n_queries=0, n_clusters=20, seed=5)
+    h = HnswIndex(HnswConfig(M=12, ef_construction=48), strategy="insert",
+                  device="cpu")
+    h.build(base[:3000])
+    inc = IncrementalSlim(SlimConfig.from_ratios())
+
+    def args():
+        return (h.host_adj(), h.levels, int(h.graph.entry), h.vectors, h.vn)
+
+    g0 = inc.full(*args())
+    touched = h.add_points(base[3000:])
+    g1, changed = inc.update(*args(), touched=touched)
+    old = [int(v) for v in changed if v < 3000]
+    out = {}
+    for name, limit in (("port update, chunks", 3000),
+                        ("port update, one chunk", 1 << 30)):
+        w = tpatch.PatchWriter(g1, old, list(range(3000, 3300)),
+                               vectors=base, host_chal=inc.host_chal)
+        out[name] = []
+        finished = False
+        while not finished:
+            blob, finished = w.next_chunk(limit)
+            out[name].append(blob)
+    return g0, out, base[:3000]
+
+
+def _patch_cases():
+    """name -> (graph on the CPU, chunks, store before)."""
+    from hnsw_slim_tpu_torch.graph.types import pad_chal_nodes
+    from patch_cases import (random_chunk, random_graph, rule_chunks,
+                             shuffled_rows)
+
+    g0, port, x0 = _port_update_chunks()
+    cases = {k: (g0, v, x0) for k, v in port.items()}
+    cases["port graph, rows out of order"] = (
+        shuffled_rows(g0, 1), port["port update, chunks"], x0)
+    cases["port graph, node-padded"] = (
+        pad_chal_nodes(g0, 4096), port["port update, one chunk"], x0)
+    for n, cap0, cap, top in [(20000, 10, 6, 3), (20000, 32, 16, 4),
+                              (9000, 33, 8, 2), (9000, 100, 40, 3),
+                              (300000, 32, 16, 4)]:
+        g = random_graph(n, cap0, cap, top, seed=n + cap0)
+        x = np.random.default_rng(cap0).standard_normal((n, 8)).astype(
+            np.float32)
+        one = random_chunk(g, 1, n // 10, 500, 200, 8)
+        two = random_chunk(g, 2, n // 20, 0, 100, 8)
+        cases[f"random {n} x {cap0}"] = (g, [one, two, two], x)
+    g = random_graph(5000, 40, 12, 3, seed=3)
+    x = np.random.default_rng(3).standard_normal((5000, 8)).astype(
+        np.float32)
+    for name, chunks in rule_chunks(g, 4, 8).items():
+        cases[name] = (g, chunks, x)
+    return cases
+
+
+PATCH_CASES = ("port update, chunks", "port update, one chunk",
+               "port graph, rows out of order", "port graph, node-padded",
+               "random 20000 x 10", "random 20000 x 32", "random 9000 x 33",
+               "random 9000 x 100", "random 300000 x 32", "one id twice",
+               "above the top level", "empty chunk")
+
+
+@pytest.fixture(scope="module")
+def patch_cases():
+    _card()
+    cases = _patch_cases()
+    assert set(cases) == set(PATCH_CASES)
+    return cases
+
+
+def _on_card(graph):
+    import dataclasses
+
+    return dataclasses.replace(graph, nbr=graph.nbr.cuda(),
+                               lvl_off=graph.lvl_off.cuda(),
+                               level=graph.level.cuda())
+
+
+@pytest.mark.parametrize("case", PATCH_CASES)
+def test_patch_apply_kernel_matches_plain(patch_cases, case):
+    """Kπ (apply_patch on a card graph: three launches a chunk) against its
+    plain version (apply_patch on the CPU graph), after every chunk: nbr
+    with its padding, lvl_off, level, the graph's scalars and the store's
+    rows exactly equal, the store grown where it lives (a card tensor or a
+    host array)."""
+    from patch_cases import apply_all, assert_same, store_of
+
+    from hnsw_slim_tpu_torch.ops import cuda
+    from hnsw_slim_tpu_torch.persist import patch as tpatch
+
+    graph, chunks, x = patch_cases[case]
+    cuda.reset_launches()
+    card = apply_all(tpatch.apply_patch, _on_card(graph), chunks,
+                     store_of(x, "cuda"))
+    torch.cuda.synchronize()
+    assert cuda.launches["patch_apply"] == 3 * len(chunks)
+    card_host = apply_all(tpatch.apply_patch, _on_card(graph), chunks,
+                          store_of(x, None))
+    plain = apply_all(tpatch.apply_patch, graph, chunks, store_of(x, "cpu"))
+    for k, kh, p in zip(card, card_host, plain):
+        assert k[0].nbr.is_cuda and k[1].is_cuda
+        assert isinstance(kh[1], np.ndarray) and not p[0].nbr.is_cuda
+        assert_same(k, p)
+        assert_same(kh, p)
+
+
+def test_patch_apply_refuses_rows_wider_than_it_sorts():
+    """A card graph whose rows are wider than Kπ sorts raises, and is not
+    sent to another path."""
+    _card()
+    from patch_cases import random_chunk, random_graph
+
+    from hnsw_slim_tpu_torch.persist import patch as tpatch
+
+    g = random_graph(64, tpatch.MAX_WIDTH + 6, 8, 1, seed=6)
+    with pytest.raises(ValueError, match="sorts rows"):
+        tpatch.apply_patch(_on_card(g), random_chunk(g, 1, 6, 2, 1, 0))
+
+
+def test_sync_patches_on_a_card_copy_pulls_nothing():
+    """A client copy on the card synced through several /getLastBatch
+    chunks: every apply takes the card path (``client.apply_device`` per
+    ``client.apply`` span, three Kπ launches each), no ``client.pull``
+    span, and the copy's graph and rows equal the server's."""
+    _card()
+    from torch.profiler import ProfilerActivity, profile
+
+    from hnsw_slim_tpu_torch.config import HnswConfig, SlimConfig
+    from hnsw_slim_tpu_torch.ops import cuda
+    from hnsw_slim_tpu_torch.persist import patch as tpatch
+    from hnsw_slim_tpu_torch.serve.client import SlimClient
+    from hnsw_slim_tpu_torch.serve.server import SlimServer
+    from hnsw_slim_tpu_torch.utils import trace
+
+    base, _ = clustered(2200, 16, n_queries=0, n_clusters=20, seed=62)
+    server = SlimServer(base[:2000], hnsw_cfg=HnswConfig(M=12,
+                                                         ef_construction=64),
+                        slim_cfg=SlimConfig.from_ratios(), host="127.0.0.1",
+                        port=0, device="cpu", patch_chunk_bytes=3000)
+    server.start_background()
+    try:
+        client = SlimClient(port=server._httpd.server_address[1])
+        local = client.bootstrap(device="cuda")
+        assert local.graph.nbr.is_cuda and local.vectors.is_cuda
+        trace.drain()
+        cuda.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU]):
+            blob, fin = client.update_index(ids=range(2000, 2200),
+                                            vectors=base[2000:2200])
+            local = client.sync_patches(local, blob, fin)
+        torch.cuda.synchronize()
+        got = trace.drain()
+        names = [s.name for s in got["spans"]]
+        applies = names.count("client.apply")
+        assert applies > 1 and "client.pull" not in names
+        assert got["counters"]["client.apply_device"] == applies
+        assert cuda.launches["patch_apply"] == 3 * applies
+        g = local.graph
+        assert g.nbr.is_cuda and local.vectors.is_cuda and g.n == 2200
+        c, w = tpatch.to_np(g), max(g.cap0, g.cap)
+        for l in range(g.max_level + 1):
+            np.testing.assert_array_equal(
+                tpatch._level_rows(c, l, 2200, w),
+                tpatch._level_rows(server.inc.host_chal, l, 2200, w))
+        np.testing.assert_array_equal(local.vectors.cpu().numpy(),
+                                      server.vectors_np[:2200])
+    finally:
+        server.shutdown()

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from hnsw_slim_tpu.graph.types import ChalGraph as JaxChalGraph
 from hnsw_slim_tpu.persist import patch as jpatch
@@ -23,7 +24,9 @@ from hnsw_slim_tpu_torch.graph.types import ChalGraph, pad_chal_nodes
 from hnsw_slim_tpu_torch.index.hnsw import HnswIndex
 from hnsw_slim_tpu_torch.index.slim import HnswSlimIndex
 from hnsw_slim_tpu_torch.persist import patch as tpatch
-from hnsw_slim_tpu_torch.utils import native
+from hnsw_slim_tpu_torch.utils import native, trace
+from patch_cases import (apply_all, assert_same, encode_chunk, random_chunk,
+                         random_graph, rule_chunks, shuffled_rows, store_of)
 from torch_slice_util import (UPD_ADD, UPD_BATCH, UPD_CFG, UPD_EF, UPD_SLIM,
                               jax_update_dir, patch_chunks, recall,
                               replay_padding_fault, server_patch_sets, take,
@@ -321,3 +324,165 @@ def test_update_slice_matches_jax(rec, monkeypatch):
     gt = np.argsort(((queries[:, None] - vec_np[None]) ** 2).sum(-1),
                     axis=1)[:, :10]
     assert recall(ids, gt) >= recall(rec["search_i"], gt)
+
+
+# ---- apply_patch (Kπ's plain version on the CPU) against the JAX package's
+# host apply
+
+
+def jax_graph(g):
+    """A port ChalGraph on the CPU in the JAX package's container."""
+    return JaxChalGraph(nbr=jnp.asarray(g.nbr.numpy()),
+                        lvl_off=jnp.asarray(g.lvl_off.numpy()),
+                        level=jnp.asarray(g.level.numpy()),
+                        entry=jnp.asarray(np.int32(g.entry)),
+                        max_level=g.max_level,
+                        threshold_level=g.threshold_level, cap0=g.cap0,
+                        cap=g.cap, n_real=g.n_real)
+
+
+def assert_same_as_jax(got, want):
+    """A port (graph, store) equal to a JAX one: nbr with its padding,
+    lvl_off, level and the scalars bit for bit, the store's rows."""
+    (g, v), (jg, jv) = got, want
+    for name in ("nbr", "lvl_off", "level"):
+        t = getattr(g, name)
+        assert t.dtype == torch.int32, name
+        np.testing.assert_array_equal(t.numpy(), np.asarray(getattr(jg,
+                                                                    name)))
+    assert int(g.entry) == int(jg.entry)
+    for name in ("n_real", "max_level", "threshold_level", "cap0", "cap"):
+        assert getattr(g, name) == getattr(jg, name), name
+    v = v.numpy() if isinstance(v, torch.Tensor) else v
+    assert v.dtype == np.float32
+    np.testing.assert_array_equal(v, jv)
+
+
+def both_paths(graph, chunks, vectors):
+    """apply_patch over the same chunks with a host store and with a CPU
+    tensor store, and the JAX package's host apply: after each chunk the
+    three results equal, the arrays bit for bit; the store stays where it
+    lives. The port's last (graph, host store)."""
+    host = apply_all(tpatch.apply_patch, graph, chunks,
+                     store_of(vectors, None))
+    dev = apply_all(tpatch.apply_patch, graph, chunks,
+                    store_of(vectors, "cpu"))
+    ref = apply_all(jpatch.apply_patch, jax_graph(graph), chunks,
+                    store_of(vectors, None))
+    for h, d, r in zip(host, dev, ref):
+        assert isinstance(h[1], np.ndarray)
+        assert isinstance(d[1], torch.Tensor)
+        assert_same(d, h)
+        assert_same_as_jax(h, r)
+    return host[-1]
+
+
+@pytest.mark.parametrize("s", [1, 4])
+@pytest.mark.parametrize("limit", [3000, 1 << 30])
+def test_plain_repack_equals_host_apply_on_jax_steps(rec, codec, s, limit):
+    """Steps 1 (an add batch) and 4 (reused slots that ship their
+    vectors), in several chunks and in one, then the last chunk again
+    (idempotent): apply_patch equals the JAX package's host apply after
+    every chunk, and the result is the JAX graph of after the step."""
+    g, _ = graph_of(rec, s - 1)
+    _, new, prev = sets_of(rec, s)
+    vecs = rec[f"p{s}_vectors"][:prev].copy()
+    if s == 4:
+        vecs[update_dataset()[2]] = 0  # the client's stale slots
+    chunks = chunks_of(rec, f"p{s}v{limit}")
+    assert (len(chunks) > 3) == (limit == 3000)
+    got, got_vecs = both_paths(g, chunks + chunks[-1:], vecs)
+    assert_same_graph(got, graph_of(rec, s)[0])
+    np.testing.assert_array_equal(got_vecs, rec[f"p{s}_vectors"])
+
+
+@pytest.mark.parametrize("rule", ["one id twice", "above the top level",
+                                  "empty chunk"])
+def test_plain_repack_equals_host_apply_on_rules(rec, rule):
+    """The chunks that test one rule of the apply, on the JAX graph after
+    step 1: the last record of an id wins (its vector from the last record
+    that ships one), a record above the top level widens lvl_off, a chunk
+    of no records still repacks (rows ascending, the node count grown)."""
+    g, _ = graph_of(rec, 1)
+    chunks = rule_chunks(g, 11, 24)[rule]
+    got, _ = both_paths(g, chunks, rec["p1_vectors"][:g.n])
+    if rule == "above the top level":
+        assert got.max_level == g.max_level + 2
+    if rule == "empty chunk":
+        assert got.n == g.n + 3
+
+
+@pytest.mark.parametrize("layout", ["rows out of order", "node-padded"])
+def test_plain_repack_equals_host_apply_on_graph_layouts(rec, layout):
+    """Input graphs the host apply canonicalises: rows in no order (every
+    untouched row comes out ascending) and a node-padded serving graph."""
+    g, _ = graph_of(rec, 0)
+    g = shuffled_rows(g, 5) if layout == "rows out of order" else \
+        pad_chal_nodes(g, 1024)
+    got, _ = both_paths(g, chunks_of(rec, "p1v3000"),
+                        rec["p1_vectors"][:2500])
+    assert_same_graph(got, graph_of(rec, 1)[0])
+
+
+@pytest.mark.parametrize("n,cap0,cap,top", [(600, 10, 6, 3), (900, 32, 16, 2),
+                                            (700, 33, 8, 1),
+                                            (500, 100, 40, 4),
+                                            (80, 1030, 8, 1)])
+def test_plain_repack_equals_host_apply_on_random_graphs(n, cap0, cap, top):
+    """Random graphs at the widths where Kπ's sort changes form (up to 32
+    ids in registers, more in shared memory) and past the widest it sorts
+    (the plain version has no limit): changed records, reused slots and
+    new ids, in two chunks, and the rule chunks."""
+    g = random_graph(n, cap0, cap, top, seed=n + cap0)
+    vecs = np.random.default_rng(n).standard_normal((n, 8)).astype(
+        np.float32)
+    both_paths(g, [random_chunk(g, 1, n // 10, 12, 6, 8),
+                   random_chunk(g, 2, n // 20, 0, 4, 8)], vecs)
+    for chunks in rule_chunks(g, 3, 8).values():
+        both_paths(g, chunks, vecs)
+
+
+def test_device_path_refuses_what_the_host_path_cannot_apply(rec):
+    """A record id past the node count, a row wider than the graph's, a
+    store of another width: ValueError, where the JAX package's host apply
+    fails too."""
+    g, _ = graph_of(rec, 1)
+    n = g.n
+    vecs = torch.zeros((n, 24))
+    for bad, store in [([(n + 5, [[1, 2]], None)], vecs),
+                       ([(3, [list(range(g.cap0 + 1))], None)], vecs),
+                       ([(n, [[1]], np.zeros(24))], torch.zeros((n, 23)))]:
+        blob = encode_chunk(bad, n + 1, 24)
+        for s in (store, store.numpy()):
+            with pytest.raises(ValueError):
+                tpatch.apply_patch(g, blob, s)
+        with pytest.raises((ValueError, IndexError)):
+            jpatch.apply_patch(jax_graph(g), blob, store.numpy())
+    with pytest.raises(ValueError):
+        tpatch.apply_patch(g, b"\0" * 32)
+
+
+def test_the_path_is_picked_from_the_input(rec, monkeypatch):
+    """The graph's device picks the repack: a CPU graph is repacked by
+    Kπ's plain version and counts no card apply; the store, a host array
+    or a tensor, grows where it lives."""
+    g, _ = graph_of(rec, 0)
+    plain, calls = tpatch.repack_plain, []
+
+    def counted(*a):
+        calls.append(1)
+        return plain(*a)
+
+    monkeypatch.setattr(tpatch, "repack_plain", counted)
+    blob = chunks_of(rec, "p1v1073741824")[0]
+    x = rec["p1_vectors"][:2500]
+    trace.drain()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for store in (None, store_of(x, None), store_of(x, "cpu")):
+            got, grown = tpatch.apply_patch(g, blob, store)
+            assert type(grown) is type(store)
+            assert got.nbr.device == g.nbr.device
+            if store is not None:
+                assert len(grown) == got.n > len(store)
+    assert len(calls) == 3
+    assert "client.apply_device" not in trace.drain()["counters"]

@@ -9,6 +9,7 @@ import json
 import threading
 import time
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -212,8 +213,7 @@ def test_update_records_server_and_client_phases(rec, served):
     assert cu.start <= up.start <= send.start <= cu.end
     sync = _one(spans, "client.sync")
     assert _children(spans, sync) == [
-        "client.pull", "client.apply", "client.upload", "client.norms",
-        "client.densify"]
+        "client.apply", "client.norms", "client.densify"]
     c = got["counters"]
     assert c == {"server.patch_bytes": len(blob)}
     assert local.graph.n == n0 + 100
@@ -238,6 +238,42 @@ def test_nothing_waits_on_the_device_while_recording(rec, slim, served,
     assert local.graph.n == n0 + 50
     names = {s.name for s in _drain_after(rec, "server.update")["spans"]}
     assert {"index.search", "server.update", "client.sync"} <= names
+
+
+def test_a_copy_patched_on_the_card_is_never_pulled(rec, served):
+    """sync_patches patches a copy where it lives, here a CPU copy (the
+    card's path with Kπ's plain version in place of Kπ): no
+    ``client.pull``, each apply split into decode, stage, pack and the
+    store's growth, no ``client.apply_device`` (no card), and the copy
+    equal to the server's graph and rows."""
+    from hnsw_slim_tpu_torch.persist import patch as patchlib
+
+    server, client, base = served
+    local = client.bootstrap(device="cpu")
+    n0 = server.hnsw.graph.n
+    with recorded():
+        blob, finished = client.update_index(ids=range(n0, n0 + 50),
+                                             vectors=base[2150:2200])
+        local = client.sync_patches(local, blob, finished)
+    got = _drain_after(rec, "server.update")
+    spans = got["spans"]
+    sync = _one(spans, "client.sync")
+    assert _children(spans, sync) == ["client.apply", "client.norms",
+                                      "client.densify"]
+    apply = _one(spans, "client.apply")
+    assert _children(spans, apply) == ["apply.decode", "apply.stage",
+                                       "apply.pack", "apply.grow"]
+    assert "client.apply_device" not in got["counters"]
+    n = n0 + 50
+    assert local.graph.n == n
+    c = patchlib.to_np(local.graph)
+    for l in range(local.graph.max_level + 1):
+        w = max(local.graph.cap0, local.graph.cap)
+        np.testing.assert_array_equal(
+            patchlib._level_rows(c, l, n, w),
+            patchlib._level_rows(server.inc.host_chal, l, n, w))
+    np.testing.assert_array_equal(local.vectors.numpy(),
+                                  server.vectors_np[:n])
 
 
 def test_the_cli_profile_holds_the_program_spans(rec, tmp_path):
