@@ -21,7 +21,6 @@ Not ported, as for the Slim index: straggler compaction
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -103,7 +102,9 @@ def slimq_search(nbr, lvl_off, entry, q_rot, packed, centroids_rot, dataset,
     i32[B]): with a dataset the track (kk = max(k, 16) wide, exact
     distances), else the buffer (estimates); callers keep the first k.
     dcomp counts the estimates of the beams and of the seed scan, not the
-    rerank distances."""
+    rerank distances. The track computes one exact distance a pop, so the
+    rerank distances of a beam are its hops: the counter
+    ``index.rerank_dcomp``."""
     P, ef_eff = ef, ef
     if ef >= 256 and not gs._is_bitonic_width(ef):
         P = gs.bitonic_buffer_width(ef)
@@ -162,6 +163,7 @@ def slimq_search(nbr, lvl_off, entry, q_rot, packed, centroids_rot, dataset,
             buf_d, buf_id = out[0], out[1]
             hops, dcomp = hops + out[2], dcomp + out[3]
             if track is not None:
+                trace.count("index.rerank_dcomp", out[2])
                 track = out[4]
     if track is not None:
         return track.d, track.ids, hops, dcomp
@@ -223,7 +225,15 @@ class HnswSlimQIndex:
               verbose: bool = False, strategy: str = "auto",
               max_batch: int = 4096, device=None) -> "HnswSlimQIndex":
         """KMeans -> HNSW build -> Slim conversion -> rotation -> RaBitQ
-        quantization. ``build_stats`` holds the seconds of each step."""
+        quantization. ``build_stats`` holds the seconds of each step, each
+        also a span (``slimq.hnsw``, ``.convert``, ``.kmeans``, ``.rotate``,
+        ``.quantize``).
+
+        KMeans, the rotation and the rerank's device rows read the vector
+        store the graph was built on: with ``store_dtype="bfloat16"`` its
+        rows widened to fp32 (the kernels take fp32 rows there), so the
+        codes and the reranked distances are those of the rounded
+        vectors."""
         hnsw_cfg = hnsw_cfg or HnswConfig()
         slim_cfg = slim_cfg or SlimConfig.from_ratios()
         quant_cfg = quant_cfg or QuantConfig()
@@ -233,41 +243,40 @@ class HnswSlimQIndex:
         sync = torch.cuda.synchronize if idx.device.type == "cuda" \
             else (lambda: None)
         split = {}
-
-        def lap(name, t0):
-            sync()
-            split[name] = time.perf_counter() - t0
-            return time.perf_counter()
-
-        t0 = time.perf_counter()
         # graph from raw distances, pruned exactly like Slim
-        hnsw = HnswIndex(hnsw_cfg, strategy=strategy, max_batch=max_batch,
-                         device=idx.device)
-        hnsw.build(vectors, verbose=verbose)
-        t0 = lap("hnsw_s", t0)
-        idx.graph = convert_to_slim(
-            hnsw.graph, hnsw.vectors, hnsw.vn, slim_cfg,
-            metric=hnsw_cfg.metric, verbose=verbose)
-        t0 = lap("convert_s", t0)
-        # KMeans-16 centroids + assignment, on the vectors already resident
-        centroids, asn = kmeans(hnsw.vectors, k=quant_cfg.num_clusters,
-                                iters=quant_cfg.kmeans_iters)
-        t0 = lap("kmeans_s", t0)
-        idx.rotator = FhtKacRotator(vectors.shape[1], seed=hnsw_cfg.seed,
-                                    device=idx.device)
-        rotated = idx.rotator.rotate(hnsw.vectors).cpu().numpy()
-        cent_rot = idx.rotator.rotate(centroids)
-        t0 = lap("rotate_s", t0)
-        idx.codes = quantize_batch(
-            rotated, cent_rot.cpu().numpy(), asn, quant_cfg.ex_bits,
-            metric=hnsw_cfg.metric, device=idx.device)
-        idx.cluster_ids = idx._dev(asn.astype(np.int32))
-        idx.centroids_rot = cent_rot.contiguous()
-        lap("quantize_s", t0)
+        with trace.phase("slimq.hnsw", split, "hnsw_s"):
+            hnsw = HnswIndex(hnsw_cfg, strategy=strategy,
+                             max_batch=max_batch, device=idx.device)
+            hnsw.build(vectors, verbose=verbose)
+            sync()
+        with trace.phase("slimq.convert", split, "convert_s"):
+            idx.graph = convert_to_slim(
+                hnsw.graph, hnsw.vectors, hnsw.vn, slim_cfg,
+                metric=hnsw_cfg.metric, verbose=verbose)
+            sync()
+        store = hnsw.vectors.float()  # the resident store (no copy in fp32)
+        # KMeans-16 centroids + assignment
+        with trace.phase("slimq.kmeans", split, "kmeans_s"):
+            centroids, asn = kmeans(store, k=quant_cfg.num_clusters,
+                                    iters=quant_cfg.kmeans_iters)
+            sync()
+        with trace.phase("slimq.rotate", split, "rotate_s"):
+            idx.rotator = FhtKacRotator(vectors.shape[1], seed=hnsw_cfg.seed,
+                                        device=idx.device)
+            rotated = idx.rotator.rotate(store).cpu().numpy()
+            cent_rot = idx.rotator.rotate(centroids)
+            sync()
+        with trace.phase("slimq.quantize", split, "quantize_s"):
+            idx.codes = quantize_batch(
+                rotated, cent_rot.cpu().numpy(), asn, quant_cfg.ex_bits,
+                metric=hnsw_cfg.metric, device=idx.device)
+            idx.cluster_ids = idx._dev(asn.astype(np.int32))
+            idx.centroids_rot = cent_rot.contiguous()
+            sync()
         idx.build_stats = split
         if keep_dataset:
             idx.dataset = vectors
-            idx._dataset_dev = hnsw.vectors
+            idx._dataset_dev = store
         return idx
 
     @classmethod
@@ -344,7 +353,8 @@ class HnswSlimQIndex:
         with trace.span("index.upload"):
             q_raw = torch.as_tensor(np.asarray(queries, np.float32),
                                     device=self.device)
-        q_rot = self.rotator.rotate(q_raw)
+        with trace.span("index.rotate"):
+            q_rot = self.rotator.rotate(q_raw)
         use_track = rerank and self.dataset is not None
         if self._dataset_dev is None and use_track:
             self._dataset_dev = self._dev(self.dataset)
