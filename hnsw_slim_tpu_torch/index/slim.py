@@ -9,7 +9,8 @@ arrays alone; ``densify_level0`` and ``densify_upper`` add dense serving
 layouts that give the same results with one row read per pop, and
 ``update_dense0`` / ``update_dense_upper`` refresh them in place from a
 changed host mirror. ``filter_mask`` filters in the kernel, ``entry`` gives
-per-query entry points, ``search_async`` returns without a sync, and
+per-query entry points, ``search_async`` returns without a sync, a
+repeated ``search`` on the card replays one CUDA graph (``replay.py``), and
 ``autotune_index`` calibrates (pop_width, scan_width) for one ef.
 
 Not ported: ``straggler_stages`` (the kernels run each query on its own) and
@@ -34,6 +35,7 @@ from ..ops import cuda
 from ..ops.distance import sq_norms
 from ..persist.patch import _level_rows, _subset_rows, to_np
 from ..utils import trace
+from . import replay
 from .bruteforce import exact_topk
 from .hnsw import HnswIndex, LastStats, _check, allowed_rows, filter_iters
 
@@ -67,6 +69,7 @@ class HnswSlimIndex:
         # level>=1 nodes, keyed by the graph object it was built for
         self.up_vecs = self.up_vn = self.up_ids = None
         self._up_for = None
+        self._replay = replay.Replay()
         self.last_stats: dict = {}
 
     def _host_chal(self) -> dict:
@@ -229,12 +232,10 @@ class HnswSlimIndex:
             self._up_for = self.graph
         return self.up_vecs, self.up_vn, self.up_ids
 
-    def search_async(self, queries, k: int,
-                     filter_mask: np.ndarray | None = None, entry=None):
-        """Enqueue one search — exactly what ``search`` runs — and return the
-        device tensors (d f32[B, k], ids i32[B, k], hops i32[B], dcomp
-        i32[B]) without waiting for the card, so a server can overlap batch
-        k's read-back with batch k+1's compute."""
+    def _reads(self) -> dict:
+        """chal_search's arguments besides the queries, the entry, ef, k,
+        the iteration cap and the allow-list: the graph, the store and the
+        serving layouts a search reads, and the knobs."""
         if self.scfg.dynamic_ef:
             raise NotImplementedError(
                 "dynamic_ef: the port compiles nothing per ef; set ef")
@@ -243,6 +244,23 @@ class HnswSlimIndex:
         if self.scfg.seed_width > 1 and g.threshold_level == 0 \
                 and g.max_level >= 1:
             up_vecs, up_vn, up_ids = self._seed_table()
+        return dict(
+            graph_nbr=g.nbr, graph_lvl_off=g.lvl_off, vectors=self.vectors,
+            vn=self.vn, max_level=g.max_level,
+            threshold_level=g.threshold_level, cap0=g.cap0, cap=g.cap,
+            metric=self.metric, pop_width=self.scfg.pop_width,
+            dense0=self.dense0, dense_up=self.dense_up, rank_up=self.rank_up,
+            scan_width=self.scfg.scan_width, seed_width=self.scfg.seed_width,
+            up_vecs=up_vecs, up_vn=up_vn, up_ids=up_ids,
+            seed_strata=self.scfg.seed_strata)
+
+    def search_async(self, queries, k: int,
+                     filter_mask: np.ndarray | None = None, entry=None):
+        """Enqueue one search — exactly what ``search`` runs eagerly — and
+        return the device tensors (d f32[B, k], ids i32[B, k], hops i32[B],
+        dcomp i32[B]) without waiting for the card, so a server can overlap
+        batch k's read-back with batch k+1's compute."""
+        reads = self._reads()
         allowed = None
         max_iters = self.scfg.iters()
         if filter_mask is not None:
@@ -254,16 +272,9 @@ class HnswSlimIndex:
             q = torch.as_tensor(np.asarray(queries, np.float32),
                                 device=self.device)
         return gs.chal_search(
-            g.nbr, g.lvl_off, g.entry if entry is None else entry,
-            self.vectors, self.vn, q, max_level=g.max_level,
-            threshold_level=g.threshold_level, cap0=g.cap0, cap=g.cap,
+            entry=self.graph.entry if entry is None else entry, q=q,
             ef=max(self.scfg.ef, k), k=k, max_iters=max_iters,
-            metric=self.metric, pop_width=self.scfg.pop_width,
-            dense0=self.dense0, dense_up=self.dense_up, rank_up=self.rank_up,
-            allowed=allowed, scan_width=self.scfg.scan_width,
-            seed_width=self.scfg.seed_width, up_vecs=up_vecs, up_vn=up_vn,
-            up_ids=up_ids, seed_strata=self.scfg.seed_strata,
-        )
+            allowed=allowed, **reads)
 
     def search(self, queries: np.ndarray, k: int,
                filter_mask: np.ndarray | None = None, entry=None):
@@ -275,12 +286,25 @@ class HnswSlimIndex:
         returned; the kernel keeps an allowed-only result track whose worst
         entry sets the stop bound, so a query returns k allowed ids whenever
         k allowed nodes are reachable. entry: per-query entry points i32[B]
-        (default: the graph's entry point)."""
+        (default: the graph's entry point). A repeated call on the card
+        without either replays one CUDA graph of the whole search
+        (``replay``), with the same results."""
         with trace.span("index.search"):
-            d, i, hops, dcomp = self.search_async(queries, k, filter_mask,
-                                                  entry)
-            with trace.span("index.readback"):
-                d, i = d.cpu().numpy(), i.cpu().numpy()
+            q = np.asarray(queries, np.float32)
+            out = None
+            if replay.engages(self.device, len(q), filter_mask, entry):
+                kw = dict(entry=self.graph.entry, ef=max(self.scfg.ef, k),
+                          k=k, max_iters=self.scfg.iters(), **self._reads())
+                out = self._replay.search(
+                    (kw,), q, k, lambda dq: gs.chal_search(q=dq, **kw),
+                    self.device)
+            if out is None:
+                d, i, hops, dcomp = self.search_async(q, k, filter_mask,
+                                                      entry)
+                with trace.span("index.readback"):
+                    d, i = d.cpu().numpy(), i.cpu().numpy()
+            else:
+                d, i, hops, dcomp = out
         self.last_stats = (hops, dcomp)
         return d, i
 

@@ -36,6 +36,7 @@ from ..quant.kmeans import kmeans
 from ..quant.rabitq import QuantizedCodes, quantize_batch
 from ..quant.rotator import FhtKacRotator, g_tables, pad_dim
 from ..utils import trace
+from . import replay
 from .bruteforce import MAX_K, scan_plan, topk_estimate
 from .hnsw import HnswIndex, LastStats
 from .slim import HnswSlimIndex
@@ -203,6 +204,7 @@ class HnswSlimQIndex:
         self._rank_np = None
         self._n_up = 0
         self.host_chal: dict | None = None
+        self._replay = replay.Replay()
         self.last_stats: dict = {}
         self.build_stats: dict = {}
 
@@ -342,19 +344,14 @@ class HnswSlimQIndex:
             self._up_for = self.graph
         return self.up_rows, self.up_ids
 
-    def search_async(self, queries, k: int, rerank: bool = True):
-        """Enqueue one search — exactly what ``search`` runs — and return
-        the device tensors (d, ids, hops i32[B], dcomp i32[B]) without
-        waiting for the card; d and ids are at least k wide."""
+    def _reads(self, k: int, rerank: bool) -> dict:
+        """slimq_search's arguments besides the queries: the graph, the
+        codes, the seed table, the rerank dataset (None without a track)
+        and the knobs."""
         if self.scfg.dynamic_ef:
             raise NotImplementedError(
                 "dynamic_ef: the port compiles nothing per ef; set ef")
         g, c = self.graph, self.codes
-        with trace.span("index.upload"):
-            q_raw = torch.as_tensor(np.asarray(queries, np.float32),
-                                    device=self.device)
-        with trace.span("index.rotate"):
-            q_rot = self.rotator.rotate(q_raw)
         use_track = rerank and self.dataset is not None
         if self._dataset_dev is None and use_track:
             self._dataset_dev = self._dev(self.dataset)
@@ -362,10 +359,10 @@ class HnswSlimQIndex:
         if self.scfg.seed_width > 1 and g.threshold_level == 0 \
                 and g.max_level >= 1:
             up_rows, up_ids = self._seed_table()
-        return slimq_search(
-            g.nbr, g.lvl_off, g.entry, q_rot, self._packed_rows(),
-            self.centroids_rot, self._dataset_dev if use_track else None,
-            q_raw.contiguous() if use_track else None,
+        return dict(
+            nbr=g.nbr, lvl_off=g.lvl_off, entry=g.entry,
+            packed=self._packed_rows(), centroids_rot=self.centroids_rot,
+            dataset=self._dataset_dev if use_track else None,
             nb=int(c.bin_code.shape[1]), ex_bits=int(c.ex_bits),
             seed_width=self.scfg.seed_width, up_rows=up_rows, up_ids=up_ids,
             max_level=g.max_level, threshold_level=g.threshold_level,
@@ -376,15 +373,45 @@ class HnswSlimQIndex:
             dense_up=self.dense_up, rank_up=self.rank_up,
             scan_width=self.scfg.scan_width)
 
+    def _enqueue(self, q_raw, reads: dict):
+        """The device chain of a search from uploaded raw queries: Kη on
+        them, then ``slimq_search``."""
+        with trace.span("index.rotate"):
+            q_rot = self.rotator.rotate(q_raw)
+        return slimq_search(
+            q_rot=q_rot, q_raw=(None if reads["dataset"] is None
+                                else q_raw.contiguous()), **reads)
+
+    def search_async(self, queries, k: int, rerank: bool = True):
+        """Enqueue one search — exactly what ``search`` runs eagerly — and
+        return the device tensors (d, ids, hops i32[B], dcomp i32[B])
+        without waiting for the card; d and ids are at least k wide."""
+        reads = self._reads(k, rerank)
+        with trace.span("index.upload"):
+            q_raw = torch.as_tensor(np.asarray(queries, np.float32),
+                                    device=self.device)
+        return self._enqueue(q_raw, reads)
+
     def search(self, queries: np.ndarray, k: int, rerank: bool = True):
         """(dists f32[B, k], ids i32[B, k]) as numpy: exact distances to the
         rerank dataset when there is one and ``rerank`` is set, else
         estimates. Sets ``last_stats`` (hops, distance_computations, summed
-        when first read)."""
+        when first read). A repeated call on the card replays one CUDA
+        graph of the whole search (``replay``), with the same results."""
         with trace.span("index.search"):
-            d, ids, hops, dcomp = self.search_async(queries, k, rerank)
-            with trace.span("index.readback"):
-                d, ids = d[:, :k].cpu().numpy(), ids[:, :k].cpu().numpy()
+            q = np.asarray(queries, np.float32)
+            out = None
+            if replay.engages(self.device, len(q)):
+                reads = self._reads(k, rerank)
+                out = self._replay.search(
+                    (reads, self.rotator.signs, self.rotator.fac), q, k,
+                    lambda dq: self._enqueue(dq, reads), self.device)
+            if out is None:
+                d, ids, hops, dcomp = self.search_async(q, k, rerank)
+                with trace.span("index.readback"):
+                    d, ids = d[:, :k].cpu().numpy(), ids[:, :k].cpu().numpy()
+            else:
+                d, ids, hops, dcomp = out
         self.last_stats = (hops, dcomp)
         return d, ids
 

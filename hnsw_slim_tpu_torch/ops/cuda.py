@@ -21,7 +21,9 @@ mode:
 kernels and modes the run went through. ``launch_shapes`` splits the
 launches of Kα, Kβ, Kγ and Kε by their shape class (scan mode, tile and k;
 pop width, ef and seeds; prune form and width; one level or a run of
-levels) under a caller's ``tagged`` label.
+levels) under a caller's ``tagged`` label. Inside ``held`` (a CUDA graph
+capture, which runs nothing) a thread's launches are collected instead, and
+the graph's owner counts them with ``counted`` each time it replays them.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -69,6 +72,7 @@ launches = dict.fromkeys(KERNELS + MODES, 0)
 # caller's tag (``tagged``): "kernel[tag] shape" -> count
 launch_shapes: dict[str, int] = {}
 _tag = ""
+_local = threading.local()  # .held: the list ``held`` collects into
 
 P, I32, I64, F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
@@ -295,12 +299,39 @@ def launch(name: str, *args, entry: str | None = None,
     err = fn(*args, _raw_stream(_device()))
     if err:
         check(err, key)
-    launches[name] += 1
-    for mode in modes:
-        launches[name + "." + mode] += 1
-    if shape:
-        cls = f"{name}[{_tag}] {shape}"
-        launch_shapes[cls] = launch_shapes.get(cls, 0) + 1
+    held_ = getattr(_local, "held", None)
+    if held_ is None:
+        counted([(name, modes, shape)])
+    else:
+        held_.append((name, modes, shape))
+
+
+def counted(calls) -> None:
+    """Count ``calls``, [(name, modes, shape)] as ``launch`` takes them, as
+    launched now: in ``launches`` and, under the current tag, in
+    ``launch_shapes``."""
+    for name, modes, shape in calls:
+        launches[name] += 1
+        for mode in modes:
+            launches[name + "." + mode] += 1
+        if shape:
+            cls = f"{name}[{_tag}] {shape}"
+            launch_shapes[cls] = launch_shapes.get(cls, 0) + 1
+
+
+@contextlib.contextmanager
+def held():
+    """Collect this thread's launches as [(name, modes, shape)], in order,
+    instead of counting them: under a CUDA graph capture no kernel runs,
+    and the graph's owner counts the list with ``counted`` after each
+    replay, so that the counts follow the launches that ran."""
+    calls: list = []
+    prev = getattr(_local, "held", None)
+    _local.held = calls
+    try:
+        yield calls
+    finally:
+        _local.held = prev
 
 
 def resolve_device(device=None) -> torch.device:

@@ -10,7 +10,10 @@ One facility for the whole package:
 - ``phase(name, into, key)``: a span that also adds its seconds into the
   caller's dict ``into[key]``, whether recording or not (the update paths'
   per-phase ``seconds`` dicts);
-- ``drain()``: the spans and counters recorded so far, cleared.
+- ``drain()``: the spans and counters recorded so far, cleared;
+- ``diverted()``: a context in which this thread's ``count`` calls are
+  collected into a list instead, recording or not: a CUDA graph capture
+  takes them so, and the graph's owner counts them after each replay.
 
 Recording is on while any ``torch.profiler`` session records, and only
 then, so a profiled window gets the program's spans with nothing else to
@@ -99,6 +102,7 @@ class Recorder:
         self._host: dict = {}
         self._dev: dict = {}  # (name, device) -> int64 accumulator
         self._lock = threading.Lock()
+        self._diverted = 0  # threads inside ``diverted``
         self._ids = itertools.count(1)
         self._local = threading.local()
 
@@ -124,6 +128,11 @@ class Recorder:
         return _Open(rec, name, attrs, into, name if key is None else key)
 
     def count(self, name: str, n) -> None:
+        if self._diverted:
+            sink = getattr(self._local, "sink", None)
+            if sink is not None:
+                sink.append((name, n))
+                return
         if not _profiler._is_profiler_enabled:
             return
         if isinstance(n, torch.Tensor):
@@ -136,6 +145,25 @@ class Recorder:
         else:
             with self._lock:
                 self._host[name] = self._host.get(name, 0) + int(n)
+
+    @contextlib.contextmanager
+    def diverted(self):
+        """Collect this thread's ``count`` calls as [(name, n)], in order,
+        instead of recording them, whether recording or not. Under a CUDA
+        graph capture a device counter's add would be captured with the
+        address of an accumulator that ``drain`` replaces; the owner of the
+        graph counts the collected values after each replay instead."""
+        sink: list = []
+        prev = getattr(self._local, "sink", None)
+        self._local.sink = sink
+        with self._lock:
+            self._diverted += 1
+        try:
+            yield sink
+        finally:
+            self._local.sink = prev
+            with self._lock:
+                self._diverted -= 1
 
     def drain(self) -> dict:
         """{"spans": [Span] in the order they ended, "counters": {name:
@@ -187,4 +215,5 @@ span = RECORDER.span
 phase = RECORDER.phase
 count = RECORDER.count
 drain = RECORDER.drain
+diverted = RECORDER.diverted
 recording = RECORDER.recording
