@@ -2930,8 +2930,7 @@ def main() -> int:
         return s_d, s_id.to(torch.int32).contiguous()
 
     def beam_kw(ef):
-        P = gs.bitonic_buffer_width(ef) if ef >= 256 and \
-            not gs._is_bitonic_width(ef) else ef
+        P = gs.buffer_width(ef)
         return dict(P=P, ef_eff=ef, pop_width=8,
                     cw=gs.cand_width(P, 8, idx.dense0.shape[1], 0),
                     max_iters=SearchConfig(ef=ef, pop_width=8).iters(), k=10)

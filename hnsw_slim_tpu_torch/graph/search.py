@@ -208,13 +208,6 @@ def bitonic_buffer_width(ef: int) -> int:
     return w
 
 
-def _is_bitonic_width(P: int) -> bool:
-    if P & (P - 1) == 0:
-        return True
-    m = P // 3
-    return 3 * m == P and m & (m - 1) == 0
-
-
 def cand_width(P: int, pop_width: int, W: int, scan_width: int) -> int:
     """Surviving candidate lanes per iteration (JAX ``cw``)."""
     ew = pop_width * W
@@ -709,110 +702,137 @@ def level_search(adjs, entry: int, vectors, vn, q, *, max_level: int,
     return out[4][:, :k], out[5][:, :k], out[2], out[3]
 
 
+def buffer_width(ef: int) -> int:
+    """The Slim chains' buffer width P at ef (the window stays ef): from
+    256 up, ef rounded up to a bitonic width, as the JAX engine does."""
+    return bitonic_buffer_width(ef) if ef >= 256 else ef
+
+
+def slim_fetch(nbr, lvl_off, cap0: int, cap: int, dense0=None, dense_up=None,
+               rank_up=None):
+    """The Slim chains' level-fetch rule, l -> the Fetch of level l's rows:
+    ``dense0`` at 0, ``dense_up`` through ``rank_up`` above, where given,
+    else the CHAL slices."""
+    def fetch(l: int) -> Fetch:
+        if l == 0 and dense0 is not None:
+            return dense_fetch(dense0)
+        if l > 0 and dense_up is not None and l - 1 < len(dense_up):
+            return rank_fetch(rank_up, dense_up[l - 1])
+        return chal_fetch(nbr, lvl_off, l, cap if l > 0 else cap0)
+
+    return fetch
+
+
+def base_beam(fetch, vectors, q, qn, buf_d, buf_id, hops, dcomp, *,
+              threshold_level: int, max_level: int, P: int, ef: int, k: int,
+              pop_width: int, scan_width: int, max_iters: int, metric: str,
+              **beam):
+    """Both Slim chains' base beam (span ``index.beam``): the seeds (buf_d,
+    buf_id) beamed (Kβ) over levels min(threshold_level, max_level)..0 in
+    one carried buffer, P wide, k out of level 0, rows from ``fetch(l)``,
+    beam_search's other keywords ``beam``, its result track carried level
+    to level. Adds each level's counts to the seed step's ``hops`` and
+    ``dcomp`` (ints or i32[B]), its dcomp also to ``index.beam_dcomp``.
+    Returns (buf_d, buf_id, hops, dcomp, beam)."""
+    with trace.span("index.beam"):
+        for l in range(min(threshold_level, max_level), -1, -1):
+            f = fetch(l)
+            out = beam_search(
+                vectors, q, qn, f, buf_d, buf_id, P=P, ef_eff=ef,
+                pop_width=pop_width,
+                cw=cand_width(P, pop_width, f.width, scan_width),
+                max_iters=max_iters, k=P if l > 0 else k, metric=metric,
+                **beam)
+            trace.count("index.beam_dcomp", out[3])
+            buf_d, buf_id = out[0], out[1]
+            hops, dcomp = hops + out[2], dcomp + out[3]
+            if beam.get("track_d") is not None:
+                beam.update(track_d=out[4], track_id=out[5])
+            elif beam.get("pop_track") is not None:
+                beam.update(pop_track=out[4])
+    return buf_d, buf_id, hops, dcomp, beam
+
+
 def chal_search(graph_nbr, graph_lvl_off, entry, vectors, vn, q, *,
                 max_level: int, threshold_level: int, cap0: int, cap: int,
                 ef: int, k: int, max_iters: int, metric: str = "l2",
                 pop_width: int = 1, dense0=None, dense_up=None, rank_up=None,
                 allowed=None, scan_width: int = 0, seed_width: int = 0,
-                up_vecs=None, up_vn=None, up_ids=None, seed_strata: int = 0):
+                up_vecs=None, up_vn=None, up_ids=None, up_count: int = 0,
+                seed_strata: int = 0):
     """Full Slim query path (hnswalg_slim.h searchKnn; JAX ``chal_search``).
 
     Greedy descent (Kε) for levels max_level..threshold_level+1, then one
     carried buffer beamed (Kβ) over levels threshold_level..0, checked bits
-    reset between levels. ``entry``: one id or per-query ids [B]. Level 0
-    reads ``dense0`` rows when given, upper levels ``dense_up`` through
-    ``rank_up`` when given, else the CHAL slices. ``allowed`` (bool[N])
+    reset between levels (``base_beam``). ``entry``: one id or per-query ids
+    [B]. Level 0 reads ``dense0`` rows when given, upper levels ``dense_up``
+    through ``rank_up`` when given, else the CHAL slices. ``allowed`` (bool[N])
     filters in the kernel: results come from the allowed-only track, whose
     worst entry sets the stop bound, and the candidate cap ``scan_width`` is
     not applied (as in JAX). ``seed_width`` > 1 with threshold_level 0 seeds
     level 0 with seed_width entries: the exact top of the (up_vecs, up_vn,
-    up_ids) table of all level>=1 nodes (Kα; per table segment when
-    ``seed_strata`` > 1), or without the table the buffer of a
-    seed_width-wide level-1 beam. ef >= 256 that is not a bitonic width
-    rounds the buffer up and keeps the window at ef.
+    up_ids) table of all level>=1 nodes, ``up_count`` of them real (Kα; per
+    table segment when ``seed_strata`` > 1; the entry unread), or without
+    the table the buffer of a seed_width-wide level-1 beam. ef >= 256 that
+    is not a bitonic width rounds the buffer up and keeps the window at ef.
     Returns (dists f32[B, k], ids i32[B, k], hops i32[B], dcomp i32[B]);
     hops and dcomp count the beams and the seed scan, as in the JAX package.
     """
-    P, ef_eff = ef, ef
-    if ef >= 256 and not _is_bitonic_width(ef):
-        P = bitonic_buffer_width(ef)
-    b = q.shape[0]
-
-    def level_fetch(l):
-        if l > 0 and dense_up is not None and l - 1 < len(dense_up):
-            return rank_fetch(rank_up, dense_up[l - 1])
-        return chal_fetch(graph_nbr, graph_lvl_off, l, cap if l > 0 else cap0)
-
-    seeds = None
+    P = buffer_width(ef)
+    fetch = slim_fetch(graph_nbr, graph_lvl_off, cap0, cap, dense0, dense_up,
+                       rank_up)
     seed_width = min(seed_width, P)
     use_seed = seed_width > 1 and threshold_level == 0 and max_level >= 1
     table = use_seed and up_vecs is not None
-    trace.count("index.queries", b)
+    trace.count("index.queries", q.shape[0])
     # up to the base beam: the Kα seed scan, or the Kε descent
     with trace.span("index.seed" if table else "index.descent"):
         qn = sq_norms(q)
-        cur, curdist = entry_dist(vectors, vn, q, qn, entry, metric)
-        hops = torch.zeros(b, dtype=torch.int32, device=q.device)
-        dcomp = torch.zeros(b, dtype=torch.int32, device=q.device)
+        # the seed scan computes a distance to every real row of the table
+        hops, dcomp = 0, up_count if table else 0
         if table:
             if seed_strata > 1:
-                sd, si = topk_dist_strata(q, up_vecs, up_vn, up_ids,
-                                          seed_width, seed_strata, metric,
-                                          qn=qn)
+                buf_d, buf_id = topk_dist_strata(
+                    q, up_vecs, up_vn, up_ids, seed_width, seed_strata,
+                    metric, qn=qn)
             else:
-                sd, spos = topk_dist(q, up_vecs, up_vn, seed_width, metric,
-                                     row_ids=up_ids, qn=qn)
+                buf_d, spos = topk_dist(q, up_vecs, up_vn, seed_width, metric,
+                                        row_ids=up_ids, qn=qn)
                 si = torch.where(spos >= 0,
                                  up_ids[spos.clamp(min=0).long()], -1)
-                si = torch.where(torch.isinf(sd), -1, si).to(torch.int32)
-            dcomp = dcomp + (up_ids >= 0).sum().to(torch.int32)
-            seeds = (sd.contiguous(), si.contiguous())
+                buf_id = torch.where(torch.isinf(buf_d), -1, si).to(
+                    torch.int32)
+            buf_d, buf_id = buf_d.contiguous(), buf_id.contiguous()
         else:
+            cur, curdist = entry_dist(vectors, vn, q, qn, entry, metric)
             # greedy levels max..lo+1; with seeds and no table, level 1 beams
             lo = 1 if use_seed else threshold_level
             cur, curdist, _, _ = greedy_descent_levels(
-                vectors, q, qn,
-                [level_fetch(l) for l in range(max_level, lo, -1)],
+                vectors, q, qn, [fetch(l) for l in range(max_level, lo, -1)],
                 max_level, cur, curdist, None, metric)
-            if use_seed:
-                fetch = level_fetch(1)
-                pw = min(4, seed_width)
-                d1, i1, h, dc = beam_search(
-                    vectors, q, qn, fetch, curdist[:, None].contiguous(),
-                    cur[:, None].contiguous(), P=seed_width,
-                    ef_eff=seed_width, pop_width=pw,
-                    cw=cand_width(seed_width, pw, fetch.width, 0),
-                    max_iters=max_iters, k=seed_width, metric=metric)
-                trace.count("index.beam_dcomp", dc)
-                hops, dcomp = hops + h, dcomp + dc
-                seeds = (d1, i1)
-        if seeds is not None:
-            buf_d, buf_id = seeds
-            # the allowed track's seed keys off the best seed
-            cur, curdist = buf_id[:, 0], buf_d[:, 0]
-        else:
             buf_d = curdist[:, None].contiguous()
             buf_id = cur[:, None].contiguous()
+            if use_seed:
+                f1 = fetch(1)
+                pw = min(4, seed_width)
+                buf_d, buf_id, hops, dcomp = beam_search(
+                    vectors, q, qn, f1, buf_d, buf_id, P=seed_width,
+                    ef_eff=seed_width, pop_width=pw,
+                    cw=cand_width(seed_width, pw, f1.width, 0),
+                    max_iters=max_iters, k=seed_width, metric=metric)
+                trace.count("index.beam_dcomp", dcomp)
         filt = {}
         if allowed is not None:
-            trk_d, trk_i = filter_track_init(allowed, cur, curdist, P)
+            # the allowed track's seed keys off the best seed
+            trk_d, trk_i = filter_track_init(allowed, buf_id[:, 0],
+                                             buf_d[:, 0], P)
             filt = dict(allowed=allowed, track_d=trk_d, track_id=trk_i)
-    with trace.span("index.beam"):
-        for l in range(min(threshold_level, max_level), -1, -1):
-            fetch = dense_fetch(dense0) if l == 0 and dense0 is not None \
-                else level_fetch(l)
-            out = beam_search(
-                vectors, q, qn, fetch, buf_d, buf_id, P=P, ef_eff=ef_eff,
-                pop_width=pop_width,
-                cw=cand_width(P, pop_width, fetch.width,
-                              0 if allowed is not None else scan_width),
-                max_iters=max_iters, k=P if l > 0 else k, metric=metric,
-                **filt)
-            trace.count("index.beam_dcomp", out[3])
-            buf_d, buf_id = out[0], out[1]
-            hops, dcomp = hops + out[2], dcomp + out[3]
-            if allowed is not None:
-                filt.update(track_d=out[4], track_id=out[5])
+    buf_d, buf_id, hops, dcomp, filt = base_beam(
+        fetch, vectors, q, qn, buf_d, buf_id, hops, dcomp,
+        threshold_level=threshold_level, max_level=max_level, P=P, ef=ef,
+        k=k, pop_width=pop_width,
+        scan_width=0 if allowed is not None else scan_width,
+        max_iters=max_iters, metric=metric, **filt)
     if allowed is not None:
         return filt["track_d"][:, :k], filt["track_id"][:, :k], hops, dcomp
     return buf_d, buf_id, hops, dcomp

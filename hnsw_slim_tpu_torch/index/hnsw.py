@@ -35,6 +35,7 @@ from ..graph.types import LevelGraph
 from ..ops import cuda
 from ..ops.distance import sq_norms
 from ..utils import trace
+from . import replay
 
 # HnswConfig.store_dtype -> the vector store's torch dtype
 STORE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -380,28 +381,23 @@ class HnswIndex:
         filter_mask bool[N]: traverse everything, return only allowed ids,
         keep searching until k allowed results are held (the kernel's
         allowed-only result track)."""
+        return replay.batch_search(self, queries, k,
+                                   lambda: self._plan(k, filter_mask))
+
+    def _plan(self, k: int, filter_mask):
+        """(reads, chain) of ``replay.batch_search`` (which has no graphs of
+        this index): none, and level_search on uploaded queries."""
         g = self.graph
-        ef = max(self.scfg.ef, k)
-        allowed = None
-        max_iters = self.scfg.iters()
+        kw = dict(max_level=g.max_level, ef=max(self.scfg.ef, k), k=k,
+                  max_iters=self.scfg.iters(), metric=self.cfg.metric,
+                  pop_width=self.scfg.pop_width)
         if filter_mask is not None:
             mask = np.asarray(filter_mask, bool)
-            allowed = allowed_rows(mask, int(self.vectors.shape[0]),
-                                   self.device)
-            max_iters = filter_iters(max_iters, mask)
-        with trace.span("index.search"):
-            with trace.span("index.upload"):
-                q = torch.as_tensor(np.asarray(queries, np.float32),
-                                    device=self.device)
-            d, i, hops, dcomp = gs.level_search(
-                g.adjs, g.entry, self.vectors, self.vn, q,
-                max_level=g.max_level, ef=ef, k=k, max_iters=max_iters,
-                metric=self.cfg.metric, pop_width=self.scfg.pop_width,
-                allowed=allowed)
-            with trace.span("index.readback"):
-                d, i = d.cpu().numpy(), i.cpu().numpy()
-        self.last_stats = (hops, dcomp)
-        return d, i
+            kw.update(allowed=allowed_rows(mask, int(self.vectors.shape[0]),
+                                           self.device),
+                      max_iters=filter_iters(kw["max_iters"], mask))
+        return (), lambda q: gs.level_search(g.adjs, g.entry, self.vectors,
+                                             self.vn, q, **kw)
 
     def check_integrity(self) -> dict:
         """Structural invariants (hnswalg.h checkIntegrity): ids in range,

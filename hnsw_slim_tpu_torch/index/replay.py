@@ -1,12 +1,13 @@
-"""One CUDA graph per repeated batch search: the index host path's replay.
+"""One host path for every index's batch search, and its CUDA graph replay.
 
-``HnswSlimIndex.search`` and ``HnswSlimQIndex.search`` hand a ``Replay``
-the device chain that ``search_async`` enqueues, from uploaded queries to
-the answers. For a call it takes, the host does three things: copy the
-queries into a pinned input (span ``index.upload``; PyTorch's threaded
-copy), launch one graph (``index.replay``), then wait and copy the call's
-rows of one pinned output out, into host memory that several calls'
-results share (``index.readback``). The graph is the chain as the eager
+Every index's ``search`` runs ``batch_search``; ``HnswSlimIndex.search`` and
+``HnswSlimQIndex.search`` also hand it a ``Replay`` of the device chain that
+``search_async`` enqueues, from uploaded queries to the answers. For a call
+it takes, the host does three things: copy the queries into a pinned input
+(span ``index.upload``; PyTorch's threaded copy), launch one graph
+(``index.replay``), then wait and copy the call's rows of one pinned output
+out, into host memory that several calls' results share
+(``index.readback``). The graph is the chain as the eager
 call launches it: first the query copy from the pinned input, then the
 hand-written kernels and their glue, last d[:, :k], ids[:, :k], hops and
 dcomp gathered into one output and copied back to pinned memory.
@@ -124,6 +125,38 @@ def recount(counts, launched, b: int) -> None:
     for name, n in counts:
         trace.count(name, n[:b] if isinstance(n, torch.Tensor) else n * b)
     trace.count("index.replays", 1)
+
+
+def enqueue(queries, device, chain):
+    """``chain(q)``'s device tensors, q the ``queries`` uploaded onto
+    ``device`` as f32[b, D] (span ``index.upload``)."""
+    with trace.span("index.upload"):
+        q = torch.as_tensor(np.asarray(queries, np.float32), device=device)
+    return chain(q)
+
+
+def batch_search(index, queries, k: int, plan, *per_call,
+                 graphs: Replay | None = None):
+    """(d f32[b, k], ids i32[b, k]) as numpy, and the call's (hops, dcomp)
+    into ``index.last_stats``: every index's ``search`` (span
+    ``index.search``). ``plan()`` gives (reads, chain) as ``Replay.search``
+    takes them; the call replays one of ``graphs`` where ``engages`` allows
+    (``per_call``: the call's other per-call arguments), else it runs
+    eagerly: ``enqueue``, then d and ids read back (``index.readback``)."""
+    with trace.span("index.search"):
+        q = np.asarray(queries, np.float32)
+        reads, chain = plan()
+        out = None
+        if graphs is not None and engages(index.device, len(q), *per_call):
+            out = graphs.search(reads, q, k, chain, index.device)
+        if out is None:
+            d, ids, hops, dcomp = enqueue(q, index.device, chain)
+            with trace.span("index.readback"):
+                d, ids = d[:, :k].cpu().numpy(), ids[:, :k].cpu().numpy()
+        else:
+            d, ids, hops, dcomp = out
+    index.last_stats = (hops, dcomp)
+    return d, ids
 
 
 class Replay:

@@ -34,10 +34,14 @@ from ..graph.types import ChalGraph
 from ..ops import cuda
 from ..ops.distance import sq_norms
 from ..persist.patch import _level_rows, _subset_rows, to_np
-from ..utils import trace
 from . import replay
 from .bruteforce import exact_topk
 from .hnsw import HnswIndex, LastStats, _check, allowed_rows, filter_iters
+
+
+def seed_rows(n: int) -> int:
+    """The rows of a seed table of ``n`` ids: a power of two, at least 64."""
+    return max(64, 1 << max(0, n - 1).bit_length())
 
 
 class HnswSlimIndex:
@@ -68,6 +72,7 @@ class HnswSlimIndex:
         # exact-seed table (seed_width > 1): vectors, norms and ids of all
         # level>=1 nodes, keyed by the graph object it was built for
         self.up_vecs = self.up_vn = self.up_ids = None
+        self.up_count = 0
         self._up_for = None
         self._replay = replay.Replay()
         self.last_stats: dict = {}
@@ -214,45 +219,67 @@ class HnswSlimIndex:
         """Per-graph serve-time knob calibration — see autotune_index."""
         return autotune_index(self, ef, **kw)
 
+    def _seed_ids(self) -> bool:
+        """Where the seed table is stale (none yet, or another graph
+        object's), set ``up_ids``, the ids of all level>=1 nodes padded to
+        ``seed_rows`` with -1, and ``up_count``, their number; True if so."""
+        if self.up_ids is not None and self._up_for is self.graph:
+            return False
+        lv = (self.host_chal["level"] if self.host_chal is not None
+              else self.graph.level.cpu().numpy())
+        ids = np.nonzero(np.asarray(lv) >= 1)[0].astype(np.int32)
+        idp = np.full(seed_rows(len(ids)), -1, np.int32)
+        idp[: len(ids)] = ids
+        self.up_ids, self.up_count = self._dev(idp), len(ids)
+        self._up_for = self.graph
+        return True
+
     def _seed_table(self):
         """(up_vecs [n_up_pad, d] in the store's row type, up_vn
-        f32[n_up_pad], up_ids i32[n_up_pad]) over all level>=1 nodes, padded
-        to a power of two (>= 64) with id -1; rebuilt when the graph object
-        changes."""
-        if self.up_ids is None or self._up_for is not self.graph:
-            lv = (self.host_chal["level"] if self.host_chal is not None
-                  else self.graph.level.cpu().numpy())
-            ids = np.nonzero(np.asarray(lv) >= 1)[0].astype(np.int32)
-            pad = max(64, 1 << max(0, len(ids) - 1).bit_length())
-            idp = np.full(pad, -1, np.int32)
-            idp[: len(ids)] = ids
-            self.up_ids = self._dev(idp)
+        f32[n_up_pad], up_ids i32[n_up_pad]) over all level>=1 nodes
+        (``_seed_ids``); rebuilt when the graph object changes."""
+        if self._seed_ids():
             self.up_vecs = self.vectors[self.up_ids.clamp(min=0).long()]
             self.up_vn = sq_norms(self.up_vecs)
-            self._up_for = self.graph
         return self.up_vecs, self.up_vn, self.up_ids
 
-    def _reads(self) -> dict:
-        """chal_search's arguments besides the queries, the entry, ef, k,
-        the iteration cap and the allow-list: the graph, the store and the
-        serving layouts a search reads, and the knobs."""
+    def _seeded(self) -> bool:
+        """Whether a search takes its seeds from the seed table."""
+        g = self.graph
+        return self.scfg.seed_width > 1 and g.threshold_level == 0 \
+            and g.max_level >= 1
+
+    def _serving(self, k: int) -> dict:
+        """The arguments both Slim chains take alike: the graph's shape, the
+        dense layouts, ef, k, the iteration cap and the knobs. Raises on
+        ``dynamic_ef``."""
         if self.scfg.dynamic_ef:
             raise NotImplementedError(
                 "dynamic_ef: the port compiles nothing per ef; set ef")
-        g = self.graph
-        up_vecs = up_vn = up_ids = None
-        if self.scfg.seed_width > 1 and g.threshold_level == 0 \
-                and g.max_level >= 1:
-            up_vecs, up_vn, up_ids = self._seed_table()
+        g, s = self.graph, self.scfg
         return dict(
-            graph_nbr=g.nbr, graph_lvl_off=g.lvl_off, vectors=self.vectors,
-            vn=self.vn, max_level=g.max_level,
-            threshold_level=g.threshold_level, cap0=g.cap0, cap=g.cap,
-            metric=self.metric, pop_width=self.scfg.pop_width,
-            dense0=self.dense0, dense_up=self.dense_up, rank_up=self.rank_up,
-            scan_width=self.scfg.scan_width, seed_width=self.scfg.seed_width,
-            up_vecs=up_vecs, up_vn=up_vn, up_ids=up_ids,
-            seed_strata=self.scfg.seed_strata)
+            max_level=g.max_level, threshold_level=g.threshold_level,
+            cap0=g.cap0, cap=g.cap, ef=max(s.ef, k), k=k,
+            max_iters=s.iters(), metric=self.metric, pop_width=s.pop_width,
+            scan_width=s.scan_width, seed_width=s.seed_width,
+            dense0=self.dense0, dense_up=self.dense_up, rank_up=self.rank_up)
+
+    def _plan(self, k: int, filter_mask=None, entry=None):
+        """(reads, chain) of ``replay.batch_search``: chal_search's
+        arguments besides the queries, and chal_search on uploaded ones."""
+        g, kw = self.graph, self._serving(k)
+        up = self._seed_table() if self._seeded() else (None,) * 3
+        kw.update(
+            graph_nbr=g.nbr, graph_lvl_off=g.lvl_off,
+            entry=g.entry if entry is None else entry, vectors=self.vectors,
+            vn=self.vn, up_vecs=up[0], up_vn=up[1], up_ids=up[2],
+            up_count=self.up_count, seed_strata=self.scfg.seed_strata)
+        if filter_mask is not None:
+            mask = np.asarray(filter_mask, bool)
+            kw.update(allowed=allowed_rows(mask, int(self.vectors.shape[0]),
+                                           self.device),
+                      max_iters=filter_iters(kw["max_iters"], mask))
+        return (kw,), lambda q: gs.chal_search(q=q, **kw)
 
     def search_async(self, queries, k: int,
                      filter_mask: np.ndarray | None = None, entry=None):
@@ -260,21 +287,8 @@ class HnswSlimIndex:
         return the device tensors (d f32[B, k], ids i32[B, k], hops i32[B],
         dcomp i32[B]) without waiting for the card, so a server can overlap
         batch k's read-back with batch k+1's compute."""
-        reads = self._reads()
-        allowed = None
-        max_iters = self.scfg.iters()
-        if filter_mask is not None:
-            mask = np.asarray(filter_mask, bool)
-            allowed = allowed_rows(mask, int(self.vectors.shape[0]),
-                                   self.device)
-            max_iters = filter_iters(max_iters, mask)
-        with trace.span("index.upload"):
-            q = torch.as_tensor(np.asarray(queries, np.float32),
-                                device=self.device)
-        return gs.chal_search(
-            entry=self.graph.entry if entry is None else entry, q=q,
-            ef=max(self.scfg.ef, k), k=k, max_iters=max_iters,
-            allowed=allowed, **reads)
+        return replay.enqueue(queries, self.device,
+                              self._plan(k, filter_mask, entry)[1])
 
     def search(self, queries: np.ndarray, k: int,
                filter_mask: np.ndarray | None = None, entry=None):
@@ -289,24 +303,9 @@ class HnswSlimIndex:
         (default: the graph's entry point). A repeated call on the card
         without either replays one CUDA graph of the whole search
         (``replay``), with the same results."""
-        with trace.span("index.search"):
-            q = np.asarray(queries, np.float32)
-            out = None
-            if replay.engages(self.device, len(q), filter_mask, entry):
-                kw = dict(entry=self.graph.entry, ef=max(self.scfg.ef, k),
-                          k=k, max_iters=self.scfg.iters(), **self._reads())
-                out = self._replay.search(
-                    (kw,), q, k, lambda dq: gs.chal_search(q=dq, **kw),
-                    self.device)
-            if out is None:
-                d, i, hops, dcomp = self.search_async(q, k, filter_mask,
-                                                      entry)
-                with trace.span("index.readback"):
-                    d, i = d.cpu().numpy(), i.cpu().numpy()
-            else:
-                d, i, hops, dcomp = out
-        self.last_stats = (hops, dcomp)
-        return d, i
+        return replay.batch_search(
+            self, queries, k, lambda: self._plan(k, filter_mask, entry),
+            filter_mask, entry, graphs=self._replay)
 
     def index_size(self) -> int:
         """Graph-only bytes in the reference's accounting."""

@@ -88,35 +88,28 @@ def slimq_search(nbr, lvl_off, entry, q_rot, packed, centroids_rot, dataset,
                  max_iters: int, metric: str, use_ex: bool,
                  pop_width: int = 1, dense0=None, dense_up=None, rank_up=None,
                  scan_width: int = 0, seed_width: int = 0, up_rows=None,
-                 up_ids=None):
+                 up_ids=None, up_count: int = 0):
     """The SlimQ query path (JAX ``_slimq_search_jit``).
 
     ``q_rot`` f32[B, P] rotated queries, ``packed`` the packed code rows,
     ``dataset`` / ``q_raw`` the raw vectors and queries of the rerank track
     (None, None: estimate-only). Seeds: with ``seed_width`` > 1 at threshold
     level 0 and a seed table (``up_rows`` the packed rows of all level>=1
-    nodes, ``up_ids`` their ids, -1 padded), the min(seed_width, ef) lowest
-    1-bit estimates over the table; else greedy descent on estimates over
-    levels max_level..threshold_level+1. Then one carried buffer beamed over
-    levels threshold_level..0, checked bits reset between levels, the rerank
-    track carried beside it. Returns (dists, ids, hops i32[B], dcomp
-    i32[B]): with a dataset the track (kk = max(k, 16) wide, exact
-    distances), else the buffer (estimates); callers keep the first k.
+    nodes, ``up_ids`` their ids, -1 padded, ``up_count`` of them real), the
+    min(seed_width, ef) lowest 1-bit estimates over the table; else greedy
+    descent on estimates over levels max_level..threshold_level+1. Then
+    ``gs.base_beam``, the rerank track carried beside the buffer. Returns
+    (dists, ids, hops i32[B], dcomp i32[B]): with a dataset the track
+    (kk = max(k, 16) wide, exact distances), else the buffer (estimates);
+    callers keep the first k.
     dcomp counts the estimates of the beams and of the seed scan, not the
     rerank distances. The track computes one exact distance a pop, so the
-    rerank distances of a beam are its hops: the counter
+    rerank distances are the beams' hops: the counter
     ``index.rerank_dcomp``."""
-    P, ef_eff = ef, ef
-    if ef >= 256 and not gs._is_bitonic_width(ef):
-        P = gs.bitonic_buffer_width(ef)
+    P = gs.buffer_width(ef)
     b = q_rot.shape[0]
     dev = q_rot.device
-
-    def level_fetch(l):
-        if l > 0 and dense_up is not None and l - 1 < len(dense_up):
-            return gs.rank_fetch(rank_up, dense_up[l - 1])
-        return gs.chal_fetch(nbr, lvl_off, l, cap if l > 0 else cap0)
-
+    fetch = gs.slim_fetch(nbr, lvl_off, cap0, cap, dense0, dense_up, rank_up)
     seed_width = min(seed_width, P)
     table = (seed_width > 1 and threshold_level == 0 and max_level >= 1
              and up_rows is not None)
@@ -125,8 +118,8 @@ def slimq_search(nbr, lvl_off, entry, q_rot, packed, centroids_rot, dataset,
     with trace.span("index.seed" if table else "index.descent"):
         sumq, g_add = g_tables(q_rot, centroids_rot, metric)
         scorer = QuantScorer(packed, nb, ex_bits, use_ex, q_rot, sumq, g_add)
-        hops = torch.zeros(b, dtype=torch.int32, device=dev)
-        dcomp = torch.zeros(b, dtype=torch.int32, device=dev)
+        # the seed scan estimates a distance to every real row of the table
+        hops, dcomp = 0, up_count if table else 0
         if table:
             sd, pos = topk_estimate(
                 scorer._replace(rows=up_rows, use_ex=False), up_ids,
@@ -135,40 +128,29 @@ def slimq_search(nbr, lvl_off, entry, q_rot, packed, centroids_rot, dataset,
                                  -1)
             buf_d = sd.contiguous()
             buf_id = buf_id.to(torch.int32).contiguous()
-            dcomp = dcomp + (up_ids >= 0).sum().to(torch.int32)
         else:
             cur = torch.full((b,), int(entry), dtype=torch.int32, device=dev)
             # one Kε launch scores the entry point, then descends (no level:
             # the entry's estimate only)
             cur, curdist, _, _ = gs.greedy_descent_levels(
                 None, None, None,
-                [level_fetch(l) for l in range(max_level, threshold_level,
-                                               -1)],
+                [fetch(l) for l in range(max_level, threshold_level, -1)],
                 max_level, cur, None, scorer=scorer)
             buf_d = curdist[:, None].contiguous()
             buf_id = cur[:, None].contiguous()
-        track = None
+        beam = dict(scorer=scorer)
         if dataset is not None:
-            track = gs.pop_track_init(dataset, q_raw, max(k, 16), metric)
-    with trace.span("index.beam"):
-        for l in range(min(threshold_level, max_level), -1, -1):
-            fetch = gs.dense_fetch(dense0) if l == 0 and dense0 is not None \
-                else level_fetch(l)
-            out = gs.beam_search(
-                None, None, None, fetch, buf_d, buf_id, P=P, ef_eff=ef_eff,
-                pop_width=pop_width,
-                cw=gs.cand_width(P, pop_width, fetch.width, scan_width),
-                max_iters=max_iters, k=P, metric=metric, scorer=scorer,
-                pop_track=track)
-            trace.count("index.beam_dcomp", out[3])
-            buf_d, buf_id = out[0], out[1]
-            hops, dcomp = hops + out[2], dcomp + out[3]
-            if track is not None:
-                trace.count("index.rerank_dcomp", out[2])
-                track = out[4]
-    if track is not None:
-        return track.d, track.ids, hops, dcomp
-    return buf_d, buf_id, hops, dcomp
+            beam["pop_track"] = gs.pop_track_init(dataset, q_raw, max(k, 16),
+                                                  metric)
+    buf_d, buf_id, hops, dcomp, beam = gs.base_beam(
+        fetch, None, None, None, buf_d, buf_id, hops, dcomp,
+        threshold_level=threshold_level, max_level=max_level, P=P, ef=ef, k=P,
+        pop_width=pop_width, scan_width=scan_width, max_iters=max_iters,
+        metric=metric, **beam)
+    if dataset is None:
+        return buf_d, buf_id, hops, dcomp
+    trace.count("index.rerank_dcomp", hops)
+    return beam["pop_track"].d, beam["pop_track"].ids, hops, dcomp
 
 
 class HnswSlimQIndex:
@@ -194,6 +176,7 @@ class HnswSlimQIndex:
         # seed table over level>=1 nodes (scfg.seed_width > 1): their packed
         # rows and ids, keyed by the graph object it was built for
         self.up_rows = self.up_ids = None
+        self.up_count = 0
         self._up_for = None
         self.use_ex = False
         # dense serving layouts: SlimQ's graph is a plain ChalGraph, so
@@ -219,6 +202,10 @@ class HnswSlimQIndex:
     densify_upper = HnswSlimIndex.densify_upper
     _host_chal = HnswSlimIndex._host_chal
     _dev = HnswSlimIndex._dev
+    # the seed table's ids and the reads both Slim chains share
+    _seed_ids = HnswSlimIndex._seed_ids
+    _seeded = HnswSlimIndex._seeded
+    _serving = HnswSlimIndex._serving
 
     @classmethod
     def build(cls, vectors: np.ndarray, hnsw_cfg: HnswConfig | None = None,
@@ -327,70 +314,46 @@ class HnswSlimQIndex:
 
     def _seed_table(self):
         """(up_rows i32[n_up_pad, R], up_ids i32[n_up_pad]): the packed code
-        rows and ids of all level>=1 nodes, padded to a power of two (>= 64)
-        with id -1; rebuilt when the graph object changes. The seed scan
-        reads the 1-bit plane, the 1-bit factors and the cluster id of each
-        row."""
-        if self.up_ids is None or self._up_for is not self.graph:
-            lv = (self.host_chal["level"] if self.host_chal is not None
-                  else self.graph.level.cpu().numpy())
-            ids = np.nonzero(np.asarray(lv) >= 1)[0].astype(np.int32)
-            pad = max(64, 1 << max(0, len(ids) - 1).bit_length())
-            idp = np.full(pad, -1, np.int32)
-            idp[: len(ids)] = ids
-            self.up_ids = self._dev(idp)
+        rows and ids of all level>=1 nodes (``_seed_ids``); rebuilt when the
+        graph object changes. The seed scan reads the 1-bit plane, the 1-bit
+        factors and the cluster id of each row."""
+        if self._seed_ids():
             self.up_rows = self._packed_rows()[
                 self.up_ids.clamp(min=0).long()].contiguous()
-            self._up_for = self.graph
         return self.up_rows, self.up_ids
 
-    def _reads(self, k: int, rerank: bool) -> dict:
-        """slimq_search's arguments besides the queries: the graph, the
-        codes, the seed table, the rerank dataset (None without a track)
-        and the knobs."""
-        if self.scfg.dynamic_ef:
-            raise NotImplementedError(
-                "dynamic_ef: the port compiles nothing per ef; set ef")
-        g, c = self.graph, self.codes
+    def _plan(self, k: int, rerank: bool):
+        """(reads, chain) of ``replay.batch_search``: slimq_search's
+        arguments besides the queries and the rotator's tensors, and Kη,
+        then slimq_search, on uploaded raw queries."""
+        g, c, kw = self.graph, self.codes, self._serving(k)
         use_track = rerank and self.dataset is not None
         if self._dataset_dev is None and use_track:
             self._dataset_dev = self._dev(self.dataset)
-        up_rows = up_ids = None
-        if self.scfg.seed_width > 1 and g.threshold_level == 0 \
-                and g.max_level >= 1:
-            up_rows, up_ids = self._seed_table()
-        return dict(
+        up_rows, up_ids = self._seed_table() if self._seeded() \
+            else (None, None)
+        kw.update(
             nbr=g.nbr, lvl_off=g.lvl_off, entry=g.entry,
             packed=self._packed_rows(), centroids_rot=self.centroids_rot,
             dataset=self._dataset_dev if use_track else None,
             nb=int(c.bin_code.shape[1]), ex_bits=int(c.ex_bits),
-            seed_width=self.scfg.seed_width, up_rows=up_rows, up_ids=up_ids,
-            max_level=g.max_level, threshold_level=g.threshold_level,
-            cap0=g.cap0, cap=g.cap, ef=max(self.scfg.ef, k), k=k,
-            max_iters=self.scfg.iters(), metric=self.metric,
-            use_ex=self.use_ex or self.scfg.use_ex,
-            pop_width=self.scfg.pop_width, dense0=self.dense0,
-            dense_up=self.dense_up, rank_up=self.rank_up,
-            scan_width=self.scfg.scan_width)
+            up_rows=up_rows, up_ids=up_ids, up_count=self.up_count,
+            use_ex=self.use_ex or self.scfg.use_ex)
 
-    def _enqueue(self, q_raw, reads: dict):
-        """The device chain of a search from uploaded raw queries: Kη on
-        them, then ``slimq_search``."""
-        with trace.span("index.rotate"):
-            q_rot = self.rotator.rotate(q_raw)
-        return slimq_search(
-            q_rot=q_rot, q_raw=(None if reads["dataset"] is None
-                                else q_raw.contiguous()), **reads)
+        def chain(q_raw):
+            with trace.span("index.rotate"):
+                q_rot = self.rotator.rotate(q_raw)
+            return slimq_search(
+                q_rot=q_rot, q_raw=q_raw.contiguous() if use_track else None,
+                **kw)
+
+        return (kw, self.rotator.signs, self.rotator.fac), chain
 
     def search_async(self, queries, k: int, rerank: bool = True):
         """Enqueue one search — exactly what ``search`` runs eagerly — and
         return the device tensors (d, ids, hops i32[B], dcomp i32[B])
         without waiting for the card; d and ids are at least k wide."""
-        reads = self._reads(k, rerank)
-        with trace.span("index.upload"):
-            q_raw = torch.as_tensor(np.asarray(queries, np.float32),
-                                    device=self.device)
-        return self._enqueue(q_raw, reads)
+        return replay.enqueue(queries, self.device, self._plan(k, rerank)[1])
 
     def search(self, queries: np.ndarray, k: int, rerank: bool = True):
         """(dists f32[B, k], ids i32[B, k]) as numpy: exact distances to the
@@ -398,22 +361,9 @@ class HnswSlimQIndex:
         estimates. Sets ``last_stats`` (hops, distance_computations, summed
         when first read). A repeated call on the card replays one CUDA
         graph of the whole search (``replay``), with the same results."""
-        with trace.span("index.search"):
-            q = np.asarray(queries, np.float32)
-            out = None
-            if replay.engages(self.device, len(q)):
-                reads = self._reads(k, rerank)
-                out = self._replay.search(
-                    (reads, self.rotator.signs, self.rotator.fac), q, k,
-                    lambda dq: self._enqueue(dq, reads), self.device)
-            if out is None:
-                d, ids, hops, dcomp = self.search_async(q, k, rerank)
-                with trace.span("index.readback"):
-                    d, ids = d[:, :k].cpu().numpy(), ids[:, :k].cpu().numpy()
-            else:
-                d, ids, hops, dcomp = out
-        self.last_stats = (hops, dcomp)
-        return d, ids
+        return replay.batch_search(self, queries, k,
+                                   lambda: self._plan(k, rerank),
+                                   graphs=self._replay)
 
     def index_size(self) -> int:
         """Graph + quantized payload bytes (no raw vectors)."""

@@ -119,7 +119,7 @@ class FlatUnionIndex:
         per-shard segments of one padded width U of the shard's level>=1
         nodes, so Kα's strata mode takes seed_width / S seeds per shard. The
         table's rows are a gather of the store (bf16 for a bf16 store)."""
-        from ..index.slim import HnswSlimIndex
+        from ..index.slim import HnswSlimIndex, seed_rows
 
         slim = HnswSlimIndex(metric=self.metric, search_cfg=self.scfg,
                              device=self.device)
@@ -132,11 +132,12 @@ class FlatUnionIndex:
         n_per = len(lv) // s
         per = [np.nonzero(lv[i * n_per:(i + 1) * n_per] >= 1)[0] + i * n_per
                for i in range(s)]
-        u = max(64, 1 << max(0, max(len(p) for p in per) - 1).bit_length())
+        u = seed_rows(max(len(p) for p in per))
         idp = np.full((s, u), -1, np.int32)
         for i, p in enumerate(per):
             idp[i, :len(p)] = p
         slim.up_ids = torch.as_tensor(idp.reshape(-1), device=self.device)
+        slim.up_count = sum(len(p) for p in per)
         slim.up_vecs = self.vectors[slim.up_ids.clamp(min=0).long()]
         slim.up_vn = sq_norms(slim.up_vecs)
         slim._up_for = self.graph

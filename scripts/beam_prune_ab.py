@@ -255,8 +255,7 @@ def main() -> int:
     vc, vd = vc[:, None].contiguous(), vd[:, None].contiguous()
 
     def slim_kw(ef, pop=8, width=None):
-        P = gs.bitonic_buffer_width(ef) if ef >= 256 and \
-            not gs._is_bitonic_width(ef) else ef
+        P = gs.buffer_width(ef)
         return dict(P=P, ef_eff=ef, pop_width=pop,
                     cw=gs.cand_width(P, pop, width or idx.dense0.shape[1], 0),
                     max_iters=SearchConfig(ef=ef, pop_width=pop).iters(),

@@ -1,12 +1,15 @@
-"""The index host path's CUDA graph replay (hnsw_slim_tpu_torch/index/replay.py).
+"""The indexes' one batch search host path and its CUDA graph replay
+(hnsw_slim_tpu_torch/index/replay.py).
 
 On the CPU: the rules that decide when a search replays (the padded rows
 of a batch, the key follows every tensor and scalar the chain reads, a key
 is captured on its second sighting, at most ``SLOTS`` graphs, a CPU device,
 an allow-list or per-query entries stay eager, a busy replay sends the
 caller eager), the counters' and launch counts' diversion under a capture
-and their count after a replay, and the wiring of both indexes' ``search``
-through a stand-in graph that runs the padded chain eagerly.
+and their count after a replay, the wiring of both Slim indexes' ``search``
+through a stand-in graph that runs the padded chain eagerly, and every
+index's ``search`` (``HnswIndex``'s too, which never replays) through the
+one host path: its spans, its results and ``last_stats``.
 
 Marked ``cuda``, each skipping without a card: a replayed ``search`` of a
 Slim and a SlimQ index gives the eager chain's bits (d, ids, hops, dcomp)
@@ -34,7 +37,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from hnsw_slim_tpu_torch.config import (HnswConfig, QuantConfig, SearchConfig,
                                         SlimConfig)
+from hnsw_slim_tpu_torch.graph import search as gs
 from hnsw_slim_tpu_torch.index import replay
+from hnsw_slim_tpu_torch.index.hnsw import HnswIndex
 from hnsw_slim_tpu_torch.index.slim import HnswSlimIndex
 from hnsw_slim_tpu_torch.index.slimq import HnswSlimQIndex
 from hnsw_slim_tpu_torch.ops import cuda
@@ -294,13 +299,16 @@ CFG = HnswConfig(M=12, ef_construction=64)
 @pytest.fixture(scope="module")
 def cpu_indexes():
     base, queries = clustered(n=1500, dim=16, n_queries=96, seed=71)
-    slim = HnswSlimIndex.build(base, hnsw_cfg=CFG, device="cpu")
+    hnsw = HnswIndex(CFG, device="cpu")
+    hnsw.build(base)
+    hnsw.scfg = SearchConfig(ef=32, pop_width=4)
+    slim = HnswSlimIndex.from_hnsw(hnsw, SlimConfig.from_ratios())
     slim.scfg = SearchConfig(ef=32, pop_width=4, seed_width=16)
     slimq = HnswSlimQIndex.build(
         base, hnsw_cfg=CFG, slim_cfg=SlimConfig.from_ratios(),
         quant_cfg=QuantConfig(), device="cpu")
     slimq.scfg = SearchConfig(ef=32, pop_width=4, seed_width=16, use_ex=True)
-    return {"slim": slim, "slimq": slimq}, queries
+    return {"slim": slim, "slimq": slimq, "hnsw": hnsw}, queries
 
 
 @pytest.mark.parametrize("kind", ["slim", "slimq"])
@@ -342,13 +350,87 @@ def test_filtered_and_entry_searches_stay_eager(rec, stand_in, cpu_indexes):
         for _ in range(3):
             idx.search(queries[:32], 10, filter_mask=mask)
             idx.search(queries[:32], 10, entry=entry)
-    assert "index.replays" not in rec.drain()["counters"]
+    got = rec.drain()
+    assert "index.replays" not in got["counters"]
     assert not idx._replay._seen and not idx._replay._graphs
+    assert [_children(got["spans"], s) for s in got["spans"]
+            if s.name == "index.search"] == [
+        ["index.upload", "index.seed", "index.beam", "index.readback"]] * 6
+
+
+def _children(spans, parent) -> list:
+    """The names of ``parent``'s child spans in the order they started."""
+    return [s.name for s in sorted(spans, key=lambda s: s.start)
+            if s.parent == parent.id]
+
+
+def hnsw_eager(idx, q, k, filter_mask=None):
+    """``HnswIndex.search``'s (d, ids, hops, dcomp) from ``level_search``
+    called directly with the index's knobs."""
+    from hnsw_slim_tpu_torch.index.hnsw import allowed_rows, filter_iters
+
+    g, its, allowed = idx.graph, idx.scfg.iters(), None
+    if filter_mask is not None:
+        allowed = allowed_rows(filter_mask, len(idx.vectors), "cpu")
+        its = filter_iters(its, filter_mask)
+    d, i, h, c = gs.level_search(
+        g.adjs, g.entry, idx.vectors, idx.vn, torch.from_numpy(q),
+        max_level=g.max_level, ef=max(idx.scfg.ef, k), k=k, max_iters=its,
+        metric=idx.cfg.metric, pop_width=idx.scfg.pop_width, allowed=allowed)
+    return host(d), host(i), host(h), host(c)
+
+
+SPANS = {
+    "slim": ["index.upload", "index.seed", "index.beam", "index.readback"],
+    "slimq": ["index.upload", "index.rotate", "index.seed", "index.beam",
+              "index.readback"],
+    "hnsw": ["index.upload", "index.descent", "index.beam",
+             "index.readback"],
+}
+
+
+@pytest.mark.parametrize("kind", ["slim", "slimq", "hnsw"])
+def test_every_search_runs_the_one_host_path(rec, cpu_indexes, kind,
+                                             monkeypatch):
+    idxs, queries = cpu_indexes
+    idx, q = idxs[kind], queries[:40]
+    calls, real = [], replay.batch_search
+
+    def spy(*args, **kw):
+        calls.append(kw.get("graphs"))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(replay, "batch_search", spy)
+    with recorded():
+        got = searched(idx, q, 10)
+    spans = rec.drain()["spans"]
+    assert calls == [None if kind == "hnsw" else idx._replay]
+    assert_same(got, hnsw_eager(idx, q, 10) if kind == "hnsw"
+                else eager(idx, q, 10))
+    top = [s for s in spans if s.name == "index.search"]
+    assert len(top) == 1 and top[0].parent == 0
+    assert _children(spans, top[0]) == SPANS[kind]
+
+
+def test_hnsw_search_stays_eager_and_filters(rec, stand_in, cpu_indexes):
+    idxs, queries = cpu_indexes
+    idx = idxs["hnsw"]
+    mask = np.arange(idx.graph.n) % 3 != 0
+    with recorded():
+        for _ in range(3):
+            assert_same(searched(idx, queries[:32], 10),
+                        hnsw_eager(idx, queries[:32], 10))
+            got = searched(idx, queries[:32], 10, filter_mask=mask)
+            assert_same(got, hnsw_eager(idx, queries[:32], 10, mask))
+            assert (got[1] >= 0).all() and mask[got[1]].all()
+    c = rec.drain()["counters"]
+    assert "index.replays" not in c and "index.captures" not in c
+    assert not hasattr(idx, "_replay")
 
 
 def test_a_cpu_index_never_replays(cpu_indexes):
     idxs, queries = cpu_indexes
-    for idx in idxs.values():
+    for idx in (idxs["slim"], idxs["slimq"]):
         idx._replay = replay.Replay()
         for _ in range(3):
             idx.search(queries[:32], 10)

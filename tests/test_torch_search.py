@@ -69,3 +69,46 @@ def test_search_knobs_outside_the_slice_raise(engines):
     with pytest.raises(NotImplementedError, match="dynamic_ef"):
         ps.search(queries, k=10)
     ps.scfg = dataclasses.replace(ps.scfg, dynamic_ef=False)
+
+
+def test_seed_table_ids_are_jaxs(engines):
+    """The seed table's ids (every level>=1 node, -1 padded to a power of
+    two of at least 64) are the JAX package's, and ``up_count`` counts the
+    real ones."""
+    js, ps, _, _ = engines
+    want = np.asarray(js._seed_table()[1])
+    ps._up_for = None  # built anew
+    np.testing.assert_array_equal(ps._seed_table()[2].numpy(), want)
+    assert ps.up_count == int((want >= 0).sum()) and len(want) >= 64
+
+
+def test_a_seeded_search_never_reads_the_entry(engines, monkeypatch):
+    """With a seed table, chal_search seeds from Kα alone: it never takes
+    the entry's distance (K1), and its results still match JAX's, strata
+    or not; the greedy descent still starts from the entry."""
+    from hnsw_slim_tpu_torch.graph import search as gs
+
+    def entry_dist(*args, **kw):
+        raise AssertionError("entry_dist on the seed-table path")
+
+    monkeypatch.setattr(gs, "entry_dist", entry_dist)
+    check_search_parity(engines, 32, 8, 0)
+    _, ps, queries, _ = engines
+    ps.scfg = dataclasses.replace(ps.scfg, seed_strata=4)
+    ps.search(queries, k=10)
+    ps.scfg = dataclasses.replace(ps.scfg, seed_strata=0, seed_width=0)
+    with pytest.raises(AssertionError, match="seed-table path"):
+        ps.search(queries, k=10)
+
+
+def test_buffer_width_is_the_jax_engines():
+    """The Slim chains' buffer width at every ef up to 512 is the JAX
+    engine's: ef, or from 256 up, where ef is not a bitonic width, its
+    rounding up."""
+    from hnsw_slim_tpu.graph import search as jgs
+    from hnsw_slim_tpu_torch.graph import search as gs
+
+    for ef in range(1, 513):
+        want = jgs.bitonic_buffer_width(ef) if ef >= 256 and \
+            not jgs._is_bitonic_width(ef) else ef
+        assert gs.buffer_width(ef) == want, ef

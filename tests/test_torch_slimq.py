@@ -175,6 +175,19 @@ def test_seed_block_matches_jax(world):
     assert (got == want).mean() >= 0.99
 
 
+@pytest.mark.parametrize("which", [0, 1])
+def test_seed_table_ids_are_jaxs(world, which):
+    """The seed table's ids (every level>=1 node, -1 padded to a power of
+    two of at least 64) are the JAX package's, at threshold level 0 and 1,
+    and ``up_count`` counts the real ones."""
+    j, p = world["jax"][which], world["port"][which]
+    want = np.asarray(j._seed_table()[3])
+    p._up_for = None  # built anew
+    rows, ids = p._seed_table()
+    np.testing.assert_array_equal(ids.numpy(), want)
+    assert p.up_count == int((want >= 0).sum()) and len(rows) == len(want)
+
+
 def test_port_build_recall_and_size():
     """A port-side build on the JAX end-to-end test's data (4000 x 128,
     M=16, ef_construction=100, 4 bits; at 64 dims the graph alone passes
