@@ -60,9 +60,19 @@
 // Quantized mode (QUANT; JAX: index/slimq.py _slimq_search_jit's score
 // closure over pack_code_rows with quant/estimator.py est_dist_1bit /
 // est_dist_ex, and its pop_hook): step 3 scores a candidate by its RaBitQ
-// estimate from one packed code row (common.cuh quant_score: 84 B at P = 128
-// and 4 bits instead of a 512 B vector; the 1-bit or the full-code estimate),
-// with the rotated query and the query's g_add row in shared memory. With a
+// estimate from one packed code row (84 B at P = 128 and 4 bits instead of
+// a 512 B vector; the 1-bit or the full-code estimate), with the rotated
+// query and the query's g_add row in shared memory. A warp scores ROWS
+// candidates at a time from one gather of their code rows
+// (common.cuh quant_score_rows): every word their estimates read — bit
+// planes, factors, cluster id — is issued before any sum, so a group costs
+// one memory round trip, as the exact mode's four vectors do (a block's
+// iteration waits on its slowest warp's chain of such trips); the words go
+// through the warp's stage in shared memory (4 KB a block), from which each
+// lane reads a word of all four rows with one 16-byte broadcast load. A row
+// of more than QUANT_ROUND_WORDS words (wide P, many ex bits) takes a round
+// per QUANT_ROUND_WORDS; at P = 128 it is one. Every estimate is bit-equal
+// to the one-row scorer's. With a
 // rerank track (common.cuh PopTrack) the block also keeps the raw query and
 // a sorted list of kk (exact distance, id): after step 1 one warp per pop
 // reads the popped node's raw vector (the one 4 D-byte gather per pop) and
@@ -86,7 +96,9 @@ namespace {
 constexpr int THREADS = 256;  // select_kth needs exactly 256
 constexpr int NW = THREADS / 32;
 constexpr int MAX_POP = 64;
-constexpr int ROWS = 4;  // candidate rows a warp has in flight (step 3)
+// candidate rows a warp has in flight (step 3), vectors or code rows (8 code
+// rows spill registers at 4 blocks an SM)
+constexpr int ROWS = 4;
 
 template <bool QUANT, class T>
 __global__ void __launch_bounds__(THREADS, 4)
@@ -142,6 +154,13 @@ beam_kernel(const T* __restrict__ vec, int D, const hs::Fetch f,
   __shared__ const int* s_row[MAX_POP];
   __shared__ int s_rowcnt[MAX_POP];
   __shared__ float s_ed[MAX_POP];  // the pops' exact distances (rerank)
+  // quantized: each warp's stage of gathered code words (step 3)
+  uint32_t* stage = nullptr;
+  if constexpr (QUANT) {
+    __shared__ __align__(16) uint32_t s_stage[NW * hs::QUANT_ROUND_WORDS *
+                                              ROWS];
+    stage = s_stage + (threadIdx.x >> 5) * hs::QUANT_ROUND_WORDS * ROWS;
+  }
 
   const int b = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -336,14 +355,17 @@ beam_kernel(const T* __restrict__ vec, int D, const hs::Fetch f,
     }
 
     // 3. score: each warp ROWS candidates at a time, their rows in flight
-    // together
+    // together (quantized: one gather of their code rows)
     for (int c0 = warp * ROWS; c0 < m; c0 += NW * ROWS) {
       const int nr = min(ROWS, m - c0);
-      if (QUANT) {
-        for (int r = 0; r < nr; ++r) {
-          const float dist = hs::quant_score(z, qs, ga, qnv, ci[c0 + r]);
-          if (lane == 0) cd[c0 + r] = dist;
-        }
+      if constexpr (QUANT) {
+        int ids[ROWS];
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) ids[r] = ci[c0 + min(r, nr - 1)];
+        const float dist =  // of row lane / (32 / ROWS)
+            hs::quant_score_rows<ROWS>(z, qs, ga, qnv, ids, nr, stage);
+        const int r = lane / (32 / ROWS);
+        if (lane % (32 / ROWS) == 0 && r < nr) cd[c0 + r] = dist;
       } else {
         const T* rows[ROWS];
         float* const st[ROWS] = {};

@@ -586,14 +586,33 @@ struct Quant {
   int C;
 };
 
+// Words of each code row that one gather round of quant_score_rows takes
+// (quant/estimator.py ROUND_WORDS): R rows' share of a round is R words a
+// lane, and a warp's stage holds QUANT_ROUND_WORDS * R words.
+constexpr int QUANT_ROUND_WORDS = 32;
+
 // Estimated distances of R nodes ids[r] (r < nr; rows r >= nr are not
-// read) by one warp: the code words of all R rows are loaded before any is
-// summed, so a warp has R rows in flight instead of one; the lane sums are
-// reduced by warp_sum_rows, and lane l returns the estimate of row
-// l / (32 / R). qr: the query's q_rot (shared or global memory), ga: its
-// g_add row. Lane j owns dimension j of every word: the word is broadcast
-// from the lane that loaded it and lane j adds q_rot[32 w + j] where bit j
-// is set.
+// read) by one warp, lane l returning the estimate of row l / (32 / R).
+// qr: the query's q_rot (shared or global memory), ga: its g_add row,
+// stage: the warp's QUANT_ROUND_WORDS * R words of shared memory, 16-byte
+// aligned.
+//
+// Gather once, then compute. A row's words that the estimate reads — the
+// bin plane, the ex planes in the full-code mode, then the five words of
+// factors and cluster id — are numbered u = 0, 1, ... The warp loads
+// QUANT_ROUND_WORDS of them of every row in one round, all in flight
+// together before any is summed: lane l loads the words u = u0 + (32 / R) k
+// + l / R of row l % R (32 / R consecutive words of a row a load: one
+// coalesced piece of each row) and stores them to the stage, word u of row
+// r at (u - u0) R + r. A row whose words exceed a round (wide P, many ex
+// bits) takes as many rounds as it needs; at P = 128 and 1 + 3 bits a row
+// is 21 words, one round (and the 1-bit mode 9). Then each lane reads word
+// u of all R rows with one broadcast load (16 bytes at R = 4; a broadcast
+// load instead of R shuffles, which bound the scorer's issue rate): lane j
+// adds q_rot[32 w + j] where bit j of a plane word is set, and takes its
+// own row's factors and cluster id. The sums run in the one-row order —
+// each plane's words in order, fmaf(2^(p-1), plane sum, ex sum) a plane,
+// warp_sum_rows' tree — so every estimate is bit-equal for every R.
 //   1-bit: f_add + g_add + f_rescale * (<q, bin> - sumq / 2)
 //   ex:    f_add_ex + g_add + f_rescale_ex *
 //          (2^ex <q, bin> + sum_b 2^b <q, ex_b> - (2^ex - 1/2) sumq)
@@ -602,71 +621,109 @@ __device__ __forceinline__ float quant_score_rows(const Quant& z,
                                                   const float* qr,
                                                   const float* ga, float sumq,
                                                   const int (&ids)[R],
-                                                  int nr) {
+                                                  int nr, uint32_t* stage) {
+  static_assert(R >= 1 && R <= 32 && (32 % R) == 0, "R divides 32");
+  constexpr int PER = 32 / R;  // words of each row in a slot
   const int lane = threadIdx.x & 31;
   const int nb = z.nb;
-  const int planes = z.use_ex ? 1 + z.ex_bits : 1;
-  float a_bin[R], a_ex[R];
+  const int ncode = (z.use_ex ? 1 + z.ex_bits : 1) * nb;  // plane words read
+  const int nw = ncode + 5;
+  const int tail = nb * (1 + z.ex_bits);  // the five words' place in a row
+  const int t_add = z.use_ex ? 2 : 0;     // f_add (ex: f_add_ex), f_rescale
+  // the row this lane loads, and the row whose estimate it returns
+  const int r_ld = lane % R, me = lane / PER;
+  int id_ld = ids[0];
 #pragma unroll
-  for (int r = 0; r < R; ++r) a_bin[r] = a_ex[r] = 0.f;
-  for (int p = 0; p < planes; ++p) {
-    const float wgt = p ? (float)(1 << (p - 1)) : 1.f;
-    float acc[R];
+  for (int r = 1; r < R; ++r)
+    if (r == r_ld) id_ld = ids[r];
+  const uint32_t* row = z.rows + (size_t)id_ld * z.stride;
+  float a_bin[R], a_ex[R], acc[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = 0.f;
-    for (int w0 = 0; w0 < nb; w0 += 32) {
-      const int cnt = min(32, nb - w0);
-      uint32_t mine[R];
+  for (int r = 0; r < R; ++r) a_bin[r] = a_ex[r] = acc[r] = 0.f;
+  uint32_t f_add_w = 0u, f_rescale_w = 0u, cid_w = 0u;
+  int p = 0, w = 0;  // plane and word of the next plane word
+  for (int u0 = 0; u0 < nw; u0 += QUANT_ROUND_WORDS) {
+    const int un = min(nw, u0 + QUANT_ROUND_WORDS);
+    uint32_t v[R];
 #pragma unroll
-      for (int r = 0; r < R; ++r)
-        mine[r] = (r < nr && lane < cnt)
-                      ? __ldg(z.rows + (size_t)ids[r] * z.stride + p * nb +
-                              w0 + lane)
-                      : 0u;
-      for (int w = 0; w < cnt; ++w) {
-        const float qe = qr[(w0 + w) * 32 + lane];
+    for (int k = 0; k < R; ++k) {
+      const int u = u0 + k * PER + lane / R;
+      v[k] = (r_ld < nr && u < un)
+                 ? __ldg(row + (u < ncode ? u : tail + (u - ncode)))
+                 : 0u;
+    }
+    __syncwarp();  // the stage's last reads are done
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const uint32_t word = __shfl_sync(HS_FULL, mine[r], w);
-          if ((word >> lane) & 1u) acc[r] += qe;
+    for (int k = 0; k < R; ++k) stage[k * 32 + lane] = v[k];
+    __syncwarp();
+    for (int u = u0; u < un; ++u) {
+      const uint32_t* wr = stage + (u - u0) * R;  // word u of rows 0..R-1
+      if (u < ncode) {
+        const float qe = qr[w * 32 + lane];
+        uint32_t wd[R];
+        if constexpr (R % 4 == 0) {
+#pragma unroll
+          for (int r = 0; r < R; r += 4) {
+            const uint4 x = *reinterpret_cast<const uint4*>(wr + r);
+            wd[r] = x.x;
+            wd[r + 1] = x.y;
+            wd[r + 2] = x.z;
+            wd[r + 3] = x.w;
+          }
+        } else {
+#pragma unroll
+          for (int r = 0; r < R; ++r) wd[r] = wr[r];
         }
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          if ((wd[r] >> lane) & 1u) acc[r] += qe;
+        if (++w == nb) {
+          const float wgt = p ? (float)(1 << (p - 1)) : 1.f;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            if (p) a_ex[r] = fmaf(wgt, acc[r], a_ex[r]);
+            else a_bin[r] = acc[r];
+            acc[r] = 0.f;
+          }
+          w = 0;
+          ++p;
+        }
+      } else {
+        const int t = u - ncode;
+        const uint32_t word = wr[me];
+        if (t == t_add) f_add_w = word;
+        else if (t == t_add + 1) f_rescale_w = word;
+        else if (t == 4) cid_w = word;
       }
     }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (p) a_ex[r] = fmaf(wgt, acc[r], a_ex[r]);
-      else a_bin[r] = acc[r];
-    }
   }
-  const int me = lane / (32 / R);
-  int id = 0;
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-    if (r == me) id = ids[r];
   const bool ok = me < nr;
-  const uint32_t* tail = z.rows + (size_t)id * z.stride + nb * (1 + z.ex_bits);
-  const float f_add = ok ? __uint_as_float(__ldg(tail + (z.use_ex ? 2 : 0)))
-                         : 0.f;
-  const float f_rescale =
-      ok ? __uint_as_float(__ldg(tail + (z.use_ex ? 3 : 1))) : 0.f;
-  const int cid = ok ? static_cast<int>(__ldg(tail + 4)) : 0;
+  const float f_add = ok ? __uint_as_float(f_add_w) : 0.f;
+  const float f_rescale = ok ? __uint_as_float(f_rescale_w) : 0.f;
+  const int cid = ok ? static_cast<int>(cid_w) : 0;
   const float g = ga[cid];
+  // Each rounding is spelled out (f_rescale's product fused into the last
+  // add, the sumq term's product rounded on its own), so every kernel that
+  // inlines the scorer rounds alike instead of as its compiler contracts.
+  // Products by 2^ex and 1/2 are exact.
   warp_sum_rows<R>(a_bin);
   const float ip_bin = a_bin[0];
-  if (!z.use_ex) return (f_add + g) + f_rescale * (ip_bin - 0.5f * sumq);
+  if (!z.use_ex) return fmaf(f_rescale, ip_bin - 0.5f * sumq, f_add + g);
   warp_sum_rows<R>(a_ex);
   const float ip_ex = a_ex[0];
   const float two_ex = (float)(1 << z.ex_bits);
-  return (f_add + g) +
-         f_rescale * ((two_ex * ip_bin + ip_ex) - (two_ex - 0.5f) * sumq);
+  return fmaf(f_rescale,
+              (two_ex * ip_bin + ip_ex) - __fmul_rn(two_ex - 0.5f, sumq),
+              f_add + g);
 }
 
-// The estimate of one node `id` by one warp (every lane gets it).
+// The estimate of one node `id` by one warp (every lane gets it); stage
+// as for quant_score_rows<1>.
 __device__ __forceinline__ float quant_score(const Quant& z, const float* qr,
                                              const float* ga, float sumq,
-                                             int id) {
+                                             int id, uint32_t* stage) {
   const int ids[1] = {id};
-  return quant_score_rows<1>(z, qr, ga, sumq, ids, 1);
+  return quant_score_rows<1>(z, qr, ga, sumq, ids, 1, stage);
 }
 
 // Rerank track of the quantized beam (graph/search.py PopTrack; JAX: the

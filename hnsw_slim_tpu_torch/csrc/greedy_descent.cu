@@ -44,12 +44,16 @@
 // Quantized scorer (QUANT, JAX greedy_level_scored with the SlimQ estimate
 // scorer of index/slimq.py _slimq_search_jit): the distance of a neighbor is
 // its RaBitQ estimate from one packed code row (84 B at P = 128 and 4 bits
-// instead of a 512 B vector), R rows in flight the same way
-// (common.cuh quant_score_rows, bit-equal to quant_score), with the rotated
-// query and the query's g_add row in shared memory. With score_cur the warp
-// first scores its query's own start node (curdist is then output only), as
-// the JAX search scores the entry point through the same closure; with no
-// level to walk the launch does just that.
+// instead of a 512 B vector), R code rows a group: common.cuh
+// quant_score_rows issues every word of the R rows' estimates (bit planes,
+// factors, cluster id) in one gather round before any sum, one round per
+// QUANT_ROUND_WORDS words of a row, through the warp's stage in shared
+// memory, so a group waits on one memory round trip; every estimate is
+// bit-equal to quant_score's one-row estimate. The rotated query and the
+// query's g_add row sit in shared memory. With score_cur the warp first
+// scores its query's own start node (curdist is then output only), as the
+// JAX search scores the entry point through the same closure; with no level
+// to walk the launch does just that.
 #include "common.cuh"
 
 namespace {
@@ -89,6 +93,12 @@ greedy_kernel(const T* __restrict__ vec, int D, const Levels lv,
   int* cids = reinterpret_cast<int*>(ga + (QUANT ? z.C : 0));
   const bool vec4 = hs::can_vec4(vec, D);
   const float* qsrc = QUANT ? z.q_rot : q;
+  // quantized: the warp's stage of gathered code words
+  uint32_t* stage = nullptr;
+  if constexpr (QUANT) {
+    __shared__ __align__(16) uint32_t s_stage[NW * hs::QUANT_ROUND_WORDS * R];
+    stage = s_stage + warp * hs::QUANT_ROUND_WORDS * R;
+  }
 
   // each warp takes queries in turn; the whole warp shares b
   for (int b = blockIdx.x * NW + warp; b < B; b += gridDim.x * NW) {
@@ -99,8 +109,9 @@ greedy_kernel(const T* __restrict__ vec, int D, const Levels lv,
     __syncwarp();
     const float qnv = QUANT ? z.sumq[b] : qn[b];  // quantized: sum(q_rot)
     int c = cur[b];
-    float cd = (QUANT && score_cur) ? hs::quant_score(z, qs, ga, qnv, c)
-                                    : curdist[b];
+    float cd = (QUANT && score_cur)
+                   ? hs::quant_score(z, qs, ga, qnv, c, stage)
+                   : curdist[b];
     int hops = 0, dcomp = 0;
     const int sb = stop == nullptr ? -1 : stop[b];
     for (int li = 0; li < lv.n; ++li) {
@@ -127,7 +138,7 @@ greedy_kernel(const T* __restrict__ vec, int D, const Levels lv,
             for (int r = 0; r < R; ++r) ids[r] = r < nr ? cids[u0 + r] : 0;
             float d;
             if constexpr (QUANT) {
-              d = hs::quant_score_rows<R>(z, qs, ga, qnv, ids, nr);
+              d = hs::quant_score_rows<R>(z, qs, ga, qnv, ids, nr, stage);
             } else {
               const T* rows[R];
               float* const none[R] = {};

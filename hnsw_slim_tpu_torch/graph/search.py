@@ -50,7 +50,9 @@ the port's forms of JAX's ``score`` closure and ``pop_hook``:
 * ``scorer`` (quant/estimator.py ``QuantScorer``): candidates are scored by
   their RaBitQ estimate from one packed code row instead of the exact
   distance to a gathered vector (SlimQ); ``vectors``, ``q`` and ``qn`` are
-  then unused (None);
+  then unused (None). A launch whose code rows arrive in one gather round
+  (``quant/estimator.py gather_rounds``) counts the trace counter
+  ``index.quant_one_round``;
 * ``pop_track`` (``PopTrack``, quantized beams only): every iteration's
   popped ids get their exact distance to an external dataset and enter a
   sorted list of kk (distance, id) — pops already in it dropped, then a
@@ -438,7 +440,8 @@ def _beam_search_quant(fetch, scorer, pop_track, seed_d, seed_id, P, ef_eff,
             int(metric == "ip"), *targs, out_d.data_ptr(), out_i.data_ptr(),
             hops.data_ptr(), dcomp.data_ptr(), *touts,
             entry="beam_search_quant", modes=modes,
-            shape=f"E{pop_width} ef{ef_eff} S{S}")
+            shape=f"E{pop_width} ef{ef_eff} S{S}",
+            counters=scorer.counters())
     out = (out_d, out_i, hops, dcomp)
     return out if pop_track is None else out + (new_track,)
 
@@ -598,7 +601,8 @@ def _descend(vectors, q, qn, fetches, top, cur, curdist, stop, metric,
             "greedy_descent", *scorer.args(), *lvl, stop_p, b, int(score_cur),
             cur.data_ptr(), curdist.data_ptr(), hops.data_ptr(),
             dcomp.data_ptr(), entry="greedy_levels_quant",
-            modes=modes + ("quant",), shape=shape)
+            modes=modes + ("quant",), shape=shape,
+            counters=scorer.counters())
     elif b:
         entry, modes = cuda.row_type(vectors, "greedy_levels", modes)
         cuda.launch(

@@ -21,9 +21,11 @@ mode:
 kernels and modes the run went through. ``launch_shapes`` splits the
 launches of Kα, Kβ, Kγ and Kε by their shape class (scan mode, tile and k;
 pop width, ef and seeds; prune form and width; one level or a run of
-levels) under a caller's ``tagged`` label. Inside ``held`` (a CUDA graph
-capture, which runs nothing) a thread's launches are collected instead, and
-the graph's owner counts them with ``counted`` each time it replays them.
+levels) under a caller's ``tagged`` label, and a launch may name trace
+counters that count it (``launch(counters=)``). Inside ``held`` (a CUDA
+graph capture, which runs nothing) a thread's launches are collected
+instead, and the graph's owner counts them with ``counted`` each time it
+replays them.
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from ..utils import trace
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
@@ -281,12 +285,13 @@ def check(err: int, name: str) -> None:
 
 
 def launch(name: str, *args, entry: str | None = None,
-           modes: tuple = (), shape: str = "") -> None:
+           modes: tuple = (), shape: str = "", counters: tuple = ()) -> None:
     """Call C entry point ``hs_<entry or name>`` on PyTorch's current stream
     of the current device (where a wrapper's tensors lie: a kernel launches
     on the current device), raise on a launch error, and count one launch
     of kernel ``name``, of each of its ``modes`` this launch ran in and,
-    where given, of its ``shape`` under the current tag.
+    where given, of its ``shape`` under the current tag; each trace counter
+    named in ``counters`` (``utils/trace.py count``) counts the launch too.
 
     The lean path every wrapper shares: the bound function comes from a
     table filled when the library loads, and the stream handle is read as a
@@ -299,31 +304,34 @@ def launch(name: str, *args, entry: str | None = None,
     err = fn(*args, _raw_stream(_device()))
     if err:
         check(err, key)
+    call = (name, modes, shape, *counters)
     held_ = getattr(_local, "held", None)
     if held_ is None:
-        counted([(name, modes, shape)])
+        counted([call])
     else:
-        held_.append((name, modes, shape))
+        held_.append(call)
 
 
 def counted(calls) -> None:
-    """Count ``calls``, [(name, modes, shape)] as ``launch`` takes them, as
-    launched now: in ``launches`` and, under the current tag, in
-    ``launch_shapes``."""
-    for name, modes, shape in calls:
+    """Count ``calls``, [(name, modes, shape, *counters)] as ``launch``
+    takes them, as launched now: in ``launches``, under the current tag in
+    ``launch_shapes``, and one in each of the trace counters."""
+    for name, modes, shape, *counters in calls:
         launches[name] += 1
         for mode in modes:
             launches[name + "." + mode] += 1
         if shape:
             cls = f"{name}[{_tag}] {shape}"
             launch_shapes[cls] = launch_shapes.get(cls, 0) + 1
+        for c in counters:
+            trace.count(c, 1)
 
 
 @contextlib.contextmanager
 def held():
-    """Collect this thread's launches as [(name, modes, shape)], in order,
-    instead of counting them: under a CUDA graph capture no kernel runs,
-    and the graph's owner counts the list with ``counted`` after each
+    """Collect this thread's launches as [(name, modes, shape, *counters)],
+    in order, instead of counting them: under a CUDA graph capture no kernel
+    runs, and the graph's owner counts the list with ``counted`` after each
     replay, so that the counts follow the launches that ran."""
     calls: list = []
     prev = getattr(_local, "held", None)

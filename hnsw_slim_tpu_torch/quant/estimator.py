@@ -14,7 +14,8 @@ bit planes held as int32 tensors (bit j of word w is dimension 32 * w + j).
 
 These functions are the plain PyTorch version of the estimate. On the card
 the estimate is computed inside the search kernels from one packed row per
-node (``QuantScorer``; csrc/common.cuh quant_score): the beam (Kβ), the
+node (``QuantScorer``; csrc/common.cuh quant_score_rows, which gathers a
+group of rows' words in ``gather_rounds`` rounds): the beam (Kβ), the
 greedy descent with its entry point's estimate (Kε) and the seed scan (Kα),
 never as a [B, W, P] unpack.
 """
@@ -83,6 +84,21 @@ def unpack_fields(rows: torch.Tensor, nb: int, ex_bits: int):
             fl[..., 3], rows[..., off + 4])
 
 
+# words of each code row that one gather round of the kernels' scorer takes
+# (csrc/common.cuh QUANT_ROUND_WORDS)
+ROUND_WORDS = 32
+
+
+def gather_rounds(nb: int, ex_bits: int, use_ex: bool) -> int:
+    """The gather rounds in which the kernels' scorer (csrc/common.cuh
+    quant_score_rows) takes a packed code row: the words an estimate reads
+    (the bin plane, or every plane with ``use_ex``, and the five words of
+    factors and cluster id; the whole stride with ``use_ex``) over
+    ``ROUND_WORDS`` a round."""
+    words = nb * (1 + ex_bits if use_ex else 1) + 5
+    return -(-words // ROUND_WORDS)
+
+
 class QuantScorer(NamedTuple):
     """What a search kernel needs to score node ids by RaBitQ estimate (the
     port's form of JAX's quantized score closure): the packed code rows and
@@ -109,6 +125,13 @@ class QuantScorer(NamedTuple):
         return (self.rows.data_ptr(), r, self.nb, self.ex_bits,
                 int(self.use_ex), self.q_rot.data_ptr(), self.sumq.data_ptr(),
                 self.g_add.data_ptr(), int(self.g_add.shape[1]))
+
+    def counters(self) -> tuple:
+        """The trace counters a kernel launch with this scorer counts:
+        ``index.quant_one_round`` where its code rows arrive in one gather
+        round (``gather_rounds``)."""
+        one = gather_rounds(self.nb, self.ex_bits, self.use_ex) == 1
+        return ("index.quant_one_round",) if one else ()
 
 
 def packed_estimate_plain(sc: QuantScorer, ids: torch.Tensor) -> torch.Tensor:

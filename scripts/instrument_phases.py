@@ -22,7 +22,8 @@ time. Slots (beam_search, then rng_prune):
     row load + barrier, 14 walk: dots + barrier, 15 backfill + pack;
   current design: 0 pops, 1 rerank track, 2 candidate ids read + buffer
     probe, 3 select, 4 dedup + compaction, 5 scoring, 6 pair sort, 7
-    filter track, 8 merge, 9 end (rng_prune: window resolve); 10 scoring,
+    filter track, 8 merge, 9 end (rng_prune: window resolve), 10 the
+    iterations a query took (a count: Kβ alone); 10 scoring,
     11 sort, 12 set-up + backfill + pack, 13 ring load, 14 window step (a),
     15 window step (b); rng_prune counters per block in 0-5: windows,
     members, (member, kept row) pairs, survivors of (a), valid candidates,
@@ -114,7 +115,7 @@ SORT_PRUNE = [
 
 CURRENT_BEAM = [
     ("  const int W = f.W;\n  const int ew = E * W;", "  PH_INIT\n  const int W = f.W;\n  const int ew = E * W;"),
-    ("    hops += npop;\n    __syncthreads();\n", "    hops += npop;\n    __syncthreads();\n    PH(0)\n"),
+    ("    hops += npop;\n    __syncthreads();\n", "    hops += npop;\n    __syncthreads();\n    PH(0)\n    if (tid == 0) ph[10] += 1;\n"),
     ("    int nv = 0;\n    unsigned orv = 0;\n", "    PH(1)\n    int nv = 0;\n    unsigned orv = 0;\n"),
     ("    const int nbits = 32 - __clz(s_or);\n", "    PH(2)\n    const int nbits = 32 - __clz(s_or);\n"),
     ("    int m;\n    if (!prewindow) {\n", "    PH(3)\n    int m;\n    if (!prewindow) {\n"),

@@ -1556,6 +1556,152 @@ def test_quant_beam_prewindow_matches_plain(data, slimq_index):
     assert (k_o[4].ids == p_o[4].ids).float().mean() >= 0.99
 
 
+# ---- the quantized scorer's one gather (csrc/common.cuh quant_score_rows)
+
+
+def _random_codes(n, nb, ex_bits, C, seed):
+    """Packed code rows i32[n, nb (1 + ex_bits) + 5] on the card: random bit
+    planes, the four factors drawn from [0.25, 4), cluster ids below C."""
+    g = np.random.default_rng(seed)
+    stride = nb * (1 + ex_bits) + 5
+    rows = g.integers(0, 1 << 32, (n, stride), dtype=np.uint64)
+    rows = rows.astype(np.uint32)
+    fac = g.uniform(0.25, 4.0, (n, 4)).astype(np.float32)
+    rows[:, stride - 5:stride - 1] = fac.view(np.uint32)
+    rows[:, stride - 1] = g.integers(0, C, n)
+    return torch.as_tensor(rows.view(np.int32), device="cuda")
+
+
+def _random_scorer(rows, nb, ex_bits, use_ex, b, C, seed):
+    """A QuantScorer over ``rows`` for b random rotated queries."""
+    from hnsw_slim_tpu_torch.quant.estimator import QuantScorer
+
+    g = np.random.default_rng(seed)
+    q_rot = torch.as_tensor(
+        g.standard_normal((b, 32 * nb)).astype(np.float32), device="cuda")
+    g_add = torch.as_tensor(g.uniform(0.0, 4.0, (b, C)).astype(np.float32),
+                            device="cuda")
+    return QuantScorer(rows, nb, ex_bits, use_ex, q_rot,
+                       q_rot.sum(1).contiguous(), g_add)
+
+
+def _one_row_estimates(sc, fetch, ids):
+    """The one-row scorer's estimate of ids i32[B, P] (-1 read as 0), query
+    b's terms for row b: Kε's idle path, which scores each query's start
+    node and walks no level."""
+    from hnsw_slim_tpu_torch.graph import search as gs
+
+    b, p = ids.shape
+    rep = sc._replace(q_rot=sc.q_rot.repeat_interleave(p, 0),
+                      sumq=sc.sumq.repeat_interleave(p, 0),
+                      g_add=sc.g_add.repeat_interleave(p, 0))
+    cur = ids.clamp(min=0).reshape(-1).contiguous()
+    idle = torch.zeros(len(cur), dtype=torch.bool, device="cuda")
+    _, d, hops, _ = gs.greedy_descent(None, None, None, fetch, cur, None,
+                                      idle, scorer=rep)
+    assert not hops.any()
+    return d.view(b, p)
+
+
+def _chal_of(rows):
+    """The CHAL form (one level) of dense rows i32[N, W]: each row's valid
+    lanes in order."""
+    from hnsw_slim_tpu_torch.graph import search as gs
+
+    valid = rows >= 0
+    cnt = valid.sum(1)
+    end = torch.cumsum(cnt, 0)
+    lvl_off = torch.stack([end - cnt, end], 1).to(torch.int32).contiguous()
+    return gs.chal_fetch(rows[valid].contiguous(), lvl_off, 0, rows.shape[1])
+
+
+@pytest.mark.parametrize("nb,ex_bits,use_ex,pop,w,rounds", [
+    (4, 3, False, 8, 32, 1),   # P = 128, the 1-bit mode: 9 words a row
+    (4, 3, True, 8, 32, 1),    # P = 128, the whole 4-bit code: 21 words
+    (4, 3, True, 1, 7, 1),     # E 1, W 7: at most 7 candidates an iteration
+    (8, 3, True, 8, 32, 2),    # P = 256, the whole code: 37 words
+    (32, 0, False, 8, 32, 2),  # P = 1024, a 1-bit code: 37 words
+])
+def test_quant_beam_estimates_equal_the_one_row_scorer(nb, ex_bits, use_ex,
+                                                        pop, w, rounds):
+    """Every estimate in Kβ's quantized buffer after a call is, bit for bit,
+    the one-row scorer's estimate of the same id (Kε's idle path), and
+    within 1e-4 relative of the plain version's; the CHAL form of the same
+    rows gives the same buffer, hops and dcomp. Random code rows of widths
+    whose rows arrive in one gather round and in two; with E 1 and W 7 an
+    iteration scores at most 7 candidates, so a warp's last group holds
+    fewer rows than it takes."""
+    from hnsw_slim_tpu_torch.config import SearchConfig
+    from hnsw_slim_tpu_torch.graph import search as gs
+    from hnsw_slim_tpu_torch.quant import estimator as est
+
+    _card()
+    n, b, C, P = 20000, 256, 16, 64
+    assert est.gather_rounds(nb, ex_bits, use_ex) == rounds
+    rows = _random_codes(n, nb, ex_bits, C, seed=nb + ex_bits)
+    sc = _random_scorer(rows, nb, ex_bits, use_ex, b, C, seed=7)
+    adj = _random_rows(n, w, seed=w)
+    dense = gs.dense_fetch(adj)
+    si = torch.as_tensor(np.random.default_rng(3).integers(0, n, (b, 1))
+                         .astype(np.int32), device="cuda")
+    sd = _one_row_estimates(sc, dense, si).contiguous()
+    kw = dict(P=P, ef_eff=P, pop_width=pop, cw=gs.cand_width(P, pop, w, 0),
+              max_iters=SearchConfig(ef=P, pop_width=pop).iters(), k=P,
+              scorer=sc)
+    k_o = gs.beam_search(None, None, None, dense, sd, si, **kw)
+    kd, ki = k_o[0], k_o[1]
+    ok = ki >= 0
+    assert ok.sum(1).min() > 1  # every query beamed past its seed
+    one = _one_row_estimates(sc, dense, ki)
+    assert torch.equal(kd[ok].view(torch.int32), one[ok].view(torch.int32))
+    plain = est.packed_estimate_plain(sc, ki.clamp(min=0))
+    assert _est_close(kd[ok], plain[ok])
+    c_o = gs.beam_search(None, None, None, _chal_of(adj), sd, si, **kw)
+    for a, c in zip(k_o, c_o):
+        assert torch.equal(a, c)
+
+
+def test_quant_launches_count_one_gather_round_on_card(data, slimq_index):
+    """``index.quant_one_round`` counts every quantized Kβ and Kε launch of a
+    SlimQ search at P = 128 and 4 bits (one gather round in both modes),
+    eager, captured and replayed alike, and no launch over code rows of two
+    rounds (P = 256)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hnsw_slim_tpu_torch.config import SearchConfig
+    from hnsw_slim_tpu_torch.graph import search as gs
+    from hnsw_slim_tpu_torch.ops import cuda
+    from hnsw_slim_tpu_torch.utils import trace
+
+    _, _, q = data
+    idx, _ = slimq_index
+    qs = q[:100].cpu().numpy()  # a batch size no other test replays
+    quant = ("beam_search.quant", "beam_search.quant_ex",
+             "greedy_descent.quant")
+    trace.drain()
+    for seed_width, use_ex in ((32, True), (0, False)):
+        idx.scfg = SearchConfig(ef=64, pop_width=8, seed_width=seed_width,
+                                use_ex=use_ex)
+        cuda.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU]):
+            for _ in range(3):  # eager, captured, replayed
+                idx.search(qs, 10)
+        got = trace.drain()["counters"]
+        assert got["index.replays"] == 2
+        n_quant = sum(cuda.launches[m] for m in quant)
+        assert n_quant >= 3
+        assert got["index.quant_one_round"] == n_quant
+    rows = _random_codes(2000, 8, 3, 16, seed=5)
+    sc = _random_scorer(rows, 8, 3, True, 64, 16, seed=6)
+    si = torch.zeros((64, 1), dtype=torch.int32, device="cuda")
+    adj = _random_rows(2000, 16, seed=8)
+    with profile(activities=[ProfilerActivity.CPU]):
+        gs.beam_search(None, None, None, adj, torch.zeros((64, 1),
+                       device="cuda"), si, P=32, ef_eff=32, pop_width=4,
+                       cw=64, max_iters=100, k=32, scorer=sc)
+    assert "index.quant_one_round" not in trace.drain()["counters"]
+
+
 def _prune_equal(x, base, cand, m, **kw):
     from hnsw_slim_tpu_torch.graph import heuristic as th
 

@@ -245,6 +245,32 @@ def test_launches_are_held_while_captured_and_counted_after(fake_launch):
                                   "beam_search[serve] E8 ef64 S32": 2}
 
 
+def test_a_launch_counts_its_trace_counters_as_it_is_counted(rec,
+                                                             fake_launch):
+    """A launch's trace counters (``launch(counters=)``) count with it: at
+    once when eager, held with it under a capture and counted each time
+    the held launches are."""
+    cuda.reset_launches()
+    one = ("index.quant_one_round",)
+    with recorded():
+        cuda.launch("beam_search", entry="fake", modes=("quant_ex",),
+                    counters=one)
+        eager_counts = rec.drain()["counters"]
+        with cuda.held() as calls:
+            cuda.launch("greedy_descent", entry="fake", modes=("quant",),
+                        counters=one)
+            cuda.launch("beam_search", entry="fake")
+        assert rec.drain()["counters"] == {}
+        cuda.counted(calls)
+        cuda.counted(calls)
+    assert eager_counts == {"index.quant_one_round": 1}
+    assert calls == [("greedy_descent", ("quant",), "",
+                      "index.quant_one_round"), ("beam_search", (), "")]
+    assert rec.drain()["counters"] == {"index.quant_one_round": 2}
+    assert (cuda.launches["beam_search"], cuda.launches["greedy_descent"],
+            cuda.launches["greedy_descent.quant"]) == (3, 2, 2)
+
+
 def test_counts_of_a_replay_are_of_its_rows(rec, fake_launch):
     dc = torch.arange(8, dtype=torch.int32)
     counts = replay.per_row([("index.queries", 8), ("index.beam_dcomp", dc)],

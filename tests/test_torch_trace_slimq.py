@@ -3,7 +3,10 @@ CPU, inside a torch.profiler session: the query rotation ``index.rotate``
 nests in ``index.search`` between the upload and the seed scan, the
 counter ``index.rerank_dcomp`` counts the rerank track's exact distances
 (one a popped node: the beams' hops) and stays empty without the rerank,
-and the build's steps are spans whose seconds are ``build_stats``'."""
+and the build's steps are spans whose seconds are ``build_stats``'. The
+counter ``index.quant_one_round`` counts the kernel launches whose code
+rows arrive in one gather round (``quant/estimator.py gather_rounds``, the
+host's count of the rounds): the CPU path launches none, so it is absent."""
 
 import pytest
 from torch.profiler import ProfilerActivity, profile
@@ -11,6 +14,7 @@ from torch.profiler import ProfilerActivity, profile
 from hnsw_slim_tpu_torch.config import (HnswConfig, QuantConfig, SearchConfig,
                                         SlimConfig)
 from hnsw_slim_tpu_torch.index.slimq import HnswSlimQIndex
+from hnsw_slim_tpu_torch.quant import estimator as est
 from hnsw_slim_tpu_torch.utils import trace
 from hnsw_slim_tpu_torch.utils.data import clustered
 
@@ -98,3 +102,50 @@ def test_build_steps_are_spans_with_build_stats_seconds(rec):
     # off, the same keys are timed and nothing is recorded
     assert set(_build(base).build_stats) == set(idx.build_stats)
     assert rec.drain() == {"spans": [], "counters": {}}
+
+
+@pytest.mark.parametrize("nb,ex_bits,use_ex,rounds", [
+    (4, 3, True, 1),    # P = 128, 1 + 3 bits: the whole 21-word row
+    (4, 3, False, 1),   # its 1-bit estimate: the bin plane and the tail
+    (4, 0, False, 1),   # a 1-bit code's row, 9 words
+    (6, 3, True, 1),    # P = 192: 29 words
+    (7, 3, True, 2),    # P = 224: 33 words, one past a round
+    (8, 3, True, 2),    # P = 256: 37 words
+    (30, 3, True, 4),   # P = 960: 125 words
+    (32, 0, False, 2),  # P = 1024, a 1-bit code: 37 words
+])
+def test_gather_rounds_follow_the_words_an_estimate_reads(nb, ex_bits,
+                                                          use_ex, rounds):
+    assert est.gather_rounds(nb, ex_bits, use_ex) == rounds
+    words = nb * (1 + ex_bits if use_ex else 1) + 5
+    assert (rounds - 1) * est.ROUND_WORDS < words <= rounds * est.ROUND_WORDS
+    sc = est.QuantScorer(None, nb, ex_bits, use_ex, None, None, None)
+    assert sc.counters() == (
+        ("index.quant_one_round",) if rounds == 1 else ())
+
+
+def test_the_whole_code_rounds_follow_the_packed_stride(slimq):
+    idx, _ = slimq
+    nb, ex_bits = int(idx.codes.bin_code.shape[1]), int(idx.codes.ex_bits)
+    stride = idx._packed_rows().shape[1]
+    assert stride == nb * (1 + ex_bits) + 5
+    assert est.gather_rounds(nb, ex_bits, True) == -(-stride
+                                                    // est.ROUND_WORDS)
+
+
+@pytest.mark.parametrize("seed_width,use_ex", [(16, True), (0, False)])
+def test_the_cpu_path_counts_no_gather_round(rec, slimq, seed_width,
+                                             use_ex):
+    """The CPU path runs the plain versions: no launch, so no
+    ``index.quant_one_round``, beside the search's own counters."""
+    idx, queries = slimq
+    idx.scfg = SearchConfig(ef=32, pop_width=4, seed_width=seed_width,
+                            use_ex=use_ex)
+    try:
+        with recorded():
+            idx.search(queries, 10)
+    finally:
+        idx.scfg = SearchConfig(ef=32, pop_width=4, seed_width=16)
+    c = rec.drain()["counters"]
+    assert c["index.queries"] == len(queries) and c["index.beam_dcomp"] > 0
+    assert "index.quant_one_round" not in c
