@@ -69,7 +69,9 @@ Phases (one line each on stdout, the kernel table second to last):
      12-query server batch over the seed table) and Kβ on the serving
      paths, Kγ on the NND build's and conversion's
      prunes, Kδ on an NND chunk, and on inputs of phases 3 and 4 Kβ over
-     CHAL and rank rows, Kβ filtered, Kε over CHAL and rank rows, Kα in
+     CHAL and rank rows, Kβ filtered, Kβ's tag mode at the label cell's
+     shapes (all 4096 queries, ef 128, 12 one-hot labels, per-query
+     caps), Kε over CHAL and rank rows, Kα in
      strata mode, Kγ guarded (one recorded 8192-row chunk with its live
      guard), and on the SlimQ index Kη on the 4096 queries, the g_add
      table, Kβ quant / quant_ex / rerank on 512 queries at ef 64, Kε quant
@@ -206,6 +208,8 @@ MODE_ROUTES = {  # kernel mode: (kernel, the JAX code that mode replaces)
     "beam_search.rank": ("beam_search", "hnsw_slim_tpu/graph/search.py:67"),
     "beam_search.filtered": ("beam_search",
                              "hnsw_slim_tpu/graph/search.py:279"),
+    # per-query label predicates: the JAX package filters a batch by one mask
+    "beam_search.tags": ("beam_search", "hnsw_slim_tpu/graph/search.py:279"),
     "greedy_descent.chal": ("greedy_descent",
                             "hnsw_slim_tpu/graph/search.py:42"),
     "greedy_descent.rank": ("greedy_descent",
@@ -248,7 +252,7 @@ SERVER_PATH = ("radix_sort", "run_scatter", "run_scatter.dedup", "nnd_cand",
                "rev_connect", "row_norms", "patch_apply")
 QUERY_PATH = ("topk_dist", "beam_search", "greedy_descent", "rng_prune",
               "topk_dist.strata", "beam_search.chal", "beam_search.rank",
-              "beam_search.filtered", "greedy_descent.chal",
+              "beam_search.filtered", "beam_search.tags", "greedy_descent.chal",
               "greedy_descent.rank", "row_norms")
 SLIMZERO_PATH = ("rng_prune", "rng_prune.guarded", "topk_dist", "beam_search",
                  "row_norms")
@@ -2364,6 +2368,42 @@ def main() -> int:
                 h, queries, masks[share][1],
                 f"vanilla filtered allowed={share} ef={ef}", allowed=allowed,
                 need_full=n == 1_000_000)
+    # one label predicate a query, as the label cell sends them: a uniform
+    # label of 12 a base row and a query, one-hot words; the ground truth
+    # of a label's queries over that label's rows
+    rng_l = np.random.default_rng(19)
+    one = np.uint32(1)
+    tags = one << rng_l.integers(0, 12, n).astype(np.uint32)
+    need = one << rng_l.integers(0, 12, NQ).astype(np.uint32)
+    t0 = time.perf_counter()
+    idx.set_tags(tags)
+    say(f"set_tags: {time.perf_counter() - t0:.3f} s for {n} tag words")
+    tag_gt = np.full((NQ, 10), -1, np.int64)
+    for w in np.unique(need):
+        sub, rows_ = np.nonzero(tags == w)[0], np.nonzero(need == w)[0]
+        _, g_ = bf.BruteForceIndex(base[sub], device=dev).search(
+            queries[rows_], k=10)
+        tag_gt[rows_] = sub[g_]
+    idx.scfg = scfg_slim(128)
+    row = serve_line(idx, queries, tag_gt, "slim labels=12 ef=128",
+                     need=need)
+    qs_rows["slim labels=12 ef=128"] = row
+    t_ids = row["ids"]
+    t_ok = t_ids >= 0
+    check(bool(((tags[t_ids[t_ok]] & need[np.nonzero(t_ok)[0]])
+                == need[np.nonzero(t_ok)[0]]).all()),
+          "slim labels=12: a returned id fails its query's predicate")
+    check(t_ok.all() or n != 1_000_000,
+          "slim labels=12: a filtered row is not full")
+    r_d, r_i = idx.search(queries, k=10, need=need)
+    a_d, a_i, a_h, a_c = idx.search_async(queries, 10, need=need)
+    check(idx._replay._graphs and (a_i.cpu().numpy() == r_i).all()
+          and (a_d.cpu().numpy() == r_d).all()
+          and int(a_h.sum()) == idx.last_stats["hops"]
+          and int(a_c.sum()) == idx.last_stats["distance_computations"],
+          "slim labels=12: the replayed search differs from the eager one")
+    say("slim labels=12: replayed search equal to the eager one (ids, "
+        "distances, hops, dcomp); every id passes its predicate")
     idx.scfg = scfg_slim(64)
     s_d, s_i = idx.search(queries, k=10)
     a_d, a_i, a_h, a_c = idx.search_async(queries, 10)
@@ -3082,30 +3122,39 @@ def main() -> int:
     # ---- the modes of phases 3 and 4, each against its plain version ------
     def beam_pair(what, fetch, seeds_, kw_b, nq, filt=None):
         """Kβ and its plain version on one call's inputs: agreement of the
-        returned ids (the track's when filtered), both times, the bound
-        from this call's own hops and distance computations."""
+        returned ids (the track's when filtered, and then also of each
+        query's admitted count), both times, the bound from this call's own
+        hops and distance computations. ``filt``: beam_search's filter
+        keywords, {"allowed"} or {"tags", "need", "iters"}, over the first
+        ``nq`` queries."""
         args_b = (x, qall[:nq].contiguous(), qn_all[:nq].contiguous(), fetch,
                   seeds_[0][:nq].contiguous(), seeds_[1][:nq].contiguous())
         extra = {}
         if filt is not None:
-            t_d, t_i = gs.filter_track_init(filt, args_b[5][:, 0],
-                                            args_b[4][:, 0], kw_b["P"])
-            extra = dict(allowed=filt, track_d=t_d, track_id=t_i)
+            t_d, t_i = gs.filter_track_init(
+                filt.get("allowed"), args_b[5][:, 0], args_b[4][:, 0],
+                kw_b["P"], filt.get("tags"), filt.get("need"))
+            extra = dict(filt, track_d=t_d, track_id=t_i)
         k_o = gs.beam_search(*args_b, **kw_b, **extra)
         p_o = gs.beam_search_plain(*args_b, **kw_b, **extra,
                                    seen=(sn := []))
         col = 5 if filt is not None else 1
         same = k_o[col] == p_o[col]
+        agree = float(same.float().mean())
+        if filt is not None:
+            agree = min(agree, float((k_o[6] == p_o[6]).float().mean()))
         fin = same & torch.isfinite(p_o[col - 1])
         hops_, dc_ = int(k_o[2].sum()), int(k_o[3].sum())
         n_vec = distinct([v for _, v in sn])
         n_bytes = (distinct([a for a, _ in sn]) * fetch.width * 4
                    + n_vec * d * 4 + nq * d * 4
                    + nq * (kw_b["k"] * 8 + 8) + args_b[4].numel() * 8)
-        if filt is not None:  # one allowed byte per scored node; the track
-            n_bytes += n_vec + 2 * nq * kw_b["P"] * 8
+        if filt is not None:  # the track; a scored node's allowed byte or
+            # tag word, a query's need word and cap
+            n_bytes += 2 * nq * kw_b["P"] * 8 + (
+                n_vec if "allowed" in filt else 4 * n_vec + 8 * nq)
         rep = dict(
-            agree=float(same.float().mean()),
+            agree=agree,
             max_abs_err=float((k_o[col - 1] - p_o[col - 1])[fin].abs().max()),
             ms=cuda_ms(lambda: gs.beam_search(*args_b, **kw_b, **extra)),
             plain_ms=cuda_ms(
@@ -3113,7 +3162,10 @@ def main() -> int:
             bound=bound(n_bytes, dc_ * 4 * d),
             shapes=f"{what}: {nq} queries, P {kw_b['P']}, E "
                    f"{kw_b['pop_width']}, W {fetch.width}, hops {hops_} vs "
-                   f"{int(p_o[2].sum())}, dcomp {dc_} vs {int(p_o[3].sum())}")
+                   f"{int(p_o[2].sum())}, dcomp {dc_} vs {int(p_o[3].sum())}"
+                   + ("" if filt is None else
+                      f", admitted {int(k_o[6].sum())} vs "
+                      f"{int(p_o[6].sum())}"))
         check(rep["agree"] >= 0.99, f"beam_search ({what}) disagrees with "
                                     f"its plain version: {rep}")
         return rep, k_o
@@ -3160,7 +3212,7 @@ def main() -> int:
                     max_iters=int(kw_s["max_iters"] / max(share, 0.05)) + 8)
         rep_f, out_f = beam_pair(f"filtered, {share} allowed, dense rows, "
                                  "seeded ef=64", gs.dense_fetch(idx.dense0),
-                                 s_512, kw_f, 512, filt=allowed_t)
+                                 s_512, kw_f, 512, filt=dict(allowed=allowed_t))
         check(bool(allowed_t[out_f[5][out_f[5] >= 0].long()].all()),
               "Kβ filtered returned a disallowed id")
         say(f"kernel beam_search.filtered part: {json.dumps(rep_f)}")
@@ -3171,6 +3223,28 @@ def main() -> int:
         shapes=f_parts[0]["shapes"] + "; at 0.1 allowed: "
         + f_parts[1]["shapes"] + f", {f_parts[1]['ms']:.3f} ms vs plain "
         f"{f_parts[1]['plain_ms']:.3f} ms")
+    # the tag mode at the label cell's shapes: all 4096 queries with their
+    # exact seeds, ef 128 (P 128, E 8) over dense rows, the query phase's
+    # one-hot words of 12 labels, each query capped by its label's share
+    t_tags = torch.as_tensor(tags.view(np.int32), device=dev)
+    t_need = torch.as_tensor(need.view(np.int32), device=dev)
+    share_l = {int(w): float((tags == w).mean()) for w in np.unique(need)}
+    kw_t = dict(beam_kw(128), cw=gs.cand_width(gs.buffer_width(128), 8,
+                                               gq.cap0, 0))
+    t_iters = hnsw_mod.share_iters(kw_t["max_iters"],
+                                   [share_l[int(w)] for w in need])
+    kw_t["max_iters"] = int(t_iters.max())
+    rep_t, out_t = beam_pair(
+        "tags, 12 one-hot labels, dense rows, seeded ef=128",
+        gs.dense_fetch(idx.dense0), s_all, kw_t, NQ,
+        filt=dict(tags=t_tags, need=t_need,
+                  iters=torch.as_tensor(t_iters, device=dev)))
+    t_ti = out_t[5]
+    t_row = t_tags[t_ti.clamp(min=0).long()]
+    check(bool(((t_row & t_need[:, None]) == t_need[:, None])[t_ti >= 0]
+               .all()), "Kβ tag mode returned an id its query's predicate "
+                        "fails")
+    report["beam_search.tags"] = rep_t
 
     # Kε over rank rows and over CHAL slices: the seed_width=0 descent of
     # the Slim index, all 4096 queries, each level from the plain state

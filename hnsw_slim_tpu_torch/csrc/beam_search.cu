@@ -57,6 +57,19 @@
 // block needs 38 KB of shared memory unfiltered (16 KB of it the id set)
 // and 60 KB filtered.
 //
+// Tag mode (tags != nullptr; the filtered mode's other predicate): each
+// node has one u32 tag word (tags[N], resident on the card) and each query
+// one u32 need word (need[B], held in a register), and a node is allowed
+// for the query iff (tags[id] & need) == need. One-hot tags make that an
+// equality test on a label, for up to 32 labels; a batch mixes predicates
+// freely, since every block searches its own query. Everything else is the
+// filtered mode's. In both, admit[b] counts the scored candidates that
+// passed the predicate (whether or not they were new to the track).
+//
+// iters (nullable, i32[B]): a per-query iteration cap in place of
+// max_iters (a filtered query's cap grows with its predicate's
+// selectivity).
+//
 // Quantized mode (QUANT; JAX: index/slimq.py _slimq_search_jit's score
 // closure over pack_code_rows with quant/estimator.py est_dist_1bit /
 // est_dist_ex, and its pop_hook): step 3 scores a candidate by its RaBitQ
@@ -113,7 +126,9 @@ beam_kernel(const T* __restrict__ vec, int D, const hs::Fetch f,
             const int* __restrict__ trk_id_in, float* __restrict__ out_d,
             int* __restrict__ out_id, int* __restrict__ hops_out,
             int* __restrict__ dcomp_out, float* __restrict__ trk_d_out,
-            int* __restrict__ trk_id_out) {
+            int* __restrict__ trk_id_out, const unsigned* __restrict__ tags,
+            const unsigned* __restrict__ need, const int* __restrict__ iters,
+            int* __restrict__ admit_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   // the id sets: the buffer's (and the iteration's candidates'), and in
   // filtered mode the track's
@@ -150,7 +165,7 @@ beam_kernel(const T* __restrict__ vec, int D, const hs::Fetch f,
   float* fd = reinterpret_cast<float*>(fx + CWp);
   int* fi = reinterpret_cast<int*>(fd + CWp);
   __shared__ int s_pos[MAX_POP], s_popid[MAX_POP], s_npop, s_scr[32];
-  __shared__ int s_sel[16], s_n, s_or, s_tk;
+  __shared__ int s_sel[16], s_n, s_or, s_tk, s_adm;
   __shared__ const int* s_row[MAX_POP];
   __shared__ int s_rowcnt[MAX_POP];
   __shared__ float s_ed[MAX_POP];  // the pops' exact distances (rerank)
@@ -166,6 +181,11 @@ beam_kernel(const T* __restrict__ vec, int D, const hs::Fetch f,
   const int lane = tid & 31, warp = tid >> 5;
   const bool vec4 = hs::can_vec4(vec, D);
   const bool track = QUANT && t.data != nullptr;
+  // filtered: by the allowed flags, or by tag words against the need word
+  const bool filt = allowed != nullptr || tags != nullptr;
+  const unsigned nw = tags ? need[b] : 0u;
+  const int cap = iters ? iters[b] : max_iters;
+  if (tid == 0) s_adm = 0;
   const float qnv = QUANT ? z.sumq[b] : qn[b];  // quantized: sum(q_rot)
   const float qnr = (track && !metric) ? t.qn_raw[b] : 0.f;
   const bool rvec4 = hs::can_vec4(t.data, t.D);
@@ -189,7 +209,7 @@ beam_kernel(const T* __restrict__ vec, int D, const hs::Fetch f,
     bd[j] = j < S ? seed_d[(size_t)b * S + j] : HS_INF;
     bi[j] = j < S ? seed_id[(size_t)b * S + j] : -1;
     bc[j] = 0;
-    if (allowed) {
+    if (filt) {
       td[j] = trk_d_in[(size_t)b * P + j];
       ti[j] = trk_id_in[(size_t)b * P + j];
     }
@@ -198,19 +218,19 @@ beam_kernel(const T* __restrict__ vec, int D, const hs::Fetch f,
   // generation 1 of the sets: the seeds, the incoming track
   for (int j = tid; j < P; j += THREADS) {
     if (bi[j] >= 0) hs::set_insert(tab, hmask, 1u, bi[j]);
-    if (allowed && ti[j] >= 0) hs::set_insert(ttab, tmask, 1u, ti[j]);
+    if (filt && ti[j] >= 0) hs::set_insert(ttab, tmask, 1u, ti[j]);
   }
   const int W = f.W;
   const int ew = E * W;
   const bool prewindow = E > 1 && 2 * cw < ew;
-  int hops = 0, dcomp = 0;
+  int hops = 0, dcomp = 0, admit = 0;
   __syncthreads();
 
-  for (int it = 0; it < max_iters; ++it) {
+  for (int it = 0; it < cap; ++it) {
     const unsigned gen = it + 1;  // the sets' generation this iteration
     // 1. pops: first E unchecked entries of the window within the bound
     if (warp == 0) {
-      const float bound = allowed ? td[ef_eff - 1] : bd[ef_eff - 1];
+      const float bound = filt ? td[ef_eff - 1] : bd[ef_eff - 1];
       int cnt = 0;
       bool stop = false;
       for (int base = 0; base < ef_eff && !stop; base += 32) {
@@ -389,13 +409,16 @@ beam_kernel(const T* __restrict__ vec, int D, const hs::Fetch f,
 
     // 3b. filtered mode: allowed candidates not yet in the track merge into
     // it by rank (track entries first on equal distance), P smallest kept
-    if (allowed) {
+    if (filt) {
       const int fm = hs::compact(
           m,
           [&](int c, int& v) {
             v = c;
-            return allowed[ci[c]] != 0 &&
-                   !hs::set_has(ttab, tmask, gen, ci[c]);
+            const int id = ci[c];
+            const bool ok = allowed ? allowed[id] != 0
+                                    : (__ldg(tags + id) & nw) == nw;
+            admit += ok;
+            return ok && !hs::set_has(ttab, tmask, gen, id);
           },
           fx, s_scr, cw);
       for (int c = tid; c < fm; c += THREADS) {
@@ -455,11 +478,15 @@ beam_kernel(const T* __restrict__ vec, int D, const hs::Fetch f,
     out_d[(size_t)b * k + t] = bd[t];
     out_id[(size_t)b * k + t] = bi[t];
   }
-  if (allowed) {
+  if (filt) {
     for (int j = tid; j < P; j += THREADS) {
       trk_d_out[(size_t)b * P + j] = td[j];
       trk_id_out[(size_t)b * P + j] = ti[j];
     }
+    admit = __reduce_add_sync(HS_FULL, admit);
+    if (lane == 0 && admit) atomicAdd(&s_adm, admit);
+    __syncthreads();
+    if (tid == 0) admit_out[b] = s_adm;
   }
   if (track) {
     for (int j = tid; j < t.kk; j += THREADS) {
@@ -484,8 +511,10 @@ int launch_beam(const T* vec, int D, const hs::Fetch& f,
                 int k, int metric, const unsigned char* allowed,
                 const float* trk_d_in, const int* trk_id_in, float* out_d,
                 int* out_id, int* hops, int* dcomp, float* trk_d_out,
-                int* trk_id_out, void* stream) {
+                int* trk_id_out, const unsigned* tags, const unsigned* need,
+                const int* iters, int* admit, void* stream) {
   if (E > MAX_POP) return static_cast<int>(cudaErrorInvalidValue);
+  const bool filt = allowed != nullptr || tags != nullptr;
   const int Dp = (D + 3) / 4 * 4;
   const int Cp = QUANT ? (z.C + 3) / 4 * 4 : 0;
   const int Drp = (QUANT && t.data) ? (t.D + 3) / 4 * 4 : 0;
@@ -496,11 +525,11 @@ int launch_beam(const T* vec, int D, const hs::Fetch& f,
   // the buffer's set holds P buffer ids and at most min(E W, 2 cw)
   // candidates in one generation; the track's set P ids
   int Hs = set_size(P + std::min(ew, 2 * cw));
-  const int Ht = allowed ? set_size(P) : 0;
+  const int Ht = filt ? set_size(P) : 0;
   const size_t rest = sizeof(float) * (Dp + Cp + Drp + 4 * KKp) +
                       6 * sizeof(int) * P + 2 * sizeof(int) * EWp +
                       256 * sizeof(int) + 2 * sizeof(int) * CWp +
-                      (allowed ? 4 * sizeof(int) * P +
+                      (filt ? 4 * sizeof(int) * P +
                                      3 * sizeof(int) * CWp : 0);
   const size_t cap = 227 * 1024;
   // past the shared memory a block can have, the set runs fuller (it keeps
@@ -517,7 +546,8 @@ int launch_beam(const T* vec, int D, const hs::Fetch& f,
                           static_cast<cudaStream_t>(stream)>>>(
       vec, D, f, z, t, Cp, Drp, KKp, q, qn, seed_d, seed_id, S, P, ef_eff, E,
       cw, max_iters, k, metric, Dp, EWp, Hs, Ht, CWp, allowed, trk_d_in,
-      trk_id_in, out_d, out_id, hops, dcomp, trk_d_out, trk_id_out);
+      trk_id_in, out_d, out_id, hops, dcomp, trk_d_out, trk_id_out, tags,
+      need, iters, admit);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -533,13 +563,14 @@ extern "C" int hs_beam_search(const float* vec, int D, const int* rows,
                               const float* trk_d_in, const int* trk_id_in,
                               float* out_d, int* out_id, int* hops,
                               int* dcomp, float* trk_d_out, int* trk_id_out,
-                              void* stream) {
+                              const unsigned* tags, const unsigned* need,
+                              const int* iters, int* admit, void* stream) {
   const hs::Fetch f{rows, aux, mode, W, level, stride};
   return launch_beam<false>(vec, D, f, hs::Quant{}, hs::PopTrack{}, q, qn,
                             seed_d, seed_id, B, S, P, ef_eff, E, cw,
                             max_iters, k, metric, allowed, trk_d_in,
                             trk_id_in, out_d, out_id, hops, dcomp, trk_d_out,
-                            trk_id_out, stream);
+                            trk_id_out, tags, need, iters, admit, stream);
 }
 
 // the same over a bfloat16 store (rows widened to fp32 in registers)
@@ -550,13 +581,14 @@ extern "C" int hs_beam_search_bf16(
     int E, int cw, int max_iters, int k, int metric,
     const unsigned char* allowed, const float* trk_d_in,
     const int* trk_id_in, float* out_d, int* out_id, int* hops, int* dcomp,
-    float* trk_d_out, int* trk_id_out, void* stream) {
+    float* trk_d_out, int* trk_id_out, const unsigned* tags,
+    const unsigned* need, const int* iters, int* admit, void* stream) {
   const hs::Fetch f{rows, aux, mode, W, level, stride};
   return launch_beam<false>(vec, D, f, hs::Quant{}, hs::PopTrack{}, q, qn,
                             seed_d, seed_id, B, S, P, ef_eff, E, cw,
                             max_iters, k, metric, allowed, trk_d_in,
                             trk_id_in, out_d, out_id, hops, dcomp, trk_d_out,
-                            trk_id_out, stream);
+                            trk_id_out, tags, need, iters, admit, stream);
 }
 
 // Kβ on estimates: the scorer (arguments as in hs_greedy_descent_quant)
@@ -581,5 +613,6 @@ extern "C" int hs_beam_search_quant(
                            t, nullptr, nullptr,
                            seed_d, seed_id, B, S, P, ef_eff, E, cw, max_iters,
                            k, metric, nullptr, nullptr, nullptr, out_d,
-                           out_id, hops, dcomp, nullptr, nullptr, stream);
+                           out_id, hops, dcomp, nullptr, nullptr, nullptr,
+                           nullptr, nullptr, nullptr, stream);
 }

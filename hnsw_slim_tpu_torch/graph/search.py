@@ -35,7 +35,13 @@ The per-query semantics of Kβ are those of ``beam_level_scored``:
 * filtered (``allowed``): a second sorted list of P, the result track, takes
   the scored candidates that are allowed and not yet in it; the bound above
   becomes the track's ``ef_eff``-th distance, and results come from the
-  track. Disallowed nodes are traversed, never returned.
+  track. Disallowed nodes are traversed, never returned. In tag mode
+  (``tags`` and ``need`` in place of ``allowed``) a node is allowed for a
+  query iff (tags[id] & need[query]) == need[query]: one predicate a query,
+  so one batch mixes predicates. Either way the beam also returns, a
+  query, the scored candidates that passed (``admit``);
+* ``iters`` (i32[B], optional): a per-query iteration cap in place of
+  ``max_iters``.
 
 Kβ takes a whole sorted, -1/inf-padded buffer as its seeds (S <= P), so a
 beam over a carried buffer (the build's per-level beam, the levels below the
@@ -201,6 +207,17 @@ def _fetch_args(fetch: Fetch) -> tuple:
             fetch.level, stride)
 
 
+def admits(ids, allowed=None, tags=None, need=None):
+    """bool of ``ids``' shape [B, ...]: whether each node id (>= 0) passes
+    its query row's filter: ``allowed[id]`` (bool[N]), or in tag mode
+    (tags[id] & need[row]) == need[row] (``tags`` i32[N], ``need`` i32[B]:
+    u32 words held as int32)."""
+    if allowed is not None:
+        return allowed[ids.long()]
+    nd = need.reshape(-1, *([1] * (ids.dim() - 1)))
+    return (tags[ids.long()] & nd) == nd
+
+
 def bitonic_buffer_width(ef: int) -> int:
     """Physical buffer width the JAX engine uses for ef: the next power of
     two or 3*2^k (its bitonic merge widths)."""
@@ -221,17 +238,23 @@ def beam_search_plain(vectors, q, qn, rows, seed_d, seed_id, *, P: int,
                       k: int, metric: str = "l2", allowed=None, track_d=None,
                       track_id=None, scorer: QuantScorer | None = None,
                       pop_track: PopTrack | None = None,
-                      seen: list | None = None):
+                      seen: list | None = None, iters=None, tags=None,
+                      need=None):
     """Plain PyTorch Kβ: the JAX lockstep batched beam, step for step.
     ``rows`` is a Fetch or dense rows. Returns (d f32[B, k], ids i32[B, k],
-    hops i32[B], dcomp i32[B]); with ``allowed`` (bool[N]) and the incoming
-    track (f32/i32[B, P]) two more: the track after the beam; with
-    ``pop_track`` one more: the PopTrack after the beam. A ``seen`` list
-    gets, each step, the ids whose rows were fetched and the ids scored
-    (what a bound on the call's traffic counts)."""
+    hops i32[B], dcomp i32[B]); filtered (``allowed`` bool[N], or ``tags``
+    and ``need``: see ``admits``), with the incoming track (f32/i32[B, P]),
+    three more: the track after the beam and admit i32[B]; with
+    ``pop_track`` one more: the PopTrack after the beam. ``iters`` i32[B]:
+    each query's own iteration cap. A ``seen`` list gets, each step, the ids
+    whose rows were fetched and the ids scored (what a bound on the call's
+    traffic counts)."""
     fetch = as_fetch(rows)
     b, S = seed_d.shape
     dev = seed_d.device
+    filtered = allowed is not None or tags is not None
+    if iters is not None:
+        max_iters = int(iters.max()) if b else 0
     E, W = pop_width, fetch.width
     ew = E * W
     buf_d = torch.full((b, P), INF, device=dev)
@@ -243,12 +266,15 @@ def beam_search_plain(vectors, q, qn, rows, seed_d, seed_id, *, P: int,
     done = torch.zeros(b, dtype=torch.bool, device=dev)
     hops = torch.zeros(b, dtype=torch.int32, device=dev)
     dcomp = torch.zeros(b, dtype=torch.int32, device=dev)
-    for _ in range(max_iters):
+    admit = torch.zeros(b, dtype=torch.int32, device=dev)
+    for it in range(max_iters):
+        if iters is not None:
+            done = done | (iters <= it)
         if bool(done.all()):
             break
         unchk = (buf_chk == 0) & (buf_id >= 0) & (pos < ef_eff)
         # allowed-only bound: search on until ef_eff allowed results exist
-        bound = (buf_d if allowed is None else track_d)[:, ef_eff - 1]
+        bound = (track_d if filtered else buf_d)[:, ef_eff - 1]
         rank = torch.cumsum(unchk.int(), dim=1) - 1
         first = unchk & (rank == 0)
         sel_d = torch.where(first, buf_d, -INF).max(dim=1).values
@@ -294,11 +320,13 @@ def beam_search_plain(vectors, q, qn, rows, seed_d, seed_id, *, P: int,
         d = torch.where(cand, d, INF)
         hops += selmask.sum(dim=1, dtype=torch.int32)
         dcomp += cand.sum(dim=1, dtype=torch.int32)
-        if allowed is not None:
+        if filtered:
             # allowed candidates not yet in the track merge into it, track
             # entries first on equal distance (a stable sort)
             fdup = (cand_sorted[:, :, None] == track_id[:, None, :]).any(dim=2)
-            take = cand & allowed[safe.long()] & ~fdup
+            ok = cand & admits(safe, allowed, tags, need)
+            admit += ok.sum(dim=1, dtype=torch.int32)
+            take = ok & ~fdup
             fc_d = torch.cat([track_d, torch.where(take, d, INF)], dim=1)
             fc_i = torch.cat([track_id, torch.where(take, cand_sorted, -1)],
                              dim=1)
@@ -313,8 +341,8 @@ def beam_search_plain(vectors, q, qn, rows, seed_d, seed_id, *, P: int,
         buf_id = torch.gather(cat_i, 1, order[:, :P])
         buf_chk = torch.gather(cat_c, 1, order[:, :P])
     out = (buf_d[:, :k], buf_id[:, :k], hops, dcomp)
-    if allowed is not None:
-        out += (track_d, track_id)
+    if filtered:
+        out += (track_d, track_id, admit)
     if pop_track is not None:
         out += (pop_track,)
     return out
@@ -324,25 +352,32 @@ def beam_search(vectors, q, qn, rows, seed_d, seed_id, *, P: int,
                 ef_eff: int, pop_width: int, cw: int, max_iters: int, k: int,
                 metric: str = "l2", allowed=None, track_d=None,
                 track_id=None, scorer: QuantScorer | None = None,
-                pop_track: PopTrack | None = None):
+                pop_track: PopTrack | None = None, iters=None, tags=None,
+                need=None):
     """Kβ: one level's beam, one CUDA block per query (csrc/beam_search.cu),
-    over a Fetch (or dense rows), filtered when ``allowed`` is given, on
-    RaBitQ estimates when ``scorer`` is given, with the rerank track when
-    ``pop_track`` is. CPU tensors run ``beam_search_plain``. Same arguments
-    and results."""
+    over a Fetch (or dense rows), filtered when ``allowed`` (or ``tags`` and
+    ``need``) is given, on RaBitQ estimates when ``scorer`` is given, with
+    the rerank track when ``pop_track`` is, each query capped at its own
+    ``iters`` where given. CPU tensors run ``beam_search_plain``. Same
+    arguments and results."""
     if not seed_d.is_cuda:
         return beam_search_plain(
             vectors, q, qn, rows, seed_d, seed_id, P=P, ef_eff=ef_eff,
             pop_width=pop_width, cw=cw, max_iters=max_iters, k=k,
             metric=metric, allowed=allowed, track_d=track_d,
-            track_id=track_id, scorer=scorer, pop_track=pop_track)
+            track_id=track_id, scorer=scorer, pop_track=pop_track,
+            iters=iters, tags=tags, need=need)
     fetch = as_fetch(rows)
     b, S = seed_d.shape
     W = fetch.width
+    filtered = allowed is not None or tags is not None
     if scorer is not None:
+        if filtered or iters is not None:
+            raise NotImplementedError(
+                "beam_search: no filtered or per-query capped quantized beam")
         return _beam_search_quant(fetch, scorer, pop_track, seed_d, seed_id,
                                   P, ef_eff, pop_width, cw, max_iters, k,
-                                  metric, allowed)
+                                  metric)
     if pop_track is not None:
         raise ValueError("beam_search: a pop track needs a quantized scorer")
     d = q.shape[1]
@@ -362,26 +397,39 @@ def beam_search(vectors, q, qn, rows, seed_d, seed_id, *, P: int,
         vectors, "beam_search",
         () if fetch.mode == "dense" else (fetch.mode,))
     filt = (None,) * 5
-    if allowed is not None:
-        cuda.require(allowed, torch.bool, "allowed", (vectors.shape[0],))
+    tag = (None, None)
+    admit = None
+    if iters is not None:
+        cuda.require(iters, torch.int32, "iters", (b,))
+    if filtered:
+        if tags is not None:
+            cuda.require(tags, torch.int32, "tags", (vectors.shape[0],))
+            cuda.require(need, torch.int32, "need", (b,))
+            tag = (tags.data_ptr(), need.data_ptr())
+        else:
+            cuda.require(allowed, torch.bool, "allowed", (vectors.shape[0],))
         cuda.require(track_d, torch.float32, "track_d", (b, P))
         cuda.require(track_id, torch.int32, "track_id", (b, P))
         trk_d = torch.empty((b, P), dtype=torch.float32, device=dev)
         trk_i = torch.empty((b, P), dtype=torch.int32, device=dev)
-        filt = (allowed.data_ptr(), track_d.data_ptr(), track_id.data_ptr(),
-                trk_d.data_ptr(), trk_i.data_ptr())
-        modes += ("filtered",)
+        admit = torch.empty((b,), dtype=torch.int32, device=dev)
+        filt = (None if allowed is None else allowed.data_ptr(),
+                track_d.data_ptr(), track_id.data_ptr(), trk_d.data_ptr(),
+                trk_i.data_ptr())
+        modes += ("filtered",) if tags is None else ("tags",)
     if b:
         cuda.launch(
             "beam_search", vectors.data_ptr(), d, *fargs, q.data_ptr(),
             qn.data_ptr(), seed_d.data_ptr(), seed_id.data_ptr(), b, S, P,
             ef_eff, pop_width, cw, max_iters, k, int(metric == "ip"),
             *filt[:3], out_d.data_ptr(), out_i.data_ptr(), hops.data_ptr(),
-            dcomp.data_ptr(), *filt[3:], entry=entry, modes=modes,
-            shape=f"E{pop_width} ef{ef_eff} S{S}",
+            dcomp.data_ptr(), *filt[3:], *tag,
+            None if iters is None else iters.data_ptr(),
+            None if admit is None else admit.data_ptr(), entry=entry,
+            modes=modes, shape=f"E{pop_width} ef{ef_eff} S{S}",
         )
-    if allowed is not None:
-        return out_d, out_i, hops, dcomp, trk_d, trk_i
+    if filtered:
+        return out_d, out_i, hops, dcomp, trk_d, trk_i, admit
     return out_d, out_i, hops, dcomp
 
 
@@ -394,10 +442,8 @@ def _check_beam_shape(k, P, ef_eff, S, pop_width, W, cw):
 
 
 def _beam_search_quant(fetch, scorer, pop_track, seed_d, seed_id, P, ef_eff,
-                       pop_width, cw, max_iters, k, metric, allowed):
+                       pop_width, cw, max_iters, k, metric):
     """Kβ's quantized mode on CUDA tensors (see beam_search)."""
-    if allowed is not None:
-        raise NotImplementedError("beam_search: no filtered quantized beam")
     b, S = seed_d.shape
     _check_beam_shape(k, P, ef_eff, S, pop_width, fetch.width, cw)
     sargs = scorer.args()
@@ -647,13 +693,14 @@ def beam_reseed(buf_d, buf_id, seed_id, seed_d, active):
             torch.where(active[:, None], new_id, buf_id))
 
 
-def filter_track_init(allowed, cur, curdist, P: int):
+def filter_track_init(allowed, cur, curdist, P: int, tags=None, need=None):
     """The allowed-only result track (d f32[B, P], id i32[B, P]) seeded with
-    the beam's best seed when that seed is allowed — and with nothing else:
+    the beam's best seed when that seed is allowed (by ``allowed``, or in tag
+    mode by its query's predicate: ``admits``) — and with nothing else:
     the other exact seeds sit in the traversal buffer, are never scored
     again, and so never enter the track (the JAX package's behaviour, kept
     for id parity)."""
-    seed_ok = allowed[cur.clamp(min=0).long()] & (cur >= 0)
+    seed_ok = admits(cur.clamp(min=0), allowed, tags, need) & (cur >= 0)
     return beam_init(torch.where(seed_ok, cur, -1),
                      torch.where(seed_ok, curdist, INF), P)
 
@@ -736,7 +783,8 @@ def base_beam(fetch, vectors, q, qn, buf_d, buf_id, hops, dcomp, *,
     one carried buffer, P wide, k out of level 0, rows from ``fetch(l)``,
     beam_search's other keywords ``beam``, its result track carried level
     to level. Adds each level's counts to the seed step's ``hops`` and
-    ``dcomp`` (ints or i32[B]), its dcomp also to ``index.beam_dcomp``.
+    ``dcomp`` (ints or i32[B]), its dcomp also to ``index.beam_dcomp``, a
+    filtered beam's admitted candidates to ``index.filter_admit``.
     Returns (buf_d, buf_id, hops, dcomp, beam)."""
     with trace.span("index.beam"):
         for l in range(min(threshold_level, max_level), -1, -1):
@@ -751,6 +799,7 @@ def base_beam(fetch, vectors, q, qn, buf_d, buf_id, hops, dcomp, *,
             buf_d, buf_id = out[0], out[1]
             hops, dcomp = hops + out[2], dcomp + out[3]
             if beam.get("track_d") is not None:
+                trace.count("index.filter_admit", out[6])
                 beam.update(track_d=out[4], track_id=out[5])
             elif beam.get("pop_track") is not None:
                 beam.update(pop_track=out[4])
@@ -763,7 +812,7 @@ def chal_search(graph_nbr, graph_lvl_off, entry, vectors, vn, q, *,
                 pop_width: int = 1, dense0=None, dense_up=None, rank_up=None,
                 allowed=None, scan_width: int = 0, seed_width: int = 0,
                 up_vecs=None, up_vn=None, up_ids=None, up_count: int = 0,
-                seed_strata: int = 0):
+                seed_strata: int = 0, tags=None, need=None, iters=None):
     """Full Slim query path (hnswalg_slim.h searchKnn; JAX ``chal_search``).
 
     Greedy descent (Kε) for levels max_level..threshold_level+1, then one
@@ -773,11 +822,15 @@ def chal_search(graph_nbr, graph_lvl_off, entry, vectors, vn, q, *,
     through ``rank_up`` when given, else the CHAL slices. ``allowed`` (bool[N])
     filters in the kernel: results come from the allowed-only track, whose
     worst entry sets the stop bound, and the candidate cap ``scan_width`` is
-    not applied (as in JAX). ``seed_width`` > 1 with threshold_level 0 seeds
-    level 0 with seed_width entries: the exact top of the (up_vecs, up_vn,
-    up_ids) table of all level>=1 nodes, ``up_count`` of them real (Kα; per
-    table segment when ``seed_strata`` > 1; the entry unread), or without
-    the table the buffer of a seed_width-wide level-1 beam. ef >= 256 that
+    not applied (as in JAX). ``tags`` i32[N] with ``need`` i32[B] filter the
+    same way by each query's own predicate (``admits``; counter
+    ``index.filter_queries``). ``iters`` i32[B]: each query's own iteration
+    cap for every beam, in place of ``max_iters``. ``seed_width`` > 1 with
+    threshold_level 0 seeds level 0 with seed_width entries: the exact top
+    of the (up_vecs, up_vn, up_ids) table of all level>=1 nodes,
+    ``up_count`` of them real (Kα; per table segment when ``seed_strata``
+    > 1; the entry unread), or without the table the buffer of a
+    seed_width-wide level-1 beam. ef >= 256 that
     is not a bitonic width rounds the buffer up and keeps the window at ef.
     Returns (dists f32[B, k], ids i32[B, k], hops i32[B], dcomp i32[B]);
     hops and dcomp count the beams and the seed scan, as in the JAX package.
@@ -823,20 +876,25 @@ def chal_search(graph_nbr, graph_lvl_off, entry, vectors, vn, q, *,
                     vectors, q, qn, f1, buf_d, buf_id, P=seed_width,
                     ef_eff=seed_width, pop_width=pw,
                     cw=cand_width(seed_width, pw, f1.width, 0),
-                    max_iters=max_iters, k=seed_width, metric=metric)
+                    max_iters=max_iters, k=seed_width, metric=metric,
+                    iters=iters)
                 trace.count("index.beam_dcomp", dcomp)
-        filt = {}
-        if allowed is not None:
+        filt = {} if iters is None else {"iters": iters}
+        filtered = allowed is not None or tags is not None
+        if filtered:
             # the allowed track's seed keys off the best seed
             trk_d, trk_i = filter_track_init(allowed, buf_id[:, 0],
-                                             buf_d[:, 0], P)
-            filt = dict(allowed=allowed, track_d=trk_d, track_id=trk_i)
+                                             buf_d[:, 0], P, tags, need)
+            filt.update(allowed=allowed, track_d=trk_d, track_id=trk_i)
+            if tags is not None:
+                filt.update(tags=tags, need=need)
+                trace.count("index.filter_queries", q.shape[0])
     buf_d, buf_id, hops, dcomp, filt = base_beam(
         fetch, vectors, q, qn, buf_d, buf_id, hops, dcomp,
         threshold_level=threshold_level, max_level=max_level, P=P, ef=ef,
         k=k, pop_width=pop_width,
-        scan_width=0 if allowed is not None else scan_width,
+        scan_width=0 if filtered else scan_width,
         max_iters=max_iters, metric=metric, **filt)
-    if allowed is not None:
+    if filtered:
         return filt["track_d"][:, :k], filt["track_id"][:, :k], hops, dcomp
     return buf_d, buf_id, hops, dcomp

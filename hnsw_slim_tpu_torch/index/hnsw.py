@@ -57,8 +57,15 @@ def filter_iters(max_iters: int, mask: np.ndarray) -> int:
     """Iteration cap of a filtered search: heavy filtering needs more hops
     to fill the allowed-only track, so the cap grows with the inverse of the
     allowed share (floored at 5%), as in the JAX package."""
-    density = max(float(np.mean(mask)), 0.05)
-    return int(max_iters / density) + 8
+    return int(share_iters(max_iters, np.mean(mask)))
+
+
+def share_iters(max_iters: int, share) -> np.ndarray:
+    """``filter_iters`` of allowed shares (float64, any shape), one cap
+    each, as i32: a tag-filtered search caps each query by its own
+    predicate's share."""
+    density = np.maximum(np.asarray(share, np.float64), 0.05)
+    return ((max_iters / density).astype(np.int64) + 8).astype(np.int32)
 
 
 def allowed_rows(mask: np.ndarray, rows: int, device) -> torch.Tensor:

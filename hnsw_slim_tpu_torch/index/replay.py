@@ -3,8 +3,9 @@
 Every index's ``search`` runs ``batch_search``; ``HnswSlimIndex.search`` and
 ``HnswSlimQIndex.search`` also hand it a ``Replay`` of the device chain that
 ``search_async`` enqueues, from uploaded queries to the answers. For a call
-it takes, the host does three things: copy the queries into a pinned input
-(span ``index.upload``; PyTorch's threaded copy), launch one graph
+it takes, the host does three things: copy the queries (and the call's
+per-row words, where it has any) into a pinned input (span
+``index.upload``; PyTorch's threaded copy), launch one graph
 (``index.replay``), then wait and copy the call's rows of one pinned output
 out, into host memory that several calls' results share
 (``index.readback``). The graph is the chain as the eager
@@ -15,7 +16,11 @@ dcomp gathered into one output and copied back to pinned memory.
 When it takes a call, from what the call shows (there is nothing to set):
 
 - ``engages``: a CUDA device, at least one query, and no per-call tensor
-  besides the queries (an allow-list or per-query entries stay eager);
+  besides the queries and the per-row words (an allow-list or per-query
+  entries stay eager). Per-row words (``extra``, i32[X, b]: a tag-filtered
+  search's need words and iteration caps) go up in the queries' copy, as
+  the input's tail, so a call copies one input to the card however many
+  words a row has;
 - ``rows``: a batch replays padded to the next power of two rows, above
   ``FINE`` rows to the next of eight steps an octave (less than an eighth
   more rows), so that a batcher's varying sizes share a few graphs. (On an
@@ -127,30 +132,60 @@ def recount(counts, launched, b: int) -> None:
     trace.count("index.replays", 1)
 
 
-def enqueue(queries, device, chain):
-    """``chain(q)``'s device tensors, q the ``queries`` uploaded onto
-    ``device`` as f32[b, D] (span ``index.upload``)."""
+def packed(queries: np.ndarray, extra: np.ndarray | None) -> np.ndarray:
+    """One f32 host array: the queries' rows, then the per-row words
+    ``extra`` i32[X, b] row by row, their bits as they are."""
+    if extra is None:
+        return queries
+    out = np.empty(queries.size + extra.size, np.float32)
+    out[:queries.size] = queries.reshape(-1)
+    out[queries.size:].view(np.int32)[:] = extra.reshape(-1)
+    return out
+
+
+def unpacked(buf: torch.Tensor, b: int, d: int, nx: int):
+    """(q f32[b, D], x i32[nx, b] or None): views of ``packed``'s layout."""
+    q = buf[:b * d].view(b, d)
+    if not nx:
+        return q, None
+    return q, buf[b * d:b * (d + nx)].view(torch.int32).view(nx, b)
+
+
+def enqueue(queries, device, chain, extra=None):
+    """``chain(q)``'s device tensors (``chain(q, x)``'s with per-row words
+    ``extra`` i32[X, b]), q the ``queries`` uploaded onto ``device`` as
+    f32[b, D] and x the words, in one copy (span ``index.upload``)."""
     with trace.span("index.upload"):
-        q = torch.as_tensor(np.asarray(queries, np.float32), device=device)
-    return chain(q)
+        q = np.asarray(queries, np.float32)
+        buf = torch.as_tensor(packed(q, extra), device=device)
+    if extra is None:
+        return chain(buf)
+    return chain(*unpacked(buf, len(q), q.shape[1], len(extra)))
 
 
 def batch_search(index, queries, k: int, plan, *per_call,
-                 graphs: Replay | None = None):
+                 graphs: Replay | None = None, words=None):
     """(d f32[b, k], ids i32[b, k]) as numpy, and the call's (hops, dcomp)
     into ``index.last_stats``: every index's ``search`` (span
     ``index.search``). ``plan()`` gives (reads, chain) as ``Replay.search``
     takes them; the call replays one of ``graphs`` where ``engages`` allows
     (``per_call``: the call's other per-call arguments), else it runs
-    eagerly: ``enqueue``, then d and ids read back (``index.readback``)."""
+    eagerly: ``enqueue``, then d and ids read back (``index.readback``).
+    ``words(q)``, given q f32[b, D]: the call's per-row words i32[X, b]
+    (span ``index.words``), which the chain takes as its second argument;
+    they replay like the queries."""
     with trace.span("index.search"):
         q = np.asarray(queries, np.float32)
+        extra = None
+        if words is not None:
+            with trace.span("index.words"):
+                extra = words(q)
         reads, chain = plan()
         out = None
         if graphs is not None and engages(index.device, len(q), *per_call):
-            out = graphs.search(reads, q, k, chain, index.device)
+            out = graphs.search(reads, q, k, chain, index.device, extra)
         if out is None:
-            d, ids, hops, dcomp = enqueue(q, index.device, chain)
+            d, ids, hops, dcomp = enqueue(q, index.device, chain, extra)
             with trace.span("index.readback"):
                 d, ids = d[:, :k].cpu().numpy(), ids[:, :k].cpu().numpy()
         else:
@@ -188,45 +223,55 @@ class Replay:
         while len(self._graphs) > SLOTS:
             self._graphs.popitem(last=False)
 
-    def search(self, reads, queries: np.ndarray, width: int, chain, device):
+    def search(self, reads, queries: np.ndarray, width: int, chain, device,
+               extra: np.ndarray | None = None):
         """(d f32[b, width], ids i32[b, width], hops i32[b], dcomp i32[b])
         as fresh host arrays from the graph of the padded shape and
         ``reads`` (what the chain reads besides the queries, as ``key``
         takes it), captured here on the key's second sighting; None where
         the caller runs eagerly. ``queries`` f32[b, D]; ``chain(q)``
         enqueues the search of device queries q f32[B, D] and returns its
-        device tensors, d and ids at least ``width`` wide."""
+        device tensors, d and ids at least ``width`` wide; with per-row
+        words ``extra`` i32[X, b], ``chain(q, x)`` takes them as x
+        i32[X, B]."""
         if not self._lock.acquire(blocking=False):
             return None
         try:
-            shape = (rows(len(queries)), queries.shape[1])
+            nx = 0 if extra is None else len(extra)
+            shape = (rows(len(queries)), queries.shape[1], nx)
             k = key(shape, *reads)
             step = self.sight(k)
             if step == "eager":
                 return None
             if step == "capture":
-                self.keep(k, _Graph(queries, shape, width, chain, device))
+                self.keep(k, _Graph(queries, shape, width, chain, device,
+                                    extra))
                 trace.count("index.captures", 1)
-            return self._graphs[k].run(queries)
+            return self._graphs[k].run(queries, extra)
         finally:
             self._lock.release()
 
 
 class _Graph:
-    """One captured chain with its static buffers: the pinned input f32[B, D]
-    and its device twin, and one output (d, ids, hops and dcomp as i32
+    """One captured chain with its static buffers: the pinned input (f32[B,
+    D] queries, then X per-row words i32[X, B], in ``packed``'s layout) and
+    its device twin, and one output (d, ids, hops and dcomp as i32
     words) on the device and pinned. The graph's first node copies the
     input to the card, its last copies the output back. The input starts
-    as the capturing call's queries, repeated down its B rows."""
+    as the capturing call's rows, repeated down its B rows."""
 
     def __init__(self, queries: np.ndarray, shape, width: int, chain,
-                 device):
-        b = shape[0]
+                 device, extra: np.ndarray | None = None):
+        b, d, nx = shape
         bw = b * width
         self.width = width
-        self.inp = torch.from_numpy(
-            queries[np.arange(b) % len(queries)]).pin_memory()
-        self.q = torch.empty(shape, dtype=torch.float32, device=device)
+        pad = np.arange(b) % len(queries)
+        self.inp = torch.from_numpy(packed(
+            queries[pad], None if extra is None else extra[:, pad])
+            .reshape(-1)).pin_memory()
+        self.inp_q, self.inp_x = unpacked(self.inp, b, d, nx)
+        dev = torch.empty(self.inp.shape, dtype=torch.float32, device=device)
+        self.q, self.x = unpacked(dev, b, d, nx)
         self.out = torch.empty(2 * bw + 2 * b, dtype=torch.int32,
                                pin_memory=True)
         self.staged = torch.empty(2 * bw + 2 * b, dtype=torch.int32,
@@ -236,9 +281,10 @@ class _Graph:
                  self.staged[2 * bw:2 * bw + b], self.staged[2 * bw + b:])
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            self.q.copy_(self.inp, non_blocking=True)
+            dev.copy_(self.inp, non_blocking=True)
             with trace.diverted() as counts, cuda.held() as launched:
-                res = chain(self.q)
+                res = chain(self.q) if self.x is None else chain(self.q,
+                                                                 self.x)
             for v, r in zip(views, (res[0][:, :width], res[1][:, :width],
                                     *res[2:4])):
                 v.copy_(r)
@@ -267,10 +313,12 @@ class _Graph:
         self.used += n
         return self.slab[self.used - n:self.used]
 
-    def run(self, queries: np.ndarray):
+    def run(self, queries: np.ndarray, extra: np.ndarray | None = None):
         b, w = len(queries), self.width
         with trace.span("index.upload"):
-            self.inp[:b].copy_(torch.from_numpy(queries))
+            self.inp_q[:b].copy_(torch.from_numpy(queries))
+            if extra is not None:
+                self.inp_x[:, :b].copy_(torch.from_numpy(extra))
         with trace.span("index.replay"):
             self.graph.replay()
             self.done.record()

@@ -8,10 +8,12 @@ vectors (Kα) straight into the base-layer beam. Search runs on the flat CHAL
 arrays alone; ``densify_level0`` and ``densify_upper`` add dense serving
 layouts that give the same results with one row read per pop, and
 ``update_dense0`` / ``update_dense_upper`` refresh them in place from a
-changed host mirror. ``filter_mask`` filters in the kernel, ``entry`` gives
-per-query entry points, ``search_async`` returns without a sync, a
-repeated ``search`` on the card replays one CUDA graph (``replay.py``), and
-``autotune_index`` calibrates (pop_width, scan_width) for one ef.
+changed host mirror. ``filter_mask`` filters in the kernel, ``set_tags``
+and ``search(need=)`` filter each query by its own label predicate,
+``entry`` gives per-query entry points, ``search_async`` returns without a
+sync, a repeated ``search`` on the card replays one CUDA graph
+(``replay.py``; a tag-filtered one too), and ``autotune_index`` calibrates
+(pop_width, scan_width) for one ef.
 
 Not ported: ``straggler_stages`` (the kernels run each query on its own) and
 ``dynamic_ef`` / ``ef_max`` (nothing is compiled per ef); a config that sets
@@ -34,9 +36,19 @@ from ..graph.types import ChalGraph
 from ..ops import cuda
 from ..ops.distance import sq_norms
 from ..persist.patch import _level_rows, _subset_rows, to_np
+from ..utils import trace
 from . import replay
 from .bruteforce import exact_topk
-from .hnsw import HnswIndex, LastStats, _check, allowed_rows, filter_iters
+from .hnsw import (HnswIndex, LastStats, _check, allowed_rows, filter_iters,
+                   share_iters)
+
+
+def u32_words(a: np.ndarray, what: str) -> np.ndarray:
+    """``a`` as u32; refused unless its values are integers in [0, 2**32)."""
+    if a.dtype.kind not in "ui" or (a.size and (
+            int(a.min()) < 0 or int(a.max()) >= 1 << 32)):
+        raise ValueError(f"{what} are u32 integers")
+    return a.astype(np.uint32)
 
 
 def seed_rows(n: int) -> int:
@@ -76,6 +88,12 @@ class HnswSlimIndex:
         self._up_for = None
         self._replay = replay.Replay()
         self.last_stats: dict = {}
+        # label predicates (set_tags): the tag words on the device, one a
+        # store row, and on the host, one a node; allowed counts of each
+        # single label (and of 0)
+        self.tags = None
+        self._tags_np: np.ndarray | None = None
+        self._tag_count: dict = {}
 
     def _host_chal(self) -> dict:
         return self.host_chal if self.host_chal is not None \
@@ -215,6 +233,41 @@ class HnswSlimIndex:
     def set_ef(self, ef: int) -> None:
         self.scfg = dataclasses.replace(self.scfg, ef=ef)
 
+    def set_tags(self, tags) -> None:
+        """Install one u32 tag word a node (``tags`` [n], unsigned or
+        non-negative ints below 2**32; e.g. one-hot labels, 1 << label), for
+        ``search(need=)``. The column goes up to the card once (span
+        ``index.tags``), padded with 0 over the store's capacity rows, and
+        the nodes of each single label are counted once here, so a search
+        scans nothing of size n."""
+        with trace.span("index.tags"):
+            t = np.asarray(tags)
+            n = self.graph.n
+            if t.shape != (n,):
+                raise ValueError(f"set_tags: {t.shape} tag words for "
+                                 f"{n} nodes")
+            t = u32_words(t, "set_tags: tag words")
+            col = np.zeros(int(self.vectors.shape[0]), np.uint32)
+            col[:n] = t
+            self.tags = self._dev(col.view(np.int32))
+            self._tags_np = t
+            self._tag_count = {0: n}
+            self._tag_count.update({1 << j: int(((t >> j) & 1).sum())
+                                    for j in range(32)})
+
+    def _need_iters(self, need: np.ndarray) -> np.ndarray:
+        """i32[b]: each query's iteration cap, ``filter_iters`` of its need
+        word's allowed share. ``set_tags`` counted the shares of a single
+        label (and of 0); a word of several labels is counted here, a scan
+        of the n tag words each call it appears in."""
+        words, inv = np.unique(need, return_inverse=True)
+        counts = np.array([
+            self._tag_count[w] if w in self._tag_count else
+            int(((self._tags_np & np.uint32(w)) == w).sum())
+            for w in words.tolist()], np.float64)
+        share = counts / max(len(self._tags_np), 1)
+        return share_iters(self.scfg.iters(), share)[inv.reshape(-1)]
+
     def autotune(self, ef: int, **kw) -> dict:
         """Per-graph serve-time knob calibration — see autotune_index."""
         return autotune_index(self, ef, **kw)
@@ -264,9 +317,12 @@ class HnswSlimIndex:
             scan_width=s.scan_width, seed_width=s.seed_width,
             dense0=self.dense0, dense_up=self.dense_up, rank_up=self.rank_up)
 
-    def _plan(self, k: int, filter_mask=None, entry=None):
+    def _plan(self, k: int, filter_mask=None, entry=None,
+              tagged: bool = False):
         """(reads, chain) of ``replay.batch_search``: chal_search's
-        arguments besides the queries, and chal_search on uploaded ones."""
+        arguments besides the queries, and chal_search on uploaded ones;
+        ``tagged``: the chain also takes the call's per-row words x
+        (``_extra``) and filters by the tags."""
         g, kw = self.graph, self._serving(k)
         up = self._seed_table() if self._seeded() else (None,) * 3
         kw.update(
@@ -279,19 +335,53 @@ class HnswSlimIndex:
             kw.update(allowed=allowed_rows(mask, int(self.vectors.shape[0]),
                                            self.device),
                       max_iters=filter_iters(kw["max_iters"], mask))
+        if tagged:
+            kw.update(tags=self.tags)
+            return (kw,), lambda q, x: gs.chal_search(
+                q=q, need=x[0], iters=x[1], **kw)
         return (kw,), lambda q: gs.chal_search(q=q, **kw)
 
+    def _extra(self, queries, filter_mask, need):
+        """The per-row words of a tag-filtered call, i32[2, b]: the need
+        words' bits, then each query's iteration cap; None without
+        ``need``."""
+        if need is None:
+            return None
+        if filter_mask is not None:
+            raise ValueError("search: filter_mask or need, not both")
+        if self.tags is None:
+            raise ValueError("search(need=): set_tags first")
+        if len(self._tags_np) != self.graph.n or \
+                int(self.tags.shape[0]) != int(self.vectors.shape[0]):
+            raise ValueError("search(need=): the index grew since set_tags; "
+                             "set its tags again")
+        w = np.asarray(need)
+        if w.shape != (len(queries),):
+            raise ValueError(f"search(need=): {w.shape} need words for "
+                             f"{len(queries)} queries")
+        w = u32_words(w, "search(need=): need words")
+        return np.stack([w.view(np.int32), self._need_iters(w)])
+
     def search_async(self, queries, k: int,
-                     filter_mask: np.ndarray | None = None, entry=None):
+                     filter_mask: np.ndarray | None = None, entry=None,
+                     need=None):
         """Enqueue one search — exactly what ``search`` runs eagerly — and
         return the device tensors (d f32[B, k], ids i32[B, k], hops i32[B],
         dcomp i32[B]) without waiting for the card, so a server can overlap
-        batch k's read-back with batch k+1's compute."""
-        return replay.enqueue(queries, self.device,
-                              self._plan(k, filter_mask, entry)[1])
+        batch k's read-back with batch k+1's compute. While a profiler
+        records, a tag-filtered call counts ``index.filter_short`` on the
+        card: its queries that answer fewer than k ids."""
+        extra = self._extra(queries, filter_mask, need)
+        out = replay.enqueue(
+            queries, self.device,
+            self._plan(k, filter_mask, entry, extra is not None)[1], extra)
+        if extra is not None and trace.recording():
+            trace.count("index.filter_short", out[1][:, -1] < 0)
+        return out
 
     def search(self, queries: np.ndarray, k: int,
-               filter_mask: np.ndarray | None = None, entry=None):
+               filter_mask: np.ndarray | None = None, entry=None,
+               need=None):
         """(dists f32[B, k], ids i32[B, k]) as numpy — searchKnn. Sets
         ``last_stats`` (hops, distance_computations, summed when first
         read).
@@ -299,13 +389,25 @@ class HnswSlimIndex:
         filter_mask bool[N]: disallowed ids are traversed but never
         returned; the kernel keeps an allowed-only result track whose worst
         entry sets the stop bound, so a query returns k allowed ids whenever
-        k allowed nodes are reachable. entry: per-query entry points i32[B]
-        (default: the graph's entry point). A repeated call on the card
-        without either replays one CUDA graph of the whole search
-        (``replay``), with the same results."""
-        return replay.batch_search(
-            self, queries, k, lambda: self._plan(k, filter_mask, entry),
-            filter_mask, entry, graphs=self._replay)
+        k allowed nodes are reachable. need u32[B] (after ``set_tags``): the
+        same, each query by its own predicate, node v allowed for query b
+        iff (tags[v] & need[b]) == need[b]; each query capped at
+        ``filter_iters`` of its predicate's allowed share. entry: per-query
+        entry points i32[B] (default: the graph's entry point). A repeated
+        call on the card without ``filter_mask`` or ``entry`` replays one
+        CUDA graph of the whole search (``replay``; the need words go up
+        with the queries), with the same results. While a profiler records,
+        a tag-filtered call counts ``index.filter_short`` from the ids read
+        back: its queries that answer fewer than k ids."""
+        words = None if need is None else (
+            lambda q: self._extra(q, filter_mask, need))
+        d, ids = replay.batch_search(
+            self, queries, k,
+            lambda: self._plan(k, filter_mask, entry, need is not None),
+            filter_mask, entry, graphs=self._replay, words=words)
+        if need is not None and trace.recording():
+            trace.count("index.filter_short", int((ids[:, -1] < 0).sum()))
+        return d, ids
 
     def index_size(self) -> int:
         """Graph-only bytes in the reference's accounting."""

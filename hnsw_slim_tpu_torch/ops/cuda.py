@@ -11,7 +11,8 @@ edited kernel is rebuilt rather than reloaded stale.
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 ``check`` raises on a non-zero code. ``launches`` counts, per kernel, the
 wrapper calls that launched it, and per kernel mode (``kernel.mode``: a fetch
-form, the filtered beam, stratified seeds, the guarded prune, the quantized
+form, the filtered beam on an allow-list and on per-query label predicates
+(``tags``), stratified seeds, the guarded prune, the quantized
 scorers and the rerank track of SlimQ, ``bf16`` for rows read from a
 bfloat16 vector store, the dedup mode of the run scatter, the join mode
 of the NN-descent candidates, the ids map of the radix sort and ``k128``
@@ -64,7 +65,7 @@ KERNELS = ("topk_dist", "beam_search", "rng_prune", "cand_merge",
            "run_scatter", "nnd_cand", "rp_window", "row_norms",
            "patch_apply")
 MODES = ("topk_dist.strata", "beam_search.chal", "beam_search.rank",
-         "beam_search.filtered", "greedy_descent.chal", "greedy_descent.rank",
+         "beam_search.filtered", "beam_search.tags", "greedy_descent.chal", "greedy_descent.rank",
          "rng_prune.guarded", "topk_dist.estimate", "beam_search.quant",
          "beam_search.quant_ex", "beam_search.rerank", "greedy_descent.quant",
          "fht_rotate.g_tables", "topk_dist.bf16", "beam_search.bf16",
@@ -100,10 +101,10 @@ _SIGNATURES = {
     # vectors, D, fetch (rows, aux, mode, W, level, stride), q, qn, seed_d,
     # seed_id, B, S, P, ef_eff, E, cw, max_iters, k, metric, allowed,
     # track_d, track_id, out_d, out_id, hops, dcomp, track_d_out,
-    # track_id_out, stream
+    # track_id_out, tags, need, iters, admit, stream
     "hs_beam_search": [P, I32, P, P, I32, I32, I32, I32, P, P, P, P, I32,
                        I32, I32, I32, I32, I32, I32, I32, I32, P, P, P, P, P,
-                       P, P, P, P, P],
+                       P, P, P, P, P, P, P, P, P],
     # vectors, vn, D, base_ids, cand, m_per_row, B, C, m_max,
     # keep_all_under_m, keep_pruned, out_width, metric, guard, ring rows,
     # threads, smem bytes (graph/heuristic.py prune_plan), out, cnt, stream

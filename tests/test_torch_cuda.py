@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (Kα–Kξ, and their fetch-form, filtered, strata,
-guarded, quantized-scorer, rerank-track, collect, join and dedup modes)
+"""The port's CUDA kernels (Kα–Kξ, and their fetch-form, filtered, tag,
+strata, guarded, quantized-scorer, rerank-track, collect, join and dedup modes)
 against their plain PyTorch versions on the card. Marked ``cuda``; each test skips when no CUDA device is present.
 The machine with the card has no JAX, so run these without the suite's
 conftest (which imports JAX):
@@ -1527,6 +1527,42 @@ def test_filtered_beam_exactly_equal_plain(exact, share):
                       track_id=trk[1])
     ti = out[5]
     assert allowed[ti[ti >= 0].long()].all()
+
+
+@pytest.mark.parametrize("labels", [12, 32])
+def test_tag_beam_exactly_equal_plain(exact, labels):
+    """Kβ's tag mode (a u32 need word a query, predicates mixed in the
+    batch) with per-query iteration caps, under the pre-window rule (P 64,
+    E 8, W 60): the buffer, the track, hops, dcomp and the admitted counts
+    exactly equal to the plain version's; every track id passes its
+    query's predicate; the launch counts as the tag mode, not the
+    allow-list's."""
+    from hnsw_slim_tpu_torch.graph import search as gs
+    from hnsw_slim_tpu_torch.ops import cuda
+
+    x, _, q = exact
+    rng = np.random.default_rng(13)
+
+    def words(n):
+        return torch.as_tensor((1 << rng.integers(0, labels, n)).astype(
+            np.uint32).view(np.int32), device="cuda")
+
+    tags, need = words(len(x)), words(len(q))
+    iters = torch.as_tensor(rng.integers(0, 400, len(q)).astype(np.int32),
+                            device="cuda")
+    sd, si = _seed(x, q, 14)
+    trk = gs.filter_track_init(None, si[:, 0], sd[:, 0], 64, tags, need)
+    cuda.reset_launches()
+    out = _beam_equal(x, q, _random_rows(len(x), 60, 15), sd, si, P=64,
+                      ef_eff=64, pop_width=8, cw=gs.cand_width(64, 8, 60, 0),
+                      max_iters=400, k=10, track_d=trk[0], track_id=trk[1],
+                      tags=tags, need=need, iters=iters)
+    assert cuda.launches["beam_search.tags"] == 1
+    assert cuda.launches["beam_search.filtered"] == 0
+    ti = out[5]
+    t = tags[ti.clamp(min=0).long()]
+    assert ((t & need[:, None]) == need[:, None])[ti >= 0].all()
+    assert (out[6] <= out[3]).all() and out[6].sum() > 0
 
 
 def test_quant_beam_prewindow_matches_plain(data, slimq_index):

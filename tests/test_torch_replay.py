@@ -7,19 +7,21 @@ is captured on its second sighting, at most ``SLOTS`` graphs, a CPU device,
 an allow-list or per-query entries stay eager, a busy replay sends the
 caller eager), the counters' and launch counts' diversion under a capture
 and their count after a replay, the wiring of both Slim indexes' ``search``
+(and of a tag-filtered one, its need words replayed beside the queries)
 through a stand-in graph that runs the padded chain eagerly, and every
 index's ``search`` (``HnswIndex``'s too, which never replays) through the
 one host path: its spans, its results and ``last_stats``.
 
 Marked ``cuda``, each skipping without a card: a replayed ``search`` of a
-Slim and a SlimQ index gives the eager chain's bits (d, ids, hops, dcomp)
-over calls of one shape with other queries, over calls of sizes padded to
-one graph, and after ``set_ef``, new dense layouts and a client's patch
-that grows the index; its results and ``last_stats`` outlive the next
-call; a traced replay counts what the eager chain counts, and a replay
-adds the kernel launch counts an eager call of its size adds; and the
-kernels of a replay appear in the device trace under their own names,
-captured inside a profiled window or before it.
+Slim and a SlimQ index, and a tag-filtered one whose rows are each their
+query searched alone under its own mask, gives the eager chain's bits (d,
+ids, hops, dcomp) over calls of one shape with other queries, over calls
+of sizes padded to one graph, and after ``set_ef``, new dense layouts and
+a client's patch that grows the index; its results and ``last_stats``
+outlive the next call; a traced replay counts what the eager chain counts,
+and a replay adds the kernel launch counts an eager call of its size adds;
+and the kernels of a replay appear in the device trace under their own
+names, captured inside a profiled window or before it.
 The machine with the card has no JAX, so run these without the suite's
 conftest (which imports JAX):
 
@@ -292,20 +294,26 @@ def test_counts_of_a_replay_are_of_its_rows(rec, fake_launch):
 
 
 class EagerGraph:
-    """Stands in for a captured graph on the CPU: its input padded as
-    ``_Graph``'s, each replay runs the chain on it, its counts and
-    launches held back and then counted as ``_Graph.run`` counts them."""
+    """Stands in for a captured graph on the CPU: its input (and per-row
+    words) padded as ``_Graph``'s, each replay runs the chain on it, its
+    counts and launches held back and then counted as ``_Graph.run`` counts
+    them."""
 
-    def __init__(self, queries, shape, width, chain, device):
+    def __init__(self, queries, shape, width, chain, device, extra=None):
         self.chain, self.width = chain, width
-        self.inp = torch.from_numpy(queries[np.arange(shape[0])
-                                            % len(queries)])
+        pad = np.arange(shape[0]) % len(queries)
+        self.inp = torch.from_numpy(queries[pad])
+        self.x = None if extra is None else torch.from_numpy(extra[:, pad])
 
-    def run(self, queries):
+    def run(self, queries, extra=None):
         b, w = len(queries), self.width
         self.inp[:b] = torch.from_numpy(queries)
+        args = (self.inp.clone(),)
+        if extra is not None:
+            self.x[:, :b] = torch.from_numpy(extra)
+            args += (self.x.clone(),)
         with trace.diverted() as counts, cuda.held() as launched:
-            d, i, h, c = self.chain(self.inp.clone())
+            d, i, h, c = self.chain(*args)
         replay.recount(replay.per_row(counts, len(self.inp)), launched, b)
         return (d[:b, :w].numpy().copy(), i[:b, :w].numpy().copy(),
                 h[:b].numpy().copy(), c[:b].numpy().copy())
@@ -382,6 +390,38 @@ def test_filtered_and_entry_searches_stay_eager(rec, stand_in, cpu_indexes):
     assert [_children(got["spans"], s) for s in got["spans"]
             if s.name == "index.search"] == [
         ["index.upload", "index.seed", "index.beam", "index.readback"]] * 6
+
+
+def test_a_tag_filtered_search_replays_and_a_mask_stays_eager(
+        rec, stand_in, cpu_indexes):
+    """A repeated ``search(need=)`` of one padded size replays (its need
+    words and caps beside the queries) with the eager chain's bits and
+    counts; a ``filter_mask`` call of the same queries stays eager."""
+    idxs, queries = cpu_indexes
+    idx = idxs["slim"]
+    idx._replay = replay.Replay()
+    rng = np.random.default_rng(4)
+    idx.set_tags((1 << rng.integers(0, 12, idx.graph.n)).astype(np.uint32))
+    need = (1 << rng.integers(0, 12, len(queries))).astype(np.uint32)
+    rows = [slice(0, 20), slice(20, 52), slice(52, 79)]
+    with recorded():
+        for r in rows:
+            assert_same(searched(idx, queries[r], 10, need=need[r]),
+                        eager(idx, queries[r], 10, need=need[r]))
+        for _ in range(3):
+            idx.search(queries[:32], 10, filter_mask=idx._tags_np == 1)
+    c = rec.drain()["counters"]
+    assert (c["index.captures"], c["index.replays"]) == (1, 2)
+    with recorded():
+        searched(idx, queries[:30], 10, need=need[:30])
+    got = rec.drain()["counters"]
+    with recorded():
+        eager(idx, queries[:30], 10, need=need[:30])
+    want = rec.drain()["counters"]
+    assert got["index.replays"] == 1
+    for name in ("index.queries", "index.beam_dcomp", "index.filter_queries",
+                 "index.filter_admit", "index.filter_short"):
+        assert got[name] == want[name], name
 
 
 def _children(spans, parent) -> list:
@@ -543,6 +583,33 @@ def test_slimq_replay_is_bit_equal_on_card(rec, card, slimq_card, name):
                         eager(idx, q, 10, rerank=rerank))
     c = rec.drain()["counters"]
     assert (c["index.captures"], c["index.replays"]) == (1, 3)
+
+
+@pytest.mark.cuda
+def test_tag_filtered_replay_is_bit_equal_on_card(rec, card, slim_card):
+    """A repeated ``search(need=)`` replays one graph with the eager chain's
+    bits; each row of a batch of mixed predicates is bit for bit its query
+    searched alone under its own mask."""
+    idx = slim_card
+    idx.scfg = SLIM_CFGS["seeded"]
+    idx._replay = replay.Replay()
+    rng = np.random.default_rng(6)
+    tags = (1 << rng.integers(0, 12, idx.graph.n)).astype(np.uint32)
+    need = (1 << rng.integers(0, 12, len(card[1]))).astype(np.uint32)
+    idx.set_tags(tags)
+    with recorded():
+        for j, q in enumerate(batches(card[1], 4)):
+            nd = need[256 * j:256 * (j + 1)]
+            assert_same(searched(idx, q, 10, need=nd),
+                        eager(idx, q, 10, need=nd))
+    c = rec.drain()["counters"]
+    assert (c["index.captures"], c["index.replays"]) == (1, 3)
+    q = card[1][:64]
+    got = searched(idx, q, 10, need=need[:64])
+    for r in range(0, 64, 9):
+        one = searched(idx, q[r:r + 1], 10,
+                       filter_mask=(tags & need[r]) == need[r])
+        assert_same([a[r:r + 1] for a in got], one)
 
 
 PADDED = [(3, 4, 3), (37, 64, 50), (65, 100, 128), (513, 1000, 777),
